@@ -1,21 +1,33 @@
-"""Drives the PyTorch port's main path on one NVIDIA GPU and checks it.
+"""Drives the PyTorch port's main paths on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and no phase catches and
 continues:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: every CUDA kernel of the path from src/repro_torch/csrc/;
+  2. build: every CUDA kernel from src/repro_torch/csrc/, one nvcc each,
+     all started together;
   3. kernel vs plain: each kernel against its plain PyTorch version at the
-     shapes the served models give it, with its time, the plain version's,
-     a library yardstick's and the least time the card could take;
-  4. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
+     shapes its path gives it, with its time, the plain version's, a
+     library yardstick's and the least time the card could take:
+     a. paged attention at the served models' shapes;
+     b. the compressor's five kernels (int4 pack/unpack, project,
+        project-transpose + pack, reconstruct) at every leaf shape of the
+        training configuration, r = 64 and r_t in {64, 40}, held to the
+        gates tests/test_kernels.py holds the Pallas kernels to;
+  4. train: ``run_diloco_training`` on opt-1.3b at full width, 12 of 24
+     layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
+     int4, the fused kernels), 2 rounds with the delay and EF: finite
+     losses, round 0 leaves the params bit for bit, and every compressor
+     kernel launched as often as the tree's leaves say;
+  5. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
      paged engine; the kernel's launch count must equal device steps x 24;
-  5. paged vs dense: greedy tokens of the paged engine (kernel) and of the
+  6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
      dense decode loop (plain attention) at full width must agree.
 The line before the last holds the kernels' numbers as JSON; the last line
 is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
@@ -53,7 +65,7 @@ def build():
 
     _phase("build")
     t0 = time.monotonic()
-    paths = _build.build_all(["paged_attention"])
+    paths = _build.build_all(_build.KERNEL_LIBS)
     for name, path in paths.items():
         print(f"built {name}: {path.name}")
         for line in _build.ptxas_report.get(name, "").splitlines():
@@ -140,7 +152,9 @@ def library_paged_attention(q, cache, table, lengths, *, window):
 def time_ms(fn, *, iters=30, flush=None):
     """Median device time of ``fn`` over ``iters`` launches (CUDA events),
     with the L2 cache overwritten before each one, as a decode step finds
-    it after the previous layer's weights streamed through."""
+    it after the previous layer's weights streamed through. A spin of
+    ~0.5 ms keeps the stream busy before each start event, so the host's
+    launch overhead of a short kernel falls outside the timed span."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -148,6 +162,7 @@ def time_ms(fn, *, iters=30, flush=None):
     for i in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(1_000_000)
         starts[i].record()
         fn()
         ends[i].record()
@@ -238,7 +253,350 @@ def _compare(ap, name, q, cache, table, lengths, window, rows, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path, through the user's entry point
+# phase 3b: the compressor's kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+RANK = 64
+TRAIN_LAYERS = 12                 # of opt-1.3b's 24: the round's ~15 model
+                                  # copies must fit the card's 80 GB
+COMPRESS_KERNELS = [
+    # name, wrapper attribute, source, the TPU kernel it replaces
+    ("quant4_pack", "quant4.cuda_quant4_pack", "src/repro_torch/csrc/quant4.cu",
+     "src/repro/kernels/quant4.py:24"),
+    ("quant4_unpack", "quant4.cuda_quant4_unpack",
+     "src/repro_torch/csrc/quant4.cu", "src/repro/kernels/quant4.py:36"),
+    ("fused_project", "fused_compress.cuda_project",
+     "src/repro_torch/csrc/fused_compress.cu",
+     "src/repro/kernels/fused_compress.py:105"),
+    ("fused_project_t_pack", "fused_compress.cuda_project_t_pack",
+     "src/repro_torch/csrc/fused_compress.cu",
+     "src/repro/kernels/fused_compress.py:170"),
+    ("fused_reconstruct", "fused_compress.cuda_reconstruct",
+     "src/repro_torch/csrc/fused_compress.cu",
+     "src/repro/kernels/fused_compress.py:249"),
+]
+
+
+def _wrapper(attr):
+    import importlib
+    mod, fn = attr.split(".")
+    return getattr(importlib.import_module("repro_torch.kernels." + mod), fn)
+
+
+def train_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("opt-1.3b"), n_layers=TRAIN_LAYERS)
+
+
+def leaf_shapes(cfg):
+    """The compressor's work for one cluster and round: {(m, n): count} of
+    the low-rank leaves and {n_elems: count} of the quant-only ones."""
+    from repro_torch.core.compression import matrix_shape, tree_shapes
+    from repro_torch.models import model as M
+
+    low, quant = {}, {}
+    for shape in tree_shapes(M.init_params(cfg, device="meta")).values():
+        m, n = matrix_shape(shape)
+        if min(m, n) >= 64:
+            low[(m, n)] = low.get((m, n), 0) + 1
+        else:
+            quant[m * n] = quant.get(m * n, 0) + 1
+    return low, quant
+
+
+def _nblk(n_elems):
+    return -(-n_elems // 256)
+
+
+def _bound(nbytes, flops):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def _fail(msg):
+    raise SystemExit(f"FAIL {msg}")
+
+
+def _check_payload(name, P, Q, pp, sp, pq, sq, hat, dec, rt):
+    """The Pallas gates (tests/test_kernels.py::_assert_fused_contract) on
+    the kernels' outputs, oracles on the CPU in exact IEEE arithmetic."""
+    from repro_torch.kernels import ref
+
+    m, r = P.shape
+    n = Q.shape[0]
+    for tag, f, pk, sc in (("P", P, pp, sp), ("Q", Q, pq, sq)):
+        want_p, want_s, _ = ref.quant4_pack_ref(f.cpu().reshape(-1))
+        if not torch.equal(pk.cpu(), want_p):
+            _fail(f"{name}: packed {tag} bytes differ from quant4_pack_ref "
+                  f"of the kernel's own factor")
+        rel = ((sc.cpu() - want_s).abs() / want_s.abs()).max()
+        if float(rel) > 1e-6:
+            _fail(f"{name}: {tag} scales off by rtol {float(rel):.3e}")
+    Pq = ref.quant4_unpack_ref(pp, sp, m * r).reshape(m, r)
+    Qq = ref.quant4_unpack_ref(pq, sq, n * r).reshape(n, r)
+    oracle = Pq @ Qq.T
+    bound = 16 * torch.finfo(torch.float32).eps * (Pq.abs() @ Qq.abs().T)
+    gap = (hat - oracle).abs()
+    if bool((gap > bound + 1e-30).any()):
+        _fail(f"{name}: reconstruction off the payload's oracle by "
+              f"{float(gap.max()):.3e} > 16 eps |Pq||Qq|^T")
+    if not torch.equal(dec, hat):
+        _fail(f"{name}: decompress dual differs from the reconstruction")
+    if rt < r and (P[:, rt:].any() or Q[:, rt:].any()):
+        _fail(f"{name}: columns >= r_t = {rt} not exactly zero")
+    return float((hat - oracle).abs().max())
+
+
+def compressor_kernels():
+    """Each compressor kernel against its plain version at every leaf shape
+    of the training configuration; returns per-kernel rows whose times are
+    summed over one cluster's compressor call (each shape times its count
+    in the tree)."""
+    from repro_torch.core.compression import LowRankQuant, _orthonormalize
+    from repro_torch.kernels import fused_compress as fc
+    from repro_torch.kernels import quant4 as q4
+    from repro_torch.kernels import ref
+
+    _phase("kernel vs plain: the compressor (quant4, fused_compress)")
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    low, quant = leaf_shapes(train_config())
+    tot = {k[0]: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      nbytes=0, flops=0, max_abs_err=0.0)
+           for k in COMPRESS_KERNELS}
+
+    def add(name, count, ms, plain_ms, lib_ms, nbytes, flops, err):
+        t = tot[name]
+        t["ms"] += count * ms
+        t["plain_ms"] += count * plain_ms
+        t["library_ms"] = (None if lib_ms is None
+                           else t["library_ms"] + count * lib_ms)
+        t["nbytes"] += count * nbytes
+        t["flops"] += count * flops
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+
+    # quant-only leaves: pack + unpack on the flat leaf
+    for n_el, count in sorted(quant.items()):
+        x = torch.randn(n_el, generator=gen, device=dev) * 0.05
+        p, s = q4.quant4_pack(x)
+        out = q4.quant4_unpack(p, s, n_el)
+        p_ref, s_ref, _ = ref.quant4_pack_ref(x.cpu())
+        if not torch.equal(p.cpu(), p_ref) or not torch.equal(s.cpu(), s_ref):
+            _fail(f"quant4_pack n={n_el}: bytes or scales differ from the "
+                  f"plain version")
+        if not torch.equal(out.cpu(), ref.quant4_unpack_ref(p_ref, s_ref,
+                                                            n_el)):
+            _fail(f"quant4_unpack n={n_el}: not exact")
+        nb_pack = 4 * n_el + _nblk(n_el) * (128 + 4)
+        ms = time_ms(lambda: q4.cuda_quant4_pack(x), flush=flush)
+        plain = time_ms(lambda: ref.quant4_pack_ref(x), flush=flush)
+        add("quant4_pack", count, ms, plain, None, nb_pack, 5 * n_el, 0.0)
+        ms_u = time_ms(lambda: q4.cuda_quant4_unpack(p, s, n_el), flush=flush)
+        plain_u = time_ms(lambda: ref.quant4_unpack_ref(p, s, n_el),
+                          flush=flush)
+        add("quant4_unpack", count, ms_u, plain_u, None, nb_pack, n_el, 0.0)
+        print(f"quant-only n={n_el} x{count}: pack {ms:.4f} ms (plain "
+              f"{plain:.4f}), unpack {ms_u:.4f} ms (plain {plain_u:.4f})",
+              flush=True)
+
+    # low-rank leaves: the fused pipeline, gates at r_t = 64 and 40
+    ref_comp = LowRankQuant(rank=RANK, backend="ref")
+    for (m, n), count in sorted(low.items()):
+        d = torch.randn((m, n), generator=gen, device=dev) * 0.3
+        q = torch.randn((n, RANK), generator=gen, device=dev)
+        for rt in (RANK, 40):
+            hat, _, q_new, pay = fc.fused_compress_ef(d, None, q, rt,
+                                                      compute_error=False)
+            dec = fc.fused_decompress(pay.packed_p, pay.scales_p,
+                                      pay.packed_q, pay.scales_q, m, n, RANK)
+            err = _check_payload(f"fused m={m} n={n} r_t={rt}",
+                                 pay.p_factor, pay.q_factor, pay.packed_p,
+                                 pay.scales_p, pay.packed_q, pay.scales_q,
+                                 hat, dec, rt)
+            hat_r, q_r = ref_comp._one(d, q, rt)
+            one_step = (float(pay.scales_p.max()) * float(
+                pay.q_factor.abs().max()) + float(pay.scales_q.max())
+                * float(pay.p_factor.abs().max()))
+            chain = float((hat - hat_r).abs().max())
+            if chain > one_step:
+                _fail(f"fused m={m} n={n} r_t={rt}: {chain:.3e} from the ref "
+                      f"chain, more than one int4 step per factor "
+                      f"({one_step:.3e})")
+            if rt < RANK and q_new[:, rt:].any():
+                _fail(f"fused m={m} n={n}: q_new columns >= {rt} not zero")
+            q_rel = float(((q_new - q_r).abs()
+                           / (q_r.abs() + 1e-5)).max())
+            print(f"m={m} n={n} r_t={rt} x{count}: recon vs oracle "
+                  f"{err:.3e}, vs ref chain {chain:.3e} (one int4 step "
+                  f"{one_step:.3e}), q_new max rel diff {q_rel:.3e}",
+                  flush=True)
+            del hat, dec, hat_r, q_r, q_new
+        # times at r_t = 64, the trainer's variant (no EF operand)
+        qm = q.contiguous()
+        P = fc.cuda_project(d, None, qm)
+        P_plain = fc.project_plain(d, None, qm)
+        err3 = float((P - P_plain).abs().max())
+        P = (_orthonormalize(P)).contiguous()
+        Q, pq, sq = fc.cuda_project_t_pack(d, None, P)
+        Q_plain, _, _ = fc.project_t_pack_plain(d, None, P)
+        err4 = float((Q - Q_plain).abs().max())
+        pp, sp = q4.cuda_quant4_pack(P.reshape(-1))
+        hat, _ = fc.cuda_reconstruct(pp, sp, pq, sq, None, None, m, n, RANK,
+                                     with_ef=False)
+        hat_plain, _ = fc.reconstruct_plain(pp, sp, pq, sq, None, None, m, n,
+                                            RANK, with_ef=False)
+        err5 = float((hat - hat_plain).abs().max())
+        Pq = ref.quant4_unpack_ref(pp, sp, m * RANK).reshape(m, RANK)
+        Qq = ref.quant4_unpack_ref(pq, sq, n * RANK).reshape(n, RANK)
+        flops = 2 * m * n * RANK
+        mn, mr, nr = m * n, m * RANK, n * RANK
+        t3 = time_ms(lambda: fc.cuda_project(d, None, qm), flush=flush)
+        p3 = time_ms(lambda: fc.project_plain(d, None, qm), flush=flush)
+        l3 = time_ms(lambda: torch.matmul(d, qm), flush=flush)
+        add("fused_project", count, t3, p3, l3, 4 * (mn + nr + mr), flops,
+            err3)
+        t4 = time_ms(lambda: fc.cuda_project_t_pack(d, None, P), flush=flush)
+        p4 = time_ms(lambda: fc.project_t_pack_plain(d, None, P), flush=flush)
+        l4 = time_ms(lambda: torch.matmul(d.T, P), flush=flush)
+        add("fused_project_t_pack", count, t4, p4, l4,
+            4 * (mn + mr + nr) + nr // 2 + 4 * _nblk(nr), flops, err4)
+        t1 = time_ms(lambda: q4.cuda_quant4_pack(P.reshape(-1)), flush=flush)
+        pl1 = time_ms(lambda: ref.quant4_pack_ref(P.reshape(-1)), flush=flush)
+        add("quant4_pack", count, t1, pl1, None,
+            4 * mr + mr // 2 + 4 * _nblk(mr), 5 * mr, 0.0)
+        t5 = time_ms(lambda: fc.cuda_reconstruct(pp, sp, pq, sq, None, None,
+                                                 m, n, RANK, with_ef=False),
+                     flush=flush)
+        p5 = time_ms(lambda: fc.reconstruct_plain(pp, sp, pq, sq, None, None,
+                                                  m, n, RANK, with_ef=False),
+                     flush=flush)
+        l5 = time_ms(lambda: torch.matmul(Pq, Qq.T), flush=flush)
+        add("fused_reconstruct", count, t5, p5, l5,
+            (mr + nr) // 2 + 4 * (_nblk(mr) + _nblk(nr)) + 4 * mn, flops,
+            err5)
+        print(f"m={m} n={n} x{count} ms kernel/plain/matmul: project "
+              f"{t3:.4f}/{p3:.4f}/{l3:.4f} t_pack {t4:.4f}/{p4:.4f}/{l4:.4f} "
+              f"pack(P) {t1:.4f}/{pl1:.4f} recon {t5:.4f}/{p5:.4f}/{l5:.4f}; "
+              f"max abs err vs plain {err3:.3e} {err4:.3e} {err5:.3e}",
+              flush=True)
+        if (m, n) == max(low, key=lambda k: k[0] * k[1]):
+            e = torch.randn((m, n), generator=gen, device=dev) * 0.05
+            fused = time_ms(lambda: fc.fused_compress_ef(d, e, q, RANK,
+                                                         hoist_ef=False),
+                            iters=10, flush=flush)
+            hoist = time_ms(lambda: fc.fused_compress_ef(d, e, q, RANK,
+                                                         hoist_ef=True),
+                            iters=10, flush=flush)
+            print(f"EF add m={m} n={n}: fused in the kernels {fused:.4f} ms, "
+                  f"hoisted into one add {hoist:.4f} ms (fused_compress_ef "
+                  f"with e and e_new)", flush=True)
+            del e
+        del d, q, qm, P, P_plain, Q, Q_plain, pq, sq, pp, sp, hat
+        del hat_plain, Pq, Qq
+        torch.cuda.empty_cache()
+
+    rows = []
+    for name, attr, source, replaces in COMPRESS_KERNELS:
+        t = tot[name]
+        bound_ms, bound_by = _bound(t["nbytes"], t["flops"])
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "wrapper": attr,
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": t["library_ms"]})
+        print(f"{name}: one cluster's compressor call: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the training main path, through the user's entry point
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(n_clusters=2, local_batch=4, seq_len=512, h_steps=4,
+             inner_lr=1e-3, outer_lr=0.7, outer_momentum=0.9,
+             compressor="diloco_x",
+             compressor_kw=dict(rank=RANK, bits=4, block=256,
+                                backend="pallas"),
+             delay=True, error_feedback=True, seed=0)
+TRAIN_ROUNDS = 2
+
+
+def train():
+    from repro_torch.models import model as M
+    from repro_torch.train import trainer as T
+
+    cfg = train_config()
+    tcfg = T.TrainConfig(**TRAIN)
+    _phase(f"train: run_diloco_training opt-1.3b d_model {cfg.d_model}, "
+           f"{cfg.n_layers} of 24 layers, {TRAIN_ROUNDS} rounds, {TRAIN}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen, dev)
+    initial = {k: v.cpu() for k, v in _items(params)}
+    n_params = sum(v.numel() for v in initial.values())
+    round0 = []
+
+    def on_round(r, state):
+        if r == 0:
+            round0.append(all(torch.equal(v.cpu(), initial[k])
+                              for k, v in _items(state.params)))
+
+    low, quant = leaf_shapes(cfg)
+    n_low, n_quant = sum(low.values()), sum(quant.values())
+    calls = TRAIN_ROUNDS * tcfg.n_clusters
+    want = {"quant4_pack": calls * (n_low + n_quant),
+            "quant4_unpack": calls * n_quant,
+            "fused_project": calls * n_low,
+            "fused_project_t_pack": calls * n_low,
+            "fused_reconstruct": calls * n_low}
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    res = T.run_diloco_training(cfg, tcfg, TRAIN_ROUNDS, device=dev,
+                                params=params, on_round=on_round)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = tcfg.n_clusters * tcfg.h_steps * tcfg.local_batch * tcfg.seq_len
+    steps = tcfg.n_clusters * tcfg.h_steps
+    for r in range(TRAIN_ROUNDS):
+        print(f"round {r}: loss {res.losses[r]:.6f} eval {res.eval_losses[r]:.6f}"
+              f" round {res.round_s[r]:.3f} s, inner steps "
+              f"{res.inner_s[r]:.3f} s ({1e3 * res.inner_s[r] / steps:.1f} ms "
+              f"per step), compressor {1e3 * res.compress_s[r]:.1f} ms, "
+              f"other {res.round_s[r] - res.inner_s[r] - res.compress_s[r]:.3f}"
+              f" s, {tokens / res.round_s[r]:.1f} tokens/s, wire "
+              f"{res.wire_bytes_per_round[r]} B", flush=True)
+    print(f"train: {n_params} params, {n_low} low-rank + {n_quant} quant-only "
+          f"leaves, peak memory {peak / 2**30:.2f} GiB, launches {launches} "
+          f"(expected {want}), round 0 params unchanged: {round0}",
+          flush=True)
+    if not all(map(math.isfinite, res.losses + res.eval_losses)):
+        _fail(f"train: non-finite losses {res.losses} {res.eval_losses}")
+    if round0 != [True]:
+        _fail("train: round 0 of the delay mode changed the params "
+              "(Delta must be 0)")
+    if launches != want:
+        _fail(f"train: launches {launches}, expected {want}")
+    return launches, res, peak
+
+
+def _items(tree):
+    from repro_torch.tree import keystr_items
+    return list(keystr_items(tree))
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
 SERVE_ARGS = ["--arch", "opt-1.3b", "--paged", "--batch", "8",
@@ -281,7 +639,7 @@ def serve():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: paged (kernel) vs dense (plain attention) greedy tokens
+# phase 6: paged (kernel) vs dense (plain attention) greedy tokens
 # ---------------------------------------------------------------------------
 
 def paged_vs_dense(n_prompts=2, prompt_len=16, gen_len=32, ps=16,
@@ -359,19 +717,29 @@ def main():
     smi = environment()
     build()
     rows, worst = kernel_vs_plain()
+    comp_rows = compressor_kernels()
+    torch.cuda.empty_cache()
+    train_launches, _, _ = train()
+    torch.cuda.empty_cache()
     launches = serve()
     paged_vs_dense()
     main_row = rows[0]                  # opt-1.3b, the served shape
     print(f"chip_smoke seconds: {time.monotonic() - t0:.1f}")
     print(smi)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/serve/attention_paged.py:82",
-        "launches": launches, "max_abs_err": worst, "max_err": worst,
+        "launches": launches, "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}))
+        "library_ms": main_row["library_ms"]}]
+    for row in comp_rows:
+        row = dict(row)
+        row.pop("wrapper")
+        row["launches"] = train_launches[row["name"]]
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

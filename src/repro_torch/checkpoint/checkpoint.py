@@ -1,37 +1,32 @@
-"""npz checkpointing and the weight bridge (port of
+"""npz checkpointing and the weight and state bridge (port of
 ``repro.checkpoint.checkpoint``).
 
 A checkpoint is the same pair of files the JAX package writes: ``.npz``
 arrays keyed by the tree path string that ``jax.tree_util.keystr`` gives
 (``"['segments'][0]['attn']['wq']"``: dict keys sorted, list indices in
-brackets) and a ``.json`` manifest (step, n_arrays, meta). The port builds
-these strings itself.
+brackets, NamedTuple fields as ``.field``) and a ``.json`` manifest (step,
+n_arrays, meta). The port builds these strings itself
+(``repro_torch.tree.keystr_items``).
 
-The bridge ``params_from_flat`` / ``params_to_flat`` maps the JAX
-package's parameter tree, as numpy arrays, 1:1 onto the port's tensors.
-Both keep the JAX layouts (``(d_in, d_out)`` weights, stacked units with a
-leading ``n``), so the bridge is a rename, not a transpose.
+The bridge maps the JAX package's trees, as numpy arrays, 1:1 onto the
+port's tensors: ``params_from_flat`` / ``params_to_flat`` for the
+parameters, ``state_from_flat`` / ``state_to_flat`` for the whole
+``DiLoCoXState`` (params, inner AdamW and outer Nesterov states, pending
+deltas, EF buffers, the compressor's warm starts, the round counter).
+Both packages keep the JAX layouts (``(d_in, d_out)`` weights, stacked
+units with a leading ``n``, cluster-stacked rows with a leading ``C``), so
+the bridge is a rename, not a transpose.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-
-def keystr_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(keystr path, leaf) pairs in the order ``jax.tree_util`` flattens."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from keystr_items(tree[k], f"{prefix}[{k!r}]")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from keystr_items(v, f"{prefix}[{i}]")
-    else:
-        yield prefix, tree
+from repro_torch.tree import keystr_items, unflatten_like
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -45,15 +40,6 @@ def _to_numpy(x) -> np.ndarray:
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in keystr_items(tree)}
-
-
-def _map_tree(tree, fn, prefix: str = ""):
-    if isinstance(tree, dict):
-        return {k: _map_tree(v, fn, f"{prefix}[{k!r}]") for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(v, fn, f"{prefix}[{i}]")
-                          for i, v in enumerate(tree))
-    return fn(prefix, tree)
 
 
 def save(path: str, tree, *, step: int = 0, meta: Optional[dict] = None):
@@ -93,7 +79,7 @@ def tree_from_flat(flat: Dict[str, np.ndarray], tree_like, device=None,
         return t.to(device=device if device is not None else ref.device,
                     dtype=ref.dtype)
 
-    return _map_tree(tree_like, leaf)
+    return unflatten_like(tree_like, [leaf(k, v) for k, v in want.items()])
 
 
 def restore(path: str, tree_like, *, device=None):
@@ -137,3 +123,15 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg, device, *,
 def params_to_flat(params) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_flat``: ``{keystr: ndarray}``."""
     return _flatten(params)
+
+
+def state_from_flat(flat: Dict[str, np.ndarray], state_like, device=None):
+    """``{keystr: ndarray}`` of a JAX ``core.diloco.DiLoCoXState`` (as
+    ``repro.checkpoint.checkpoint._flatten`` writes it) -> the port's
+    ``DiLoCoXState`` with ``state_like``'s structure, dtypes and device."""
+    return tree_from_flat(flat, state_like, device)
+
+
+def state_to_flat(state) -> Dict[str, np.ndarray]:
+    """The inverse of ``state_from_flat``."""
+    return _flatten(state)

@@ -25,14 +25,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_ERR = {"repro_cuda_error_string": ([_I], ctypes.c_char_p)}
 # exported C functions of each kernel library: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
         "paged_attention_f32": ([_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
                                 _I),
-        "repro_cuda_error_string": ([_I], ctypes.c_char_p),
+        **_ERR,
+    },
+    "quant4": {
+        "quant4_pack_f32": ([_P, _L, _I, _P, _P, _P], _I),
+        "quant4_unpack_f32": ([_P, _P, _L, _I, _P, _P], _I),
+        **_ERR,
+    },
+    "fused_compress": {
+        "fused_project_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
+        "fused_project_t_pack_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "fused_reconstruct_f32": ([_P] * 8 + [_I] * 4 + [_P], _I),
+        **_ERR,
     },
 }
+KERNEL_LIBS = list(SIGNATURES)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

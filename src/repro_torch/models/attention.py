@@ -1,15 +1,22 @@
-"""GQA attention for single-token decode (port of the dense decode path of
-``repro.models.attention``): the additive mask, the einsum ``grouped_attend``,
+"""GQA attention (port of the dense paths of ``repro.models.attention``):
+the additive mask, the einsum ``grouped_attend`` with its query-chunked
+form, full-sequence self-attention for training (``apply_gqa``),
 projections, and the dense and ring-buffer decode caches.
 
 Caches are updated in place (the JAX functions return new caches; here
 the returned dict is the same, mutated one).
+
+``grouped_attend`` keeps the JAX signature, ``plain_causal`` included: the
+JAX function routes plain causal self-attention to its Pallas flash kernel
+when ``REPRO_USE_PALLAS=1``. The port takes the einsum path always; the
+flash route (a forward and a hand-written backward kernel) is ROADMAP B.6.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -35,10 +42,21 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int) -> torch.Tensor:
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def grouped_attend(q, k, v, bias) -> torch.Tensor:
-    """GQA core, einsum path. q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh);
-    bias: (B|1,Sq,Sk) or (Sq,Sk) additive. Returns (B,Sq,H,dh).
-    Query head h reads KV head h // G."""
+def _block(q_blk, k, v, bias_blk, scale):
+    """q_blk (B,cq,KV,G,dh); bias_blk (B|1,cq,Sk) -> (B,cq,KV,G,dv) f32."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.float(), k.float()) * scale
+    s = s + bias_blk[:, None, None, :, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+
+
+def grouped_attend(q, k, v, bias, *, chunk: int = 0,
+                   plain_causal: bool = False) -> torch.Tensor:
+    """GQA core, einsum path. q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh[v]);
+    bias: (B|1,Sq,Sk) or (Sq,Sk) additive. Returns (B,Sq,H,dv).
+    Query head h reads KV head h // G. With ``chunk`` dividing Sq the
+    queries go in chunks, each checkpointed, so backward recomputes the
+    (chunk, Sk) scores instead of keeping them all."""
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -46,10 +64,13 @@ def grouped_attend(q, k, v, bias) -> torch.Tensor:
     qg = q.reshape(B, Sq, KV, G, dh)
     if bias.dim() == 2:
         bias = bias[None]
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
-    s = s + bias[:, None, None, :, :]
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    if chunk and Sq > chunk and Sq % chunk == 0:
+        outs = [checkpoint(_block, qg[:, i:i + chunk], k, v,
+                           bias[:, i:i + chunk], scale, use_reentrant=False)
+                for i in range(0, Sq, chunk)]
+        o = torch.cat(outs, dim=1)
+    else:
+        o = _block(qg, k, v, bias, scale)
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
@@ -74,6 +95,18 @@ def _qkv(p, x, n_heads, n_kv, head_dim):
     k = (x @ p["wk"]).reshape(B, S, n_kv, head_dim)
     v = (x @ p["wv"]).reshape(B, S, n_kv, head_dim)
     return q, k, v
+
+
+def apply_gqa(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
+              causal=True, window=0, chunk=0) -> torch.Tensor:
+    """Self-attention over a full sequence (train / prefill)."""
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    bias = _mask_bias(positions, positions, causal=causal, window=window)
+    o = grouped_attend(q, k, v, bias, chunk=chunk,
+                       plain_causal=(causal and window == 0))
+    return o.reshape(*x.shape[:2], -1) @ p["wo"]
 
 
 def decode_gqa(p, x1, cache, index: int, *, n_heads, n_kv, head_dim,

@@ -1,15 +1,16 @@
 """Dense decoder model (port of the dense subset of ``repro.models.model``):
-segments, parameters, embedding and logits, the FFN unit and single-token
-decode.
+segments, parameters, embedding and logits, the FFN unit, the training
+forward and loss, and single-token decode.
 
 A model is a list of *segments*, runs of identical layer units whose
 parameters are stacked along a leading unit dim. The JAX package scans
 each segment with ``lax.scan``; here a Python loop walks the unit index of
-the stacked tensors. Parameters are a nested dict of tensors with the JAX
+the stacked tensors (``torch.unbind`` views, so backward stacks the unit
+gradients once). ``jax.checkpoint`` remat becomes ``torch.utils.checkpoint``
+(non-reentrant). Parameters are a nested dict of tensors with the JAX
 package's tree and layouts, so checkpoints map 1:1 (``checkpoint``).
 
 Only the dense family is ported; the others raise ``NotImplementedError``.
-Training (``loss_fn``/``forward``) is the next slice (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_gelu_mlp, apply_norm,
@@ -42,6 +45,7 @@ class Segment:
     n: int
     window: int
     init_unit: Callable          # (gen, n, device) -> stacked unit params
+    apply_unit: Callable         # (p, x, ctx) -> x
     init_cache: Callable         # (batch, s_max, n, dtype, device) -> cache
     decode_unit: Callable        # (p, x1, cache, index) -> (x1, cache)
 
@@ -89,6 +93,14 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
                 p["mlp"] = init_swiglu(gen, d, cfg.d_ff, **kw)
         return p
 
+    def apply_unit(p, x, ctx):
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        x = x + attn.apply_gqa(
+            p["attn"], h, ctx["positions"], n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=hd, rope_theta=cfg.rope_theta,
+            causal=True, window=window, chunk=ctx["chunk"])
+        return x + apply_ffn_unit(p, x, cfg)
+
     def init_cache(batch, s_max, n, dtype, device):
         return {"self": attn.init_gqa_cache(batch, s_max, cfg.n_kv_heads, hd,
                                             window=window, lead=(n,),
@@ -107,7 +119,8 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
         x1 = x1 + a
         return x1 + apply_ffn_unit(p, x1, cfg), cache
 
-    return Segment(kind, 1, window, init_unit, init_cache, decode_unit)
+    return Segment(kind, 1, window, init_unit, apply_unit, init_cache,
+                   decode_unit)
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
@@ -181,6 +194,88 @@ def logits_fn(params, cfg, x):
     h = apply_norm(params["final_norm"], x, cfg.norm)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return h @ w.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training path)
+# ---------------------------------------------------------------------------
+
+def unbind_units(tree, n: int):
+    """The ``n`` unit trees of a stacked segment tree, as views."""
+    flat = [leaf.unbind(0) for leaf in T.leaves(tree)]
+    return [T.unflatten_like(tree, [u[i] for u in flat]) for i in range(n)]
+
+
+def _run_segments(segs, seg_params, x, ctx, *, remat: bool = True):
+    for s, sp in zip(segs, seg_params):
+        for p in unbind_units(sp, s.n):
+            body = (lambda x_, _p=p, _u=s.apply_unit: _u(_p, x_, ctx))
+            if remat:
+                x = checkpoint(body, x, use_reentrant=False)
+            else:
+                x = body(x)
+    return x
+
+
+def _positions(B, S, device=None):
+    return torch.arange(S, dtype=torch.int32,
+                        device=device)[None, :].expand(B, S)
+
+
+def make_ctx(cfg, B, S, device=None):
+    chunk = 512 if S >= 4096 else 0
+    return {"positions": _positions(B, S, device), "chunk": chunk}
+
+
+def forward_hidden(params, cfg, batch, *, remat: bool = True):
+    """Trunk only: returns (final hidden (B,S,d) pre-final-norm, aux); aux
+    is the MoE loss in the JAX package, 0.0 for the dense family."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    ctx = make_ctx(cfg, B, S, tokens.device)
+    return _run_segments(build_segments(cfg), params["segments"], x, ctx,
+                         remat=remat), 0.0
+
+
+def forward(params, cfg, batch, *, remat: bool = True):
+    """Full-sequence logits (tests / small models)."""
+    x, aux = forward_hidden(params, cfg, batch, remat=remat)
+    return logits_fn(params, cfg, x), aux
+
+
+def _ce_from_hidden(params, cfg, h_c, tgt_c, mask_c):
+    """CE over one sequence chunk: head matmul, logsumexp, target logit."""
+    lg = logits_fn(params, cfg, h_c).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt_logit = torch.gather(lg, -1, tgt_c.long()[..., None])[..., 0]
+    nll = (lse - tgt_logit) * mask_c
+    return nll.sum(), mask_c.sum()
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True,
+            loss_chunk: int = 1024):
+    """Next-token CE. When ``loss_chunk`` divides S and is smaller, the
+    head + CE goes chunk by chunk over the sequence, so the (B,S,V) f32
+    logits never exist at once; backward recomputes each chunk."""
+    h, aux = forward_hidden(params, cfg, batch, remat=remat)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    tgt = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,
+                                                device=tokens.device)], 1)
+    mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
+                      torch.zeros((B, 1), device=tokens.device)], 1)
+    if S % loss_chunk == 0 and S > loss_chunk:
+        total = cnt = 0.0
+        for i in range(0, S, loss_chunk):
+            sl = slice(i, i + loss_chunk)
+            t, c = checkpoint(_ce_from_hidden, params, cfg, h[:, sl],
+                              tgt[:, sl], mask[:, sl], use_reentrant=False)
+            total, cnt = total + t, cnt + c
+    else:
+        total, cnt = _ce_from_hidden(params, cfg, h, tgt, mask)
+    loss = total / torch.clamp(cnt, min=1.0)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

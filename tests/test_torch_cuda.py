@@ -47,3 +47,97 @@ def test_cuda_paged_attention_refuses_outside_envelope():
         ap.paged_attention(q.double(), cache, table, lengths)
     with pytest.raises(TypeError):
         ap.paged_attention(q, cache, table.cpu(), lengths)
+
+
+# ---------------------------------------------------------------------------
+# the compressor's kernels: quant4 (B.1, B.2) and fused_compress (B.3-B.5)
+# ---------------------------------------------------------------------------
+
+from _fused_contract import (assert_fused_contract, fused_inputs,  # noqa: E402
+                             one_int4_step, quant_inputs)
+from repro_torch.kernels import fused_compress as fc  # noqa: E402
+from repro_torch.kernels import quant4 as q4  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 1000, 1024, 256 * 37, 5000, 98304])
+def test_cuda_quant4_matches_plain(n):
+    """Bytes and scales bit-identical to the plain pack; unpack exact."""
+    _need_cuda()
+    x = torch.from_numpy(quant_inputs(n, seed=n))
+    before = (q4.cuda_quant4_pack.launches, q4.cuda_quant4_unpack.launches)
+    p, s = q4.quant4_pack(x.cuda())
+    out = q4.quant4_unpack(p, s, n)
+    torch.cuda.synchronize()
+    assert (q4.cuda_quant4_pack.launches,
+            q4.cuda_quant4_unpack.launches) == (before[0] + 1, before[1] + 1)
+    p_ref, s_ref, _ = ref.quant4_pack_ref(x)
+    np.testing.assert_array_equal(p.cpu().numpy(), p_ref.numpy())
+    np.testing.assert_array_equal(s.cpu().numpy(), s_ref.numpy())
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  ref.quant4_unpack_ref(p_ref, s_ref,
+                                                        n).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,rt", [(64, 48, 8, None), (257, 129, 8, 5),
+                                      (128, 128, 64, 32), (33, 500, 12, 7),
+                                      (300, 200, 16, None),
+                                      (2048, 512, 64, 48), (96, 70, 7, None)])
+@pytest.mark.parametrize("hoist", [False, True])
+def test_cuda_fused_compress_contract(no_tf32, m, n, r, rt, hoist):
+    """The full contract of test_kernels.py on the kernels' outputs, and
+    chain-vs-chain against the plain pipeline on the CPU."""
+    _need_cuda()
+    d, e, q = (torch.from_numpy(a) for a in fused_inputs(m, n, r))
+    before = [fc.cuda_project.launches, fc.cuda_project_t_pack.launches,
+              fc.cuda_reconstruct.launches, q4.cuda_quant4_pack.launches]
+    hat, e_new, q_new, pay = fc.fused_compress_ef(
+        d.cuda(), e.cuda(), q.cuda(), rt, hoist_ef=hoist)
+    torch.cuda.synchronize()
+    assert [fc.cuda_project.launches, fc.cuda_project_t_pack.launches,
+            fc.cuda_reconstruct.launches,
+            q4.cuda_quant4_pack.launches] == [b + 1 for b in before]
+    assert_fused_contract(m, n, r, rt, d, e, hat, e_new, q_new, pay,
+                          fc.fused_decompress)
+    hat_p, _, qn_p, pay_p = fc.fused_compress_ef(d, e, q, rt)
+    np.testing.assert_allclose(hat.cpu().numpy(), hat_p.numpy(), rtol=0,
+                               atol=one_int4_step(pay_p))
+    np.testing.assert_allclose(q_new.cpu().numpy(), qn_p.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_compress_zero_input_keeps_warm_start(no_tf32):
+    """Round 0 of the delay mode compresses an all-zero delta: the output
+    is exactly 0 and the warm start survives."""
+    _need_cuda()
+    q = torch.randn(96, 16, device="cuda")
+    hat, _, q_new, _ = fc.fused_compress_ef(
+        torch.zeros(80, 96, device="cuda"), None, q, compute_error=False)
+    assert not hat.any()
+    assert torch.equal(q_new, q)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_outside_envelope():
+    _need_cuda()
+    d = torch.randn(64, 64, device="cuda")
+    with pytest.raises(ValueError):
+        fc.project(d, None, torch.randn(64, 65, device="cuda"))
+    with pytest.raises(TypeError):
+        fc.project(d.double(), None, torch.randn(64, 8, device="cuda"))
+    with pytest.raises(TypeError):
+        q4.quant4_pack(torch.randn(4, 4, device="cuda"))

@@ -42,6 +42,14 @@ def test_no_jax_or_repro_imports(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    for m in ("repro_torch.kernels.quant4", "repro_torch.kernels.fused_compress",
+              "repro_torch.kernels.ref", "repro_torch.core.compression",
+              "repro_torch.core.diloco", "repro_torch.core.adaptive",
+              "repro_torch.optim.adamw", "repro_torch.optim.nesterov",
+              "repro_torch.optim.schedules", "repro_torch.data.synthetic",
+              "repro_torch.train.trainer", "repro_torch.train.quickstart",
+              "repro_torch.tree"):
+        assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -64,12 +72,19 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import quickstart, trainer
 
     cfg = get_config("opt-1.3b").reduced()
     params = M.init_params(cfg, torch.Generator(), torch.device("cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(params, cfg, max_seqs=1, page_size=4, n_pages=2,
                     max_pages_per_seq=2)
+    for run in (trainer.run_diloco_training, trainer.run_allreduce_training,
+                trainer.run_compressed_ddp_training):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(cfg, trainer.TrainConfig(), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "opt-1.3b", "--smoke", "--paged"])
     with pytest.raises(RuntimeError, match="CUDA"):
