@@ -14,7 +14,11 @@ continues:
      b. the compressor's five kernels (int4 pack/unpack, project,
         project-transpose + pack, reconstruct) at every leaf shape of the
         training configuration, r = 64 and r_t in {64, 40}, held to the
-        gates tests/test_kernels.py holds the Pallas kernels to;
+        gates tests/test_kernels.py holds the Pallas kernels to, each
+        product elementwise to its plain version within an f32
+        accumulation bound (``_gate_product``), q_new to the ref chain's
+        within rtol/atol 1e-5 sqrt(K / 2048) for a K-term reduction, and
+        the kernels' fused EF form bit for bit to the hoisted one;
   4. train: ``run_diloco_training`` on opt-1.3b at full width, 12 of 24
      layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
      int4, the fused kernels), 2 rounds with the delay and EF: finite
@@ -348,6 +352,62 @@ def _check_payload(name, P, Q, pp, sp, pq, sq, hat, dec, rt):
     return float((hat - oracle).abs().max())
 
 
+def _gate_product(name, got, want, a, b):
+    """``got`` (the kernel) against ``want`` (its plain version) for the
+    f32 product a @ b of K = a.shape[1] terms per element, elementwise
+    within 16 eps sqrt(K) (|want| + sqrt(a^2 @ b^2)): sixteen times the
+    rounding error a K-term f32 sum in any order can be expected to carry
+    (partial sums grow as the value, or as sqrt(k) times the terms). A
+    dropped or doubled K tile, or a wrong ragged edge, misses by
+    ~sqrt(32) terms, one to two orders over it. Returns (max abs err,
+    max err / tolerance)."""
+    K = a.shape[1]
+    tol = (16 * torch.finfo(torch.float32).eps * math.sqrt(K)
+           * (want.abs() + torch.sqrt((a * a) @ (b * b))))
+    err = (got - want).abs()
+    ratio = float((err / tol.clamp_min(1e-30)).max())
+    if not torch.isfinite(got).all() or bool((err > tol).any()):
+        _fail(f"{name}: kernel off its plain version by {float(err.max()):.3e}"
+              f" ({int((err > tol).sum())} elements over 16 eps sqrt(K) "
+              f"(|want| + sqrt(a^2 @ b^2)), worst at {ratio:.2f}x)")
+    return float(err.max()), ratio
+
+
+def ef_forms(d, qm, P, pp, sp, gen, flush):
+    """The EF add in the kernels (e as a second operand, added on the
+    operand tile) against hoisted (delta + e once, one operand): the two
+    must agree bit for bit, and the time of kernels 3-5 (with e') for
+    each form decides which the driver uses (it hoists)."""
+    from repro_torch.kernels import fused_compress as fc
+
+    m, n = d.shape
+    e = torch.randn((m, n), generator=gen, device=d.device) * 0.05
+
+    def fused():
+        P3 = fc.cuda_project(d, e, qm)
+        Q, pq, sq = fc.cuda_project_t_pack(d, e, P)
+        return (P3, Q, pq, sq) + fc.cuda_reconstruct(pp, sp, pq, sq, d, e, m,
+                                                     n, RANK)
+
+    def hoisted():
+        de = d + e
+        P3 = fc.cuda_project(de, None, qm)
+        Q, pq, sq = fc.cuda_project_t_pack(de, None, P)
+        return (P3, Q, pq, sq) + fc.cuda_reconstruct(pp, sp, pq, sq, de,
+                                                     None, m, n, RANK)
+
+    for a, b, what in zip(fused(), hoisted(), ("P", "Q", "packed Q",
+                                               "scales Q", "recon", "e'")):
+        if not torch.equal(a, b):
+            _fail(f"EF m={m} n={n}: {what} of the fused EF form differs "
+                  f"from the hoisted one")
+    t_fused = time_ms(fused, iters=10, flush=flush)
+    t_hoist = time_ms(hoisted, iters=10, flush=flush)
+    print(f"EF add m={m} n={n}, kernels 3-5 with e': fused in the kernels "
+          f"{t_fused:.4f} ms, hoisted into one add {t_hoist:.4f} ms "
+          f"(bitwise equal)", flush=True)
+
+
 def compressor_kernels():
     """Each compressor kernel against its plain version at every leaf shape
     of the training configuration; returns per-kernel rows whose times are
@@ -407,6 +467,9 @@ def compressor_kernels():
     for (m, n), count in sorted(low.items()):
         d = torch.randn((m, n), generator=gen, device=dev) * 0.3
         q = torch.randn((n, RANK), generator=gen, device=dev)
+        # the tests' rtol/atol 1e-5 for q_new holds for sums of up to 2,048
+        # terms; two f32 summation orders drift apart as sqrt(K)
+        q_tol = 1e-5 * math.sqrt(max(m, n, 2048) / 2048)
         for rt in (RANK, 40):
             hat, _, q_new, pay = fc.fused_compress_ef(d, None, q, rt,
                                                       compute_error=False)
@@ -427,30 +490,43 @@ def compressor_kernels():
                       f"({one_step:.3e})")
             if rt < RANK and q_new[:, rt:].any():
                 _fail(f"fused m={m} n={n}: q_new columns >= {rt} not zero")
-            q_rel = float(((q_new - q_r).abs()
-                           / (q_r.abs() + 1e-5)).max())
+            q_gap = (q_new - q_r).abs()
+            q_ratio = float((q_gap / (q_tol * (1 + q_r.abs()))).max())
+            if q_ratio > 1.0:
+                _fail(f"fused m={m} n={n} r_t={rt}: q_new off the ref "
+                      f"chain's by {float(q_gap.max()):.3e}, over rtol/atol "
+                      f"{q_tol:.3e} ({q_ratio:.2f}x)")
             print(f"m={m} n={n} r_t={rt} x{count}: recon vs oracle "
                   f"{err:.3e}, vs ref chain {chain:.3e} (one int4 step "
-                  f"{one_step:.3e}), q_new max rel diff {q_rel:.3e}",
-                  flush=True)
+                  f"{one_step:.3e}), q_new vs ref chain at {q_ratio:.3f}x "
+                  f"rtol/atol {q_tol:.3e}", flush=True)
             del hat, dec, hat_r, q_r, q_new
         # times at r_t = 64, the trainer's variant (no EF operand)
         qm = q.contiguous()
+        tag = f"m={m} n={n}"
         P = fc.cuda_project(d, None, qm)
         P_plain = fc.project_plain(d, None, qm)
-        err3 = float((P - P_plain).abs().max())
+        err3, ratio3 = _gate_product(f"fused_project {tag}", P, P_plain, d,
+                                     qm)
         P = (_orthonormalize(P)).contiguous()
         Q, pq, sq = fc.cuda_project_t_pack(d, None, P)
         Q_plain, _, _ = fc.project_t_pack_plain(d, None, P)
-        err4 = float((Q - Q_plain).abs().max())
+        err4, ratio4 = _gate_product(f"fused_project_t_pack {tag}", Q,
+                                     Q_plain, d.T, P)
         pp, sp = q4.cuda_quant4_pack(P.reshape(-1))
         hat, _ = fc.cuda_reconstruct(pp, sp, pq, sq, None, None, m, n, RANK,
                                      with_ef=False)
         hat_plain, _ = fc.reconstruct_plain(pp, sp, pq, sq, None, None, m, n,
                                             RANK, with_ef=False)
-        err5 = float((hat - hat_plain).abs().max())
         Pq = ref.quant4_unpack_ref(pp, sp, m * RANK).reshape(m, RANK)
         Qq = ref.quant4_unpack_ref(pq, sq, n * RANK).reshape(n, RANK)
+        gap5 = (hat - hat_plain).abs()
+        err5 = float(gap5.max())
+        if bool((gap5 > 16 * torch.finfo(torch.float32).eps
+                 * (Pq.abs() @ Qq.abs().T) + 1e-30).any()):
+            _fail(f"fused_reconstruct {tag}: off its plain version by "
+                  f"{err5:.3e} > 16 eps |Pq||Qq|^T")
+        del gap5
         flops = 2 * m * n * RANK
         mn, mr, nr = m * n, m * RANK, n * RANK
         t3 = time_ms(lambda: fc.cuda_project(d, None, qm), flush=flush)
@@ -480,20 +556,11 @@ def compressor_kernels():
         print(f"m={m} n={n} x{count} ms kernel/plain/matmul: project "
               f"{t3:.4f}/{p3:.4f}/{l3:.4f} t_pack {t4:.4f}/{p4:.4f}/{l4:.4f} "
               f"pack(P) {t1:.4f}/{pl1:.4f} recon {t5:.4f}/{p5:.4f}/{l5:.4f}; "
-              f"max abs err vs plain {err3:.3e} {err4:.3e} {err5:.3e}",
-              flush=True)
+              f"max abs err vs plain {err3:.3e} {err4:.3e} {err5:.3e} "
+              f"(project, t_pack at {ratio3:.4f}x, {ratio4:.4f}x their "
+              f"tolerance)", flush=True)
         if (m, n) == max(low, key=lambda k: k[0] * k[1]):
-            e = torch.randn((m, n), generator=gen, device=dev) * 0.05
-            fused = time_ms(lambda: fc.fused_compress_ef(d, e, q, RANK,
-                                                         hoist_ef=False),
-                            iters=10, flush=flush)
-            hoist = time_ms(lambda: fc.fused_compress_ef(d, e, q, RANK,
-                                                         hoist_ef=True),
-                            iters=10, flush=flush)
-            print(f"EF add m={m} n={n}: fused in the kernels {fused:.4f} ms, "
-                  f"hoisted into one add {hoist:.4f} ms (fused_compress_ef "
-                  f"with e and e_new)", flush=True)
-            del e
+            ef_forms(d, qm, P, pp, sp, gen, flush)
         del d, q, qm, P, P_plain, Q, Q_plain, pq, sq, pp, sp, hat
         del hat_plain, Pq, Qq
         torch.cuda.empty_cache()

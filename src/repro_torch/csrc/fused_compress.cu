@@ -33,13 +33,15 @@
 // chosen by the wrapper so that tile_rows * r is a whole number of
 // quantization blocks (tile_rows is a multiple of 64 and of
 // block / gcd(r, block)); it computes them 64 rows at a time into shared
-// memory, then one warp per quantization block takes the absmax, scales by
-// f32(1/7), divides, rounds half to even and packs two codes per byte,
-// exactly as quant4.cu. Rows past n are zero, so the last quantization
-// block is padded with zeros as the reference pads.
+// memory, then one warp per quantization block takes the absmax and packs
+// two codes per byte with quant4.cu's rule (quant4_codes.cuh). Rows past n
+// are zero, so the last quantization block is padded with zeros as the
+// reference pads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quant4_codes.cuh"
 
 #define TILE 64
 #define BK 32
@@ -123,12 +125,6 @@ proj_kernel(const float* __restrict__ d, const float* __restrict__ e,
 // kernel 4: Q = (D + E)^T @ P, with the int4 pack of Q in the same kernel
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t code4(float x, float scale) {
-  float q = rintf(x / scale);
-  q = fminf(fmaxf(q, -8.f), 7.f);
-  return ((uint32_t)(int)q) & 0xFu;
-}
-
 __global__ void __launch_bounds__(N_THREADS)
 proj_t_pack_kernel(const float* __restrict__ d, const float* __restrict__ e,
                    const float* __restrict__ p, float* __restrict__ q,
@@ -198,8 +194,7 @@ proj_t_pack_kernel(const float* __restrict__ d, const float* __restrict__ e,
       amax = fmaxf(amax, fmaxf(fabsf(x[2 * j]), fabsf(x[2 * j + 1])));
     for (int off = 16; off > 0; off >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    float scale = amax * (1.0f / 7.0f);
-    scale = scale == 0.f ? 1.f : scale;
+    const float scale = block_scale(amax);
     for (int j = lane; j < half; j += 32)
       packed[gb * half + j] =
           (uint8_t)(code4(x[2 * j], scale) | (code4(x[2 * j + 1], scale) << 4));

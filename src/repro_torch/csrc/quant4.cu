@@ -10,10 +10,11 @@
 //           byte, the even index in the low nibble.
 //   unpack: sign-extend each nibble, times its block's scale; n outputs.
 //
-// Numerics are those of the jitted JAX reference (kernels/ref.py): XLA
-// turns `amax / 7.0` into a multiply by f32(1/7), so the scale multiplies;
-// the codes divide with an IEEE division (no --use_fast_math) and round
-// with rintf (half to even, as jnp.round). Bytes are bit-identical.
+// Numerics are those of the jitted JAX reference (kernels/ref.py), in
+// quant4_codes.cuh: XLA turns `amax / 7.0` into a multiply by f32(1/7), so
+// the scale multiplies; the codes divide with an IEEE division (no
+// --use_fast_math) and round with rintf (half to even, as jnp.round).
+// Bytes are bit-identical.
 //
 // Bound on this card: memory. Pack reads 4 bytes and writes half a byte
 // per element (plus 4 bytes of scale per block); unpack the reverse. A few
@@ -28,18 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant4_codes.cuh"
+
 #define WARPS_PER_BLOCK 8
-
-__device__ __forceinline__ float block_scale(float amax) {
-  float s = amax * (1.0f / 7.0f);
-  return s == 0.f ? 1.f : s;
-}
-
-__device__ __forceinline__ uint32_t code4(float x, float scale) {
-  float q = rintf(x / scale);
-  q = fminf(fmaxf(q, -8.f), 7.f);
-  return ((uint32_t)(int)q) & 0xFu;
-}
 
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 quant4_pack_kernel(const float* __restrict__ x, long long n, int block,

@@ -18,3 +18,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(t, cuda_fn, plain_fn, *args, **kw):
+    """The kernel wrappers' one dispatch rule: ``cuda_fn`` (which launches
+    the hand-written kernel or raises) when ``t`` lies on a GPU,
+    ``plain_fn`` (the plain PyTorch version) when it lies on the CPU."""
+    if t.device.type == "cuda":
+        return cuda_fn(*args, **kw)
+    if t.device.type == "cpu":
+        return plain_fn(*args, **kw)
+    raise ValueError(f"{cuda_fn.__name__}: unsupported device {t.device}")

@@ -3,7 +3,8 @@ and loads them with ``ctypes`` (plain C interface, no PyTorch headers).
 
 Each ``csrc/<name>.cu`` compiles on first use, for ``sm_90a``, into
 ``build/kernels/<name>-<hash>.so`` at the repo root (the hash covers the
-source and the flags, so an edited source rebuilds). ``build_all`` starts
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds). ``build_all`` starts
 one ``nvcc`` per source at once. A missing ``nvcc`` or a failed build
 raises: there is no fallback to the plain versions.
 """
@@ -63,6 +64,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -23,10 +23,10 @@ switch, no fallback. ``cuda_project.launches`` etc. count launches.
 The kernels mask their ragged edges themselves, so the JAX driver's grid
 padding (``_pad2d``, ``_pad_packed``) has no counterpart here. The kernels
 keep the EF add on the operand tile (``e`` given: ``with_e``), but the
-driver hoists it by default (``hoist_ef=True``: delta + e materialized
-once, then every kernel reads one operand), because that measured faster
-on an H100 at the (24576, 8192) leaf (PERF.md, PR 13): the SIMT kernels
-are bound by their instruction stream, not by the extra reads of e.
+driver hoists it, as the JAX driver does: delta + e is materialized once
+and every kernel reads one operand. On an H100 that is also the faster
+form at the (24576, 8192) leaf (PERF.md): the SIMT kernels are bound by
+their instruction stream, not by the extra reads of e.
 
 Adaptive rank: factors keep the warm start's width r_max; columns >= r_t
 are exactly zero in P, Q, the codes and q_new. Wire bytes are
@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import on_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import FusedPayload, col_mask as _col_mask
 
@@ -199,30 +200,22 @@ cuda_reconstruct.launches = 0
 # dispatch on the tensors' device
 # ---------------------------------------------------------------------------
 
-def _route(t, cuda_fn, plain_fn, *args, **kw):
-    if t.device.type == "cuda":
-        return cuda_fn(*args, **kw)
-    if t.device.type == "cpu":
-        return plain_fn(*args, **kw)
-    raise ValueError(f"unsupported device {t.device}")
-
-
 def project(d, e, qm):
     """P = (d + e) @ qm, f32 (m, r)."""
-    return _route(d, cuda_project, project_plain, d, e, qm)
+    return on_device(d, cuda_project, project_plain, d, e, qm)
 
 
 def project_t_pack(d, e, p, block: int = 256):
     """(Q = (d + e)^T @ p, packed int4 codes of flat Q, their scales)."""
-    return _route(d, cuda_project_t_pack, project_t_pack_plain, d, e, p,
-                  block)
+    return on_device(d, cuda_project_t_pack, project_t_pack_plain, d, e, p,
+                     block)
 
 
 def reconstruct(pp, sp, pq, sq, d, e, m: int, n: int, r: int,
                 block: int = 256, with_ef: bool = True):
     """(delta_hat (m, n) f32, e_new or None) from the packed payload."""
-    return _route(pp, cuda_reconstruct, reconstruct_plain, pp, sp, pq, sq, d,
-                  e, m, n, r, block, with_ef)
+    return on_device(pp, cuda_reconstruct, reconstruct_plain, pp, sp, pq, sq,
+                     d, e, m, n, r, block, with_ef)
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +224,7 @@ def reconstruct(pp, sp, pq, sq, d, e, m: int, n: int, r: int,
 
 def fused_compress_ef(delta: torch.Tensor, error: Optional[torch.Tensor],
                       q_prev: torch.Tensor, rank_scalar=None, *,
-                      block: int = 256, compute_error: bool = True,
-                      hoist_ef: bool = True
+                      block: int = 256, compute_error: bool = True
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                  torch.Tensor, FusedPayload]:
     """The fused outer-step compressor for one (m, n) parameter matrix.
@@ -250,20 +242,22 @@ def fused_compress_ef(delta: torch.Tensor, error: Optional[torch.Tensor],
     r = q_prev.shape[1]
     cm = _col_mask(r, rank_scalar, delta.device)
     qm = (q_prev.float() * cm).contiguous()
-    d = delta.float().contiguous()
-    e = None if error is None else error.float().contiguous()
-    if hoist_ef and e is not None:
-        d, e = d + e, None
+    # EF hoist: materialize the corrected delta once; every kernel then
+    # runs without its e operand
+    d = delta.float()
+    if error is not None:
+        d = d + error.float()
+    d = d.contiguous()
 
     from repro_torch.core.compression import _orthonormalize
     from repro_torch.kernels.quant4 import quant4_pack
 
-    P = project(d, e, qm)
+    P = project(d, None, qm)
     P = (_orthonormalize(P) * cm).contiguous()
-    Q, packed_q, scales_q = project_t_pack(d, e, P, block)
+    Q, packed_q, scales_q = project_t_pack(d, None, P, block)
     packed_p, scales_p = quant4_pack(P.reshape(-1), block)
-    hat, e_new = reconstruct(packed_p, scales_p, packed_q, scales_q, d, e,
-                             m, n, r, block, with_ef=compute_error)
+    hat, e_new = reconstruct(packed_p, scales_p, packed_q, scales_q, d,
+                             None, m, n, r, block, with_ef=compute_error)
     # warm start: keep the unquantized Q; the zero-input guard keeps q_prev
     # when the first delayed round compresses an all-zero delta
     q_new = torch.where((Q * Q).sum() > 0, Q, qm)

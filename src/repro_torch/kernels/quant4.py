@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import on_device
 from repro_torch.kernels import ref
 
 
@@ -81,22 +82,19 @@ def cuda_quant4_unpack(packed: torch.Tensor, scales: torch.Tensor, n: int,
 cuda_quant4_unpack.launches = 0
 
 
+def _pack_plain(x: torch.Tensor, block: int = 256):
+    packed, scales, _ = ref.quant4_pack_ref(x, block)
+    return packed, scales
+
+
 def quant4_pack(x: torch.Tensor, block: int = 256):
     """flat (n,) f32 -> (packed uint8 (ceil(n/block)*block/2,), scales f32
     (ceil(n/block),)): the CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor."""
-    if x.device.type == "cuda":
-        return cuda_quant4_pack(x, block)
-    if x.device.type == "cpu":
-        packed, scales, _ = ref.quant4_pack_ref(x, block)
-        return packed, scales
-    raise ValueError(f"quant4_pack: unsupported device {x.device}")
+    return on_device(x, cuda_quant4_pack, _pack_plain, x, block)
 
 
 def quant4_unpack(packed: torch.Tensor, scales: torch.Tensor, n: int,
                   block: int = 256) -> torch.Tensor:
-    if packed.device.type == "cuda":
-        return cuda_quant4_unpack(packed, scales, n, block)
-    if packed.device.type == "cpu":
-        return ref.quant4_unpack_ref(packed, scales, n, block)
-    raise ValueError(f"quant4_unpack: unsupported device {packed.device}")
+    return on_device(packed, cuda_quant4_unpack, ref.quant4_unpack_ref,
+                     packed, scales, n, block)

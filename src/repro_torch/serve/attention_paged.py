@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.device import on_device
 from repro_torch.models import attention as attn
 
 NEG_INF = attn.NEG_INF
@@ -159,10 +160,5 @@ cuda_paged_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 def paged_attention(q, cache, page_tables, lengths, *, window: int = 0):
-    if q.device.type == "cuda":
-        return cuda_paged_attention(q, cache, page_tables, lengths,
-                                    window=window)
-    if q.device.type == "cpu":
-        return ref_paged_attention(q, cache, page_tables, lengths,
-                                   window=window)
-    raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return on_device(q, cuda_paged_attention, ref_paged_attention, q, cache,
+                     page_tables, lengths, window=window)

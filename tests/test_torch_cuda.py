@@ -96,8 +96,7 @@ def test_cuda_quant4_matches_plain(n):
                                       (128, 128, 64, 32), (33, 500, 12, 7),
                                       (300, 200, 16, None),
                                       (2048, 512, 64, 48), (96, 70, 7, None)])
-@pytest.mark.parametrize("hoist", [False, True])
-def test_cuda_fused_compress_contract(no_tf32, m, n, r, rt, hoist):
+def test_cuda_fused_compress_contract(no_tf32, m, n, r, rt):
     """The full contract of test_kernels.py on the kernels' outputs, and
     chain-vs-chain against the plain pipeline on the CPU."""
     _need_cuda()
@@ -105,7 +104,7 @@ def test_cuda_fused_compress_contract(no_tf32, m, n, r, rt, hoist):
     before = [fc.cuda_project.launches, fc.cuda_project_t_pack.launches,
               fc.cuda_reconstruct.launches, q4.cuda_quant4_pack.launches]
     hat, e_new, q_new, pay = fc.fused_compress_ef(
-        d.cuda(), e.cuda(), q.cuda(), rt, hoist_ef=hoist)
+        d.cuda(), e.cuda(), q.cuda(), rt)
     torch.cuda.synchronize()
     assert [fc.cuda_project.launches, fc.cuda_project_t_pack.launches,
             fc.cuda_reconstruct.launches,
@@ -117,6 +116,38 @@ def test_cuda_fused_compress_contract(no_tf32, m, n, r, rt, hoist):
                                atol=one_int4_step(pay_p))
     np.testing.assert_allclose(q_new.cpu().numpy(), qn_p.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r", [(257, 129, 8), (300, 200, 64)])
+def test_cuda_fused_kernels_with_e_match_plain(no_tf32, m, n, r):
+    """The kernels' fused EF form (e as a second operand, added on the
+    tile) against the plain versions on the same inputs; the driver hoists
+    the add, so only this test and chip_smoke.py launch it."""
+    _need_cuda()
+    from repro_torch.core.compression import _orthonormalize
+
+    d, e, q = (torch.from_numpy(a).cuda() for a in fused_inputs(m, n, r))
+    P = fc.cuda_project(d, e, q)
+    np.testing.assert_allclose(P.cpu().numpy(),
+                               fc.project_plain(d, e, q).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    P = _orthonormalize(P).contiguous()
+    Q, pq, sq = fc.cuda_project_t_pack(d, e, P)
+    Q_plain = fc.project_t_pack_plain(d, e, P)[0]
+    np.testing.assert_allclose(Q.cpu().numpy(), Q_plain.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    p_ref, s_ref, _ = ref.quant4_pack_ref(Q.cpu().reshape(-1))
+    np.testing.assert_array_equal(pq.cpu().numpy(), p_ref.numpy())
+    np.testing.assert_array_equal(sq.cpu().numpy(), s_ref.numpy())
+    pp, sp = q4.cuda_quant4_pack(P.reshape(-1))
+    hat, e_new = fc.cuda_reconstruct(pp, sp, pq, sq, d, e, m, n, r)
+    hat_p, e_new_p = fc.reconstruct_plain(pp, sp, pq, sq, d, e, m, n, r)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(hat.cpu().numpy(), hat_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(e_new.cpu().numpy(), e_new_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -85,11 +85,27 @@ def test_plain_matches_outer_step_ref_of_the_port():
 
 
 def test_hoisted_ef_matches_fused():
-    d, e, q = (torch.from_numpy(a) for a in fused_inputs(96, 80, 8, 9))
-    a = fc.fused_compress_ef(d, e, q, None, hoist_ef=False)
-    b = fc.fused_compress_ef(d, e, q, None, hoist_ef=True)
-    for x, y in zip(a[:3], b[:3]):
+    """The driver hoists the EF add (delta + e once, no e operand); the
+    kernels' fused ``with_e`` form gives the same products, codes and
+    residual on the same inputs."""
+    from repro_torch.core.compression import _orthonormalize
+
+    m, n, r = 96, 80, 8
+    d, e, q = (torch.from_numpy(a) for a in fused_inputs(m, n, r, 9))
+    de = d + e
+    P = fc.project(d, e, q)
+    assert torch.equal(P, fc.project(de, None, q))
+    P = _orthonormalize(P)
+    fused = fc.project_t_pack(d, e, P)
+    for x, y in zip(fused, fc.project_t_pack(de, None, P)):
         assert torch.equal(x, y)
+    pp, sp, _ = ref.quant4_pack_ref(P.reshape(-1))
+    hat, e_new = fc.reconstruct(pp, sp, fused[1], fused[2], d, e, m, n, r)
+    assert all(map(torch.equal, (hat, e_new), fc.reconstruct(
+        pp, sp, fused[1], fused[2], de, None, m, n, r)))
+    drv = fc.fused_compress_ef(d, e, q, None)
+    assert torch.equal(drv[0], hat) and torch.equal(drv[1], e_new)
+    assert torch.equal(drv[2], fused[0])
 
 
 def test_zero_input_keeps_warm_start():
