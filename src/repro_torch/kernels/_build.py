@@ -46,6 +46,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_reconstruct_f32": ([_P] * 8 + [_I] * 4 + [_P], _I),
         **_ERR,
     },
+    "flash_attention": {
+        "flash_attention_fwd_f32": ([_P] * 5 + [_I] * 6 + [_L] * 9
+                                    + [_I, _P], _I),
+        "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 6 + [_L] * 9
+                                    + [_I, _P], _I),
+        **_ERR,
+    },
 }
 KERNEL_LIBS = list(SIGNATURES)
 

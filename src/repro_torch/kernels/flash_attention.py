@@ -1,0 +1,151 @@
+"""Causal GQA flash attention with a gradient (port of
+``repro.kernels.flash_attention``).
+
+``flash_attention(q, k, v, causal=True)`` applies ``FlashAttention``, a
+``torch.autograd.Function``: its forward saves ``q, k, v, o, lse`` and its
+backward returns ``dq, dk, dv``. For CUDA tensors they launch the
+hand-written kernels of ``csrc/flash_attention.cu``: the forward replaces
+the TPU kernel ``_flash_kernel``, and the backward (three kernels, no
+atomics) is new, since the TPU kernel has none. For CPU tensors they run
+the plain versions ``ref.flash_attention_fwd_ref`` /
+``ref.flash_attention_bwd_ref``. There is no other switch and no fallback:
+a failed build or launch raises. ``cuda_flash_attention_fwd.launches`` and
+``cuda_flash_attention_bwd.launches`` count the wrappers' launches.
+
+Layouts are the JAX package's: q (B,Sq,H,d), k and v (B,Sk,KV,d), query
+head h reading KV head h // (H // KV); the causal mask is top-left aligned
+(key j is seen by query i iff j <= i). The kernels take float32 with head
+dims 32, 64, 128 and 256, any Sq and Sk (ragged tails are masked), and q,
+k, v through their strides (last dim contiguous).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import on_device
+from repro_torch.kernels import ref
+
+HEAD_DIMS = (32, 64, 128, 256)       # the kernels' template instantiations
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B,Sq,H,d) and k, v (B,Sk,KV,d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, d = q.shape
+    _, Sk, KV, dk = k.shape
+    if k.shape[0] != B or dk != d or KV == 0 or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
+                         f"batch and head dim must match and KV divide H")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32 or t.device != q.device \
+                or t.stride(-1) != 1:
+            raise TypeError(f"{name} must be float32 on {q.device} with a "
+                            f"contiguous last dim, got {t.dtype} on "
+                            f"{t.device}, strides {t.stride()}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} outside the kernels' envelope "
+                         f"{HEAD_DIMS}")
+    if Sq == 0 or Sk == 0 or B == 0 or B * H > 65535:
+        raise ValueError(f"shape q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"outside the kernels' envelope")
+    return B, Sq, H, d, Sk, KV
+
+
+def _strides(q, k, v):
+    return [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+
+
+def _lib_call(fn_name, *args):
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention")
+    err = getattr(lib, fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
+    """(o (B,Sq,H,d), lse (B,H,Sq)) from the forward kernel."""
+    B, Sq, H, d, Sk, KV = _check(q, k, v)
+    o = torch.empty((B, Sq, H, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _lib_call("flash_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, KV, Sq, Sk,
+              d, *_strides(q, k, v), int(causal), _stream(q))
+    cuda_flash_attention_fwd.launches += 1
+    return o, lse
+
+
+cuda_flash_attention_fwd.launches = 0
+
+
+def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) from the backward kernels (D = rowsum(dO * O), then dK
+    and dV, then dQ); ``o`` and ``do`` contiguous (B,Sq,H,d) f32, ``lse``
+    (B,H,Sq) f32, as the forward returns them."""
+    B, Sq, H, d, Sk, KV = _check(q, k, v)
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
+                           ("lse", lse, (B, H, Sq))):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or tuple(t.shape) != tuple(shape) or t.device != q.device:
+            raise TypeError(f"{name} must be a contiguous float32 "
+                            f"{tuple(shape)} tensor on {q.device}, got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    D = torch.empty((B, H, Sq), **f32)
+    dq = torch.empty((B, Sq, H, d), **f32)
+    dk = torch.empty((B, Sk, KV, d), **f32)
+    dv = torch.empty((B, Sk, KV, d), **f32)
+    _lib_call("flash_attention_bwd_f32", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+              H, KV, Sq, Sk, d, *_strides(q, k, v), int(causal), _stream(q))
+    cuda_flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+cuda_flash_attention_bwd.launches = 0
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True):
+    """(o, lse): the forward kernel for CUDA tensors, its plain version
+    for CPU tensors."""
+    return on_device(q, cuda_flash_attention_fwd, ref.flash_attention_fwd_ref,
+                     q, k, v, causal)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv): the backward kernels for CUDA tensors, their plain
+    version for CPU tensors."""
+    return on_device(q, cuda_flash_attention_bwd, ref.flash_attention_bwd_ref,
+                     q, k, v, o, lse, do, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward and backward are the kernels above."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: (B,Sq,H,d); k, v: (B,Sk,KV,d). Returns (B,Sq,H,d)."""
+    return FlashAttention.apply(q, k, v, causal)

@@ -1,6 +1,7 @@
-"""Plain PyTorch oracles for the compressor's kernels (port of
+"""Plain PyTorch oracles for the port's kernels (port of
 ``repro.kernels.ref``): int4 block pack/unpack, the matmul oracle, the
-fused payload and the unfused outer-step chain.
+fused payload and the unfused outer-step chain, and causal GQA attention
+with the flash kernels' forward (o, lse) and backward (dq, dk, dv).
 
 Wire format (int4, block-wise symmetric):
   packed: uint8, two int4 codes per byte (low nibble = even index)
@@ -14,6 +15,7 @@ round-half-to-even, as the jitted reference does.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -107,3 +109,73 @@ def outer_step_ref(delta: torch.Tensor, error, q_prev: torch.Tensor,
     e_new = M - rec
     q_new = torch.where((Q * Q).sum() > 0, Q, qm)
     return delta_hat, e_new, q_new, FusedPayload(pP, sP, pQ, sQ, P, Q)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (causal, GQA): the plain versions of the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _work_dtype(dtype) -> torch.dtype:
+    """f32 for f32 and narrower inputs; f64 stays f64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """(B,KV,G,Sq,Sk) scaled scores in the working type; masked lanes
+    (top-left causal: key j seen by query i iff j <= i) are -1e30."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    wt = _work_dtype(q.dtype)
+    qg = q.reshape(B, Sq, KV, H // KV, d).to(wt)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(wt)) / math.sqrt(d)
+    if causal:
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask, s, torch.full((), -1e30, dtype=wt,
+                                            device=q.device))
+    return s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: (B,Sq,H,d); k,v: (B,Sk,KV,d). Plain softmax attention in f32
+    (port of ``repro.kernels.ref.flash_attention_ref``)."""
+    B, Sq, H, d = q.shape
+    p = torch.softmax(_scores(q, k, causal), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, causal: bool = True):
+    """The forward kernel's plain version: (o (B,Sq,H,d) in q's dtype,
+    contiguous as the kernel writes it, lse (B,H,Sq), the per-row
+    log-sum-exp of the scaled scores)."""
+    B, Sq, H, d = q.shape
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1)                       # (B,KV,G,Sq)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
+    return (o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype).contiguous(),
+            lse.reshape(B, H, Sq).contiguous())
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+    """The backward kernels' plain version, with their math: D =
+    rowsum(dO * O), P = exp(S - lse), dS = P * (dP - D); dk and dv sum over
+    the G query heads that share a KV head. Returns (dq, dk, dv) in the
+    dtypes of q, k, v."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    s = _scores(q, k, causal)
+    wt = s.dtype
+    p = torch.exp(s - lse.to(wt).reshape(B, KV, G, Sq)[..., None])
+    dog = do.to(wt).reshape(B, Sq, KV, G, d)
+    D = (do.to(wt) * o.to(wt)).sum(-1)                     # (B,Sq,H)
+    D = D.reshape(B, Sq, KV, G).permute(0, 2, 3, 1)        # (B,KV,G,Sq)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.to(wt))
+    ds = p * (dp - D[..., None]) / math.sqrt(d)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(wt)).reshape(B, Sq, H, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.to(wt).reshape(B, Sq, KV, G, d))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,10 +6,14 @@ projections, and the dense and ring-buffer decode caches.
 Caches are updated in place (the JAX functions return new caches; here
 the returned dict is the same, mutated one).
 
-``grouped_attend`` keeps the JAX signature, ``plain_causal`` included: the
-JAX function routes plain causal self-attention to its Pallas flash kernel
-when ``REPRO_USE_PALLAS=1``. The port takes the einsum path always; the
-flash route (a forward and a hand-written backward kernel) is ROADMAP B.6.
+``grouped_attend`` routes plain causal self-attention to the flash kernels
+(``kernels.flash_attention``: a forward and a hand-written backward) under
+the JAX condition, with ``flash=True`` in place of ``REPRO_USE_PALLAS=1``:
+``plain_causal and flash and Sq == Sk and dh == dv and Sq % 128 == 0``.
+Like the JAX route it ignores ``bias``: ``apply_gqa`` marks ``plain_causal``
+only for a causal mask without a window over ``arange`` positions, which
+is what the kernels' own mask computes. Otherwise, and by default, the
+einsum path runs, as the JAX default does.
 """
 from __future__ import annotations
 
@@ -51,12 +55,19 @@ def _block(q_blk, k, v, bias_blk, scale):
 
 
 def grouped_attend(q, k, v, bias, *, chunk: int = 0,
-                   plain_causal: bool = False) -> torch.Tensor:
-    """GQA core, einsum path. q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh[v]);
-    bias: (B|1,Sq,Sk) or (Sq,Sk) additive. Returns (B,Sq,H,dv).
-    Query head h reads KV head h // G. With ``chunk`` dividing Sq the
-    queries go in chunks, each checkpointed, so backward recomputes the
-    (chunk, Sk) scores instead of keeping them all."""
+                   plain_causal: bool = False,
+                   flash: bool = False) -> torch.Tensor:
+    """GQA core. q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh[v]); bias: (B|1,Sq,Sk)
+    or (Sq,Sk) additive. Returns (B,Sq,H,dv). Query head h reads KV head
+    h // G. ``plain_causal`` with ``flash`` takes the flash kernels where
+    the JAX route would take its Pallas kernel (module docstring). On the
+    einsum path, with ``chunk`` dividing Sq the queries go in chunks, each
+    checkpointed, so backward recomputes the (chunk, Sk) scores instead of
+    keeping them all."""
+    if (plain_causal and flash and q.shape[1] == k.shape[1]
+            and q.shape[-1] == v.shape[-1] and q.shape[1] % 128 == 0):
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=True)
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -98,14 +109,15 @@ def _qkv(p, x, n_heads, n_kv, head_dim):
 
 
 def apply_gqa(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
-              causal=True, window=0, chunk=0) -> torch.Tensor:
-    """Self-attention over a full sequence (train / prefill)."""
+              causal=True, window=0, chunk=0, flash=False) -> torch.Tensor:
+    """Self-attention over a full sequence (train / prefill); ``flash``
+    lets plain causal attention take the flash kernels."""
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     bias = _mask_bias(positions, positions, causal=causal, window=window)
     o = grouped_attend(q, k, v, bias, chunk=chunk,
-                       plain_causal=(causal and window == 0))
+                       plain_causal=(causal and window == 0), flash=flash)
     return o.reshape(*x.shape[:2], -1) @ p["wo"]
 
 

@@ -98,7 +98,8 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
         x = x + attn.apply_gqa(
             p["attn"], h, ctx["positions"], n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=hd, rope_theta=cfg.rope_theta,
-            causal=True, window=window, chunk=ctx["chunk"])
+            causal=True, window=window, chunk=ctx["chunk"],
+            flash=ctx["flash"])
         return x + apply_ffn_unit(p, x, cfg)
 
     def init_cache(batch, s_max, n, dtype, device):
@@ -222,25 +223,31 @@ def _positions(B, S, device=None):
                         device=device)[None, :].expand(B, S)
 
 
-def make_ctx(cfg, B, S, device=None):
+def make_ctx(cfg, B, S, device=None, *, flash: bool = False):
+    """``flash`` routes plain causal self-attention to the flash kernels
+    (the port's counterpart of ``REPRO_USE_PALLAS=1`` for attention)."""
     chunk = 512 if S >= 4096 else 0
-    return {"positions": _positions(B, S, device), "chunk": chunk}
+    return {"positions": _positions(B, S, device), "chunk": chunk,
+            "flash": flash}
 
 
-def forward_hidden(params, cfg, batch, *, remat: bool = True):
+def forward_hidden(params, cfg, batch, *, remat: bool = True,
+                   flash: bool = False):
     """Trunk only: returns (final hidden (B,S,d) pre-final-norm, aux); aux
-    is the MoE loss in the JAX package, 0.0 for the dense family."""
+    is the MoE loss in the JAX package, 0.0 for the dense family. Under
+    ``remat`` each unit's forward runs again in backward, the flash
+    kernel's included."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
-    ctx = make_ctx(cfg, B, S, tokens.device)
+    ctx = make_ctx(cfg, B, S, tokens.device, flash=flash)
     return _run_segments(build_segments(cfg), params["segments"], x, ctx,
                          remat=remat), 0.0
 
 
-def forward(params, cfg, batch, *, remat: bool = True):
+def forward(params, cfg, batch, *, remat: bool = True, flash: bool = False):
     """Full-sequence logits (tests / small models)."""
-    x, aux = forward_hidden(params, cfg, batch, remat=remat)
+    x, aux = forward_hidden(params, cfg, batch, remat=remat, flash=flash)
     return logits_fn(params, cfg, x), aux
 
 
@@ -254,11 +261,12 @@ def _ce_from_hidden(params, cfg, h_c, tgt_c, mask_c):
 
 
 def loss_fn(params, cfg, batch, *, remat: bool = True,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, flash: bool = False):
     """Next-token CE. When ``loss_chunk`` divides S and is smaller, the
     head + CE goes chunk by chunk over the sequence, so the (B,S,V) f32
-    logits never exist at once; backward recomputes each chunk."""
-    h, aux = forward_hidden(params, cfg, batch, remat=remat)
+    logits never exist at once; backward recomputes each chunk. ``flash``
+    as in ``make_ctx``."""
+    h, aux = forward_hidden(params, cfg, batch, remat=remat, flash=flash)
     tokens = batch["tokens"]
     B, S = tokens.shape
     tgt = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,

@@ -9,7 +9,10 @@ prints the loss curves plus the bytes each method put on the wire, then
   PYTHONPATH=src python -m repro_torch.train.quickstart     # on the GPU
 
 On a CUDA device the DiLoCoX run compresses with the fused CUDA kernels
-(``backend="pallas"``); on the CPU with their plain versions.
+(``backend="pallas"``); on the CPU with their plain versions. ``--flash``
+sends attention through the flash kernels (their plain versions on the
+CPU) and trains on 128-token sequences, the shortest the flash route
+takes (S % 128 == 0); without it the sequences have 32 tokens.
 """
 from __future__ import annotations
 
@@ -30,13 +33,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--h-steps", type=int, default=10)
     ap.add_argument("--vocab", type=int, default=128)
+    ap.add_argument("--flash", action="store_true",
+                    help="attention through the flash kernels (S = 128)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
     cfg = dataclasses.replace(get_config(args.arch).reduced(),
                               vocab_size=args.vocab)
     rounds, h = args.rounds, args.h_steps
-    base = dict(n_clusters=2, local_batch=8, seq_len=32, inner_lr=3e-3)
+    print("attention:", "flash kernels" if args.flash else "einsum")
+    base = dict(n_clusters=2, local_batch=8,
+                seq_len=128 if args.flash else 32, inner_lr=3e-3,
+                flash_attention=args.flash)
 
     print("== vanilla AllReduce (sync every step) ==")
     ar = T.run_allreduce_training(cfg, T.TrainConfig(**base, h_steps=1),

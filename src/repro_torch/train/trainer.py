@@ -61,6 +61,9 @@ class TrainConfig:
     inner_engine: str = "scalar"  # scalar | pp
     pp_stages: int = 2
     pp_micro: int = 2
+    # plain causal self-attention through the flash kernels (the port's
+    # REPRO_USE_PALLAS=1 for attention; models.attention.grouped_attend)
+    flash_attention: bool = False
     seed: int = 0
 
 
@@ -116,7 +119,8 @@ def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
         dev = T.leaves(params)[0].device
         toks = _as_tensor(batch_fn(cluster_idx, round_idx, h), dev)
         with torch.enable_grad():
-            loss, _ = M.loss_fn(params, cfg, {"tokens": toks})
+            loss, _ = M.loss_fn(params, cfg, {"tokens": toks},
+                                flash=tcfg.flash_attention)
             grads = torch.autograd.grad(loss, T.leaves(params))
         grads = T.unflatten_like(params, list(grads))
         params, opt_state = adamw.update(grads, opt_state, params,
@@ -217,9 +221,10 @@ def _init_inner_stacked(params, n_clusters: int) -> adamw.AdamWState:
         m=z(), v=z())
 
 
-def _eval_loss(params, cfg, eval_batch) -> float:
+def _eval_loss(params, cfg, eval_batch, flash: bool = False) -> float:
     with torch.no_grad():
-        return float(M.loss_fn(params, cfg, eval_batch, remat=False)[0])
+        return float(M.loss_fn(params, cfg, eval_batch, remat=False,
+                               flash=flash)[0])
 
 
 def _data_and_eval(cfg, tcfg, device, eval_batch):
@@ -318,7 +323,8 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
         if on_round is not None:
             on_round(r, state)
         res.losses.append(float(torch.mean(round_losses.float())))
-        res.eval_losses.append(_eval_loss(state.params, cfg, eval_batch))
+        res.eval_losses.append(_eval_loss(state.params, cfg, eval_batch,
+                                          tcfg.flash_attention))
         res.wire_bytes_per_round.append(
             compressor.wire_bytes(shapes, rank=r_exec if tcfg.adaptive
                                   else None)
@@ -372,13 +378,15 @@ def run_allreduce_training(cfg: ModelConfig, tcfg: TrainConfig,
     t0 = time.time()
     for s in range(n_steps):
         toks = _cluster_batches(data, batch_fn, s, device)
-        loss = sum(M.loss_fn(params, cfg, {"tokens": t})[0]
+        loss = sum(M.loss_fn(params, cfg, {"tokens": t},
+                             flash=tcfg.flash_attention)[0]
                    for t in toks) / len(toks)
         grads = T.unflatten_like(params, list(torch.autograd.grad(loss,
                                                                   leaves)))
         params, opt = adamw.update(grads, opt, params, lr=tcfg.inner_lr)
         losses.append(float(loss.detach()))
-        evals.append(_eval_loss(params, cfg, eval_batch))
+        evals.append(_eval_loss(params, cfg, eval_batch,
+                                tcfg.flash_attention))
     for p in leaves:
         p.requires_grad_(False)
     return RunResult(losses, evals, [wire] * n_steps, [1] * n_steps,
@@ -417,7 +425,8 @@ def run_compressed_ddp_training(cfg: ModelConfig, tcfg: TrainConfig,
         for t in toks:
             p_req = T.tree_map(lambda x: x.detach().requires_grad_(True),
                                params)
-            loss, _ = M.loss_fn(p_req, cfg, {"tokens": t})
+            loss, _ = M.loss_fn(p_req, cfg, {"tokens": t},
+                                flash=tcfg.flash_attention)
             grads.append(T.unflatten_like(params, list(torch.autograd.grad(
                 loss, T.leaves(p_req)))))
             step_losses.append(loss.detach())
@@ -431,6 +440,7 @@ def run_compressed_ddp_training(cfg: ModelConfig, tcfg: TrainConfig,
             g_mean = cluster_mean(g_hat)
         params, opt = adamw.update(g_mean, opt, params, lr=tcfg.inner_lr)
         losses.append(float(torch.stack(step_losses).mean()))
-        evals.append(_eval_loss(params, cfg, eval_batch))
+        evals.append(_eval_loss(params, cfg, eval_batch,
+                                tcfg.flash_attention))
     return RunResult(losses, evals, [wire] * n_steps, [1] * n_steps,
                      [0] * n_steps, time.time() - t0)

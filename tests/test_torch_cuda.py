@@ -172,3 +172,85 @@ def test_cuda_kernels_refuse_outside_envelope():
         fc.project(d.double(), None, torch.randn(64, 8, device="cuda"))
     with pytest.raises(TypeError):
         q4.quant4_pack(torch.randn(4, 4, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (B.6): the forward kernel and the backward kernels
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+
+def _flash_inputs(B, Sq, H, KV, d, Sk, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(B, Sq, H, d), (B, Sk, KV, d), (B, Sk, KV, d), (B, Sq, H, d)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .cuda() for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal", [
+    (2, 128, 128, 4, 2, 32, True), (1, 200, 200, 4, 1, 64, True),
+    (1, 384, 384, 8, 2, 128, True), (1, 256, 256, 4, 1, 256, True),
+    (2, 128, 128, 4, 4, 64, False), (1, 96, 160, 4, 2, 64, True),
+    (1, 160, 96, 4, 2, 32, True)])
+def test_cuda_flash_attention_matches_plain(no_tf32, B, Sq, Sk, H, KV, d,
+                                            causal):
+    """Forward (o, lse) and backward (dq, dk, dv) kernels against their
+    plain versions on the same inputs; the backward is fed the plain
+    forward's o and lse, so it is judged on its own, and two calls of it
+    are bitwise equal (no atomics)."""
+    _need_cuda()
+    q, k, v, do = _flash_inputs(B, Sq, H, KV, d, Sk)
+    before = (fa.cuda_flash_attention_fwd.launches,
+              fa.cuda_flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
+    np.testing.assert_allclose(o.cpu().numpy(), o_p.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.cuda_flash_attention_fwd.launches,
+            fa.cuda_flash_attention_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), f"d{name} not bitwise reproducible"
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_function_and_strided_inputs(no_tf32):
+    """Through autograd, with q, k, v as strided views of one (B,S,3,H,d)
+    buffer (no copies): the kernels read them through their strides."""
+    _need_cuda()
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((2, 256, 3, 4, 64)).astype(
+        np.float32)).cuda().requires_grad_()
+    q, k, v = qkv.unbind(2)
+    o = fa.flash_attention(q, k, v)
+    (g,) = torch.autograd.grad(o.square().sum(), qkv)
+    qkv_c = qkv.detach().clone().requires_grad_()
+    qc, kc, vc = (t.contiguous() for t in qkv_c.unbind(2))
+    o_p = ref.flash_attention_ref(qc, kc, vc)
+    (g_p,) = torch.autograd.grad(o_p.square().sum(), qkv_c)
+    np.testing.assert_allclose(o.detach().cpu().numpy(),
+                               o_p.detach().cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_outside_envelope():
+    _need_cuda()
+    q, k, v, _ = _flash_inputs(1, 128, 4, 2, 64, 128)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    q48, k48, v48, _ = _flash_inputs(1, 128, 4, 2, 48, 128)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q48, k48, v48)

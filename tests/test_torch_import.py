@@ -43,6 +43,7 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
     for m in ("repro_torch.kernels.quant4", "repro_torch.kernels.fused_compress",
+              "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.ref", "repro_torch.core.compression",
               "repro_torch.core.diloco", "repro_torch.core.adaptive",
               "repro_torch.optim.adamw", "repro_torch.optim.nesterov",
