@@ -27,6 +27,13 @@ continues:
         (``flash_tolerances``), the backward (fed the plain forward's o
         and lse) within the same kind of bound and bitwise equal over two
         calls; times beside the plain versions and SDPA;
+     d. lowrank_mm, the mesh runtime's matmul, at every product of phase
+        4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
+        transposes as strided views, batched over a leaf's stacked units)
+        within the f32 accumulation bound (``_gate_product``), each view
+        bit for bit equal to its contiguous copy, and at the five shapes of
+        tests/test_kernels.py in f32 and bf16 within the JAX gate; times
+        beside the plain version and torch.matmul;
   4. train: ``run_diloco_training`` on opt-1.3b at full width, 12 of 24
      layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
      int4, the fused kernels), 2 rounds with the delay and EF: finite
@@ -38,6 +45,12 @@ continues:
         rtol 1e-3 of phase 4's;
      c. granite-3-8b (GQA, G = 4) at full width, 2 of 40 layers: loss and
         gradients with flash against einsum;
+     d. the mesh driver ``repro_torch.launch.train.main`` on full opt-1.3b
+        (24 layers, full width), one cluster on the card through a process
+        group of size 1 (NCCL), 2 rounds of H = 4: finite losses, round 0
+        leaves the params bit for bit, lowrank_mm and the int4 kernels
+        launched as often as the tree's leaves say, the all-gather handed
+        the payload's bytes, peak memory;
   5. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
      paged engine; the kernel's launch count must equal device steps x 24;
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
@@ -1037,6 +1050,258 @@ def _items(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: lowrank_mm, the mesh runtime's matmul, vs its plain version
+# ---------------------------------------------------------------------------
+
+MM_GATE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # test_kernels.py:64
+MM_TEST_SHAPES = [(128, 128, 128), (256, 384, 128), (100, 70, 36),
+                  (1, 512, 64), (333, 129, 257)]
+
+
+def mesh_config():
+    from repro_torch.configs.base import get_config
+    return get_config("opt-1.3b")
+
+
+def mesh_products(cfg, rank=RANK):
+    """{(batch, m, k, n, transposed operand): leaves} of the outer step's
+    products per cluster and round: P = M Q, Q = M^T P (a transposed) and
+    P Q^T (b transposed) for each low-rank leaf, batched over its lead."""
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.core.mesh_compression import _leaf_matrix_dims
+    from repro_torch.models import model as M
+
+    out = {}
+    for shape in tree_shapes(M.init_params(cfg, device="meta")).values():
+        lead, m, n = _leaf_matrix_dims(shape)
+        if min(m, n) < 64:
+            continue
+        r = min(rank, m, n)
+        for key in ((lead, m, n, r, "-"), (lead, n, m, r, "a"),
+                    (lead, m, r, n, "b")):
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _mm_operands(gen, dev, batch, m, k, n, trans):
+    """M-like (0.3 scale) or factor-like operands; a transposed operand is
+    a strided view of a row-major tensor, as the mesh compressor forms it."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    if trans == "a":
+        return rnd(batch, k, m, scale=0.3).transpose(1, 2), rnd(
+            batch, k, n, scale=k ** -0.5)
+    if trans == "b":
+        return rnd(batch, m, k, scale=m ** -0.5), rnd(batch, n, k).transpose(
+            1, 2)
+    return rnd(batch, m, k, scale=0.3), rnd(batch, k, n)
+
+
+def lowrank_mm_kernel(dev=None, cfg=None):
+    """lowrank_mm against its plain version at every product of phase 4d
+    and at the JAX test shapes; returns the kernel's row, its numbers
+    summed over one cluster's outer step (each product times its leaves)."""
+    from repro_torch.kernels import lowrank_mm as lm
+
+    _phase("kernel vs plain: lowrank_mm (mesh outer-step products)")
+    dev = dev or torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    worst, worst_ratio = 0.0, 0.0
+    for (batch, m, k, n, trans), count in sorted(mesh_products(
+            cfg or mesh_config()).items()):
+        a, b = _mm_operands(gen, dev, batch, m, k, n, trans)
+        tag = (f"batch {batch} ({m} x {k}) @ ({k} x {n}) transposed "
+               f"{trans} x{count}")
+        got = lm.cuda_matmul(a, b)
+        want = lm.matmul_plain(a, b)
+        errs = [_gate_product(f"lowrank_mm {tag} [{i}]", got[i], want[i],
+                              a[i], b[i]) for i in range(batch)]
+        err, ratio = max(e for e, _ in errs), max(r for _, r in errs)
+        if trans != "-" and not torch.equal(
+                got, lm.cuda_matmul(a.contiguous(), b.contiguous())):
+            _fail(f"lowrank_mm {tag}: the strided view differs from its "
+                  f"contiguous copy")
+        del want, errs
+        ms = time_ms(lambda: lm.cuda_matmul(a, b), flush=flush)
+        plain = time_ms(lambda: lm.matmul_plain(a, b), flush=flush)
+        lib = time_ms(lambda: torch.matmul(a, b), flush=flush)
+        nbytes = 4 * batch * (m * k + k * n + m * n)
+        flops = 2 * batch * m * k * n
+        bound, by = _bound(nbytes, flops)
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("nbytes", nbytes), ("flops", flops)):
+            tot[key] += count * val
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        print(f"{tag}: max abs err {err:.3e} ({ratio:.4f}x the f32 bound), "
+              f"ms kernel/plain/torch.matmul/bound {ms:.4f}/{plain:.4f}/"
+              f"{lib:.4f}/{bound:.4f} ({by})", flush=True)
+        del a, b, got
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MM_GATE[dtype]
+        for m, k, n in MM_TEST_SHAPES:
+            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            got = lm.cuda_matmul(a, b).float()
+            want = lm.matmul_plain(a, b).float()
+            gap = (got - want).abs()
+            if bool((gap > tol + tol * want.abs()).any()):
+                _fail(f"lowrank_mm {dtype} ({m}, {k}, {n}): outside the JAX "
+                      f"gate rtol/atol {tol} (max abs err "
+                      f"{float(gap.max()):.3e})")
+            print(f"JAX test shape {dtype} ({m} x {k}) @ ({k} x {n}): max abs "
+                  f"err {float(gap.max()):.3e} (gate {tol})", flush=True)
+    bound_ms, bound_by = _bound(tot["nbytes"], tot["flops"])
+    print(f"lowrank_mm: one cluster's outer step: kernel {tot['ms']:.4f} ms, "
+          f"plain {tot['plain_ms']:.4f} ms, torch.matmul (TF32 off; here also "
+          f"the plain version's product) {tot['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); worst {worst_ratio:.4f}x the f32 "
+          f"bound", flush=True)
+    return {"name": "lowrank_mm", "route": "cuda",
+            "source": "src/repro_torch/csrc/lowrank_mm.cu",
+            "replaces": "src/repro/kernels/lowrank_mm.py:19",
+            "max_abs_err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": tot["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the mesh driver at full opt-1.3b, through the user's entry point
+# ---------------------------------------------------------------------------
+
+MESH_ARGS = ["--arch", "opt-1.3b", "--device", "cuda", "--devices", "1",
+             "--clusters", "1", "--data", "1", "--model", "1", "--rounds",
+             "2", "--h-steps", "4", "--global-batch", "4", "--seq-len", "512",
+             "--rank", str(RANK)]
+
+
+def mesh_launches_expected(cfg, rounds, clusters):
+    """Launches of the mesh outer step: per round and low-rank leaf, one
+    lowrank_mm each for P = M Q, Q = M^T P (batched over the leaf's
+    clusters x lead matrices) and P Q^T (over all clusters' matrices);
+    per cluster, one quant4 pack of P and of Q per matrix and one per
+    quant-only leaf; the same count of unpacks for all clusters'
+    payloads. No other kernel runs in the driver."""
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.core.mesh_compression import _leaf_matrix_dims
+    from repro_torch.models import model as M
+
+    n_low = mats = n_quant = 0
+    for shape in tree_shapes(M.init_params(cfg, device="meta")).values():
+        lead, m, n = _leaf_matrix_dims(shape)
+        if min(m, n) < 64:
+            n_quant += 1
+        else:
+            n_low += 1
+            mats += lead
+    packs = rounds * clusters * (2 * mats + n_quant)
+    return {"lowrank_mm": rounds * 3 * n_low, "quant4_pack": packs,
+            "quant4_unpack": packs, "fused_project": 0,
+            "fused_project_t_pack": 0, "fused_reconstruct": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}
+
+
+def mesh_gather_bytes(cfg, rank=RANK, block=256):
+    """Bytes one cluster hands to the all-gather per round: every matrix's
+    packed P and Q and every quant-only leaf's codes, padded to whole
+    blocks of ``block`` values (block / 2 bytes each), plus a 4-byte f32
+    scale per block."""
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.core.mesh_compression import _leaf_matrix_dims
+    from repro_torch.models import model as M
+
+    total = 0
+    for shape in tree_shapes(M.init_params(cfg, device="meta")).values():
+        lead, m, n = _leaf_matrix_dims(shape)
+        if min(m, n) < 64:
+            sizes = [lead * m * n]
+        else:
+            r = min(rank, m, n)
+            sizes = [m * r, n * r] * lead
+        total += sum(_nblk(s) * (block // 2 + 4) for s in sizes)
+    return total
+
+
+def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as M
+
+    cfg = cfg or mesh_config()
+    _phase("mesh driver: python -m repro_torch.launch.train "
+           + " ".join(argv))
+    dev = dev or torch.device("cuda")
+    # the driver's initial params (generator seeded 0 on the card), on the
+    # host, to check that round 0 leaves them bit for bit
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    initial = {k: v.cpu() for k, v in _items(M.init_params(cfg, gen, dev))}
+    n_params = sum(v.numel() for v in initial.values())
+    round0 = []
+
+    def on_round(r, params, opt, outer):
+        if r == 0:
+            anchor = dict(_items(outer.anchor))
+            round0.append(all(
+                torch.equal(anchor[k], initial[k].to(dev))
+                and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
+
+    args = train_lib._parse_args(argv)
+    want = mesh_launches_expected(cfg, args.rounds, args.clusters)
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"memory in use before the run: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = train_lib.main(argv, on_round=on_round)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(out.getvalue(), end="")
+    gather = mesh_gather_bytes(cfg, args.rank)
+    tokens = args.global_batch * args.seq_len * args.h_steps
+    for r in range(args.rounds):
+        print(f"round {r}: mean loss {summary['mean_loss'][r]:.6f}, round "
+              f"{summary['round_s'][r]:.3f} s: inner {summary['inner_s'][r]:.3f}"
+              f" s ({1e3 * summary['inner_s'][r] / args.h_steps:.1f} ms per "
+              f"step), outer "
+              f"{summary['outer_s'][r]:.3f} s; {tokens / summary['round_s'][r]:.1f}"
+              f" tokens/s; all-gather handed {summary['gather_bytes'][r]} B "
+              f"(expected {gather}), wire_bytes_tree {summary['wire_bytes'][r]}"
+              f" B (2-byte scales)", flush=True)
+    print(f"mesh driver: {n_params} params, peak memory {peak / 2**30:.2f} "
+          f"GiB, launches {launches} (expected {want}), round 0 params "
+          f"unchanged: {round0}", flush=True)
+    if "TRAIN-DRIVER-OK" not in out.getvalue():
+        _fail("mesh driver: no TRAIN-DRIVER-OK")
+    if not all(map(math.isfinite, summary["mean_loss"])):
+        _fail(f"mesh driver: non-finite losses {summary['mean_loss']}")
+    if round0 != [True]:
+        _fail("mesh driver: round 0 changed the params (Delta must be 0)")
+    if launches != want:
+        _fail(f"mesh driver: launches {launches}, expected {want}")
+    if summary["gather_bytes"] != [gather] * args.rounds:
+        _fail(f"mesh driver: all-gather handed {summary['gather_bytes']} B, "
+              f"expected {gather} per round")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -1161,6 +1426,8 @@ def main():
     comp_rows = compressor_kernels()
     flash_rows = flash_kernels()
     torch.cuda.empty_cache()
+    mm_row = lowrank_mm_kernel()
+    torch.cuda.empty_cache()
     einsum_run = train()
     torch.cuda.empty_cache()
     flash_run = train(flash=True)
@@ -1169,6 +1436,8 @@ def main():
     step_ab()
     torch.cuda.empty_cache()
     gqa_model()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_driver()
     torch.cuda.empty_cache()
     launches = serve()
     paged_vs_dense()
@@ -1190,6 +1459,7 @@ def main():
         kernels.append(row)
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name]))
+    kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,12 @@ n_arrays, meta). The port builds these strings itself
 
 The bridge maps the JAX package's trees, as numpy arrays, 1:1 onto the
 port's tensors: ``params_from_flat`` / ``params_to_flat`` for the
-parameters, ``state_from_flat`` / ``state_to_flat`` for the whole
-``DiLoCoXState`` (params, inner AdamW and outer Nesterov states, pending
-deltas, EF buffers, the compressor's warm starts, the round counter).
+parameters, ``state_from_flat`` / ``state_to_flat`` for a whole state
+tree: the trainer's ``DiLoCoXState`` (params, inner AdamW and outer
+Nesterov states, pending deltas, EF buffers, the compressor's warm
+starts, the round counter) or the mesh driver's ``launch.steps.
+OuterState`` (anchor, Nesterov state, pending deltas, EF buffers, warm
+starts).
 Both packages keep the JAX layouts (``(d_in, d_out)`` weights, stacked
 units with a leading ``n``, cluster-stacked rows with a leading ``C``), so
 the bridge is a rename, not a transpose.
@@ -126,9 +129,10 @@ def params_to_flat(params) -> Dict[str, np.ndarray]:
 
 
 def state_from_flat(flat: Dict[str, np.ndarray], state_like, device=None):
-    """``{keystr: ndarray}`` of a JAX ``core.diloco.DiLoCoXState`` (as
-    ``repro.checkpoint.checkpoint._flatten`` writes it) -> the port's
-    ``DiLoCoXState`` with ``state_like``'s structure, dtypes and device."""
+    """``{keystr: ndarray}`` of a JAX state tree (``core.diloco.
+    DiLoCoXState``, ``launch.steps.OuterState``, as
+    ``repro.checkpoint.checkpoint._flatten`` writes it) -> the port's state
+    with ``state_like``'s structure, dtypes and device."""
     return tree_from_flat(flat, state_like, device)
 
 

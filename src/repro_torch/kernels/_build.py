@@ -53,6 +53,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     + [_I, _P], _I),
         **_ERR,
     },
+    "lowrank_mm": {
+        "lowrank_mm": ([_P, _I, _P, _I, _P] + [_I] * 4 + [_L] * 6 + [_P], _I),
+        **_ERR,
+    },
 }
 KERNEL_LIBS = list(SIGNATURES)
 

@@ -1,15 +1,218 @@
-"""Serving step function (port of ``make_serve_step`` from
-``repro.launch.steps``; the training steps come with the training slice,
-ROADMAP A.9 and A.11)."""
+"""Mesh-level step functions (port of ``repro.launch.steps``): the inner
+train step, the outer DiLoCoX step and the serving step.
+
+Cluster semantics: params carry a leading cluster axis. In one process
+that axis may hold several clusters (the stacked layout of the JAX
+package); across processes each rank holds its own clusters' rows and
+the clusters meet only in the outer step, whose one collective moves the
+packed int4 payload (``core.mesh_compression``). Within a cluster the
+weights are replicated over the data group, whose ranks each take a
+slice of the cluster's batch and average their gradients.
+
+The JAX functions return new trees; these update the params, the
+optimizer states and the outer state in place (at opt-1.3b every copy of
+the model is 5.7 GB) and return the same tensors.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh_compression as mc
 from repro_torch.models import model as M
+from repro_torch.optim import adamw, nesterov
 
+
+def _group_size(group) -> int:
+    if group is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over ``group`` (in place; ``x`` itself without one)."""
+    if _group_size(group) > 1:
+        import torch.distributed as dist
+        dist.all_reduce(x, group=group)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# inner train step (per cluster, a loop over the local clusters)
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
+                    per_cluster_h: bool = False, data_group=None,
+                    cluster_group=None):
+    """``(params_stacked, opt_stacked, batch_stacked) -> (params', opt',
+    loss)``: one inner AdamW step per local cluster, no cross-cluster
+    collective. Clusters run one after another (the JAX package vmaps;
+    a batched product sums in another order, ROADMAP A.6).
+
+    With a ``data_group`` each rank holds a slice of its cluster's batch:
+    the gradients are averaged over the group before AdamW, so the clip
+    sees the full-batch gradient, as under GSPMD. The returned loss is
+    the mean over all clusters (local ones, and those of the
+    ``cluster_group``) of each cluster's full-batch loss.
+
+    ``per_cluster_h=True`` returns ``(params, opt, batch, active) ->
+    (params', opt', loss)``: ``active`` is a (C_local,) bool mask;
+    inactive clusters' params and optimizer state are left untouched and
+    the loss is the mean over active clusters only."""
+    n_data = _group_size(data_group)
+
+    def one_cluster(params_row, opt_row, tokens):
+        p = T.tree_map(lambda x: x.detach().requires_grad_(True), params_row)
+        with torch.enable_grad():
+            loss, _ = M.loss_fn(p, cfg, {"tokens": tokens})
+            grads = list(torch.autograd.grad(loss, T.leaves(p)))
+        loss = loss.detach().float()
+        if n_data > 1:
+            for g in grads:
+                all_reduce_sum(g, data_group).div_(n_data)
+            loss = all_reduce_sum(loss.clone(), data_group) / n_data
+        _, opt_row = adamw.update(T.unflatten_like(p, grads), opt_row, p,
+                                  lr=inner_lr)
+        return opt_row.step, loss
+
+    def run(params_stacked, opt_stacked, batch_stacked, active):
+        tokens = batch_stacked["tokens"]
+        steps, total = [], None
+        n_active = 0
+        for c in range(tokens.shape[0]):
+            if not active[c]:
+                steps.append(opt_stacked.step[c])
+                continue
+            opt_c = adamw.AdamWState(step=opt_stacked.step[c],
+                                     m=T.tree_map(lambda x: x[c],
+                                                  opt_stacked.m),
+                                     v=T.tree_map(lambda x: x[c],
+                                                  opt_stacked.v))
+            step, loss = one_cluster(T.tree_map(lambda x: x[c],
+                                                params_stacked),
+                                     opt_c, tokens[c])
+            steps.append(step)
+            total = loss if total is None else total + loss
+            n_active += 1
+        dev = tokens.device
+        total = torch.zeros((), device=dev) if total is None else total
+        stats = all_reduce_sum(torch.stack([
+            total, torch.tensor(float(n_active), device=dev)]), cluster_group)
+        opt = adamw.AdamWState(step=torch.stack(steps), m=opt_stacked.m,
+                               v=opt_stacked.v)
+        return params_stacked, opt, stats[0] / torch.clamp(stats[1], min=1.0)
+
+    if not per_cluster_h:
+        def train_step(params_stacked, opt_stacked, batch_stacked):
+            C = batch_stacked["tokens"].shape[0]
+            return run(params_stacked, opt_stacked, batch_stacked, [True] * C)
+
+        return train_step
+
+    def train_step_h(params_stacked, opt_stacked, batch_stacked, active):
+        return run(params_stacked, opt_stacked, batch_stacked,
+                   [bool(a) for a in active])
+
+    return train_step_h
+
+
+def init_inner_state(params_stacked) -> adamw.AdamWState:
+    """AdamW state of cluster-stacked params (the JAX driver's
+    ``jax.vmap(adamw.init)``): a (C,) step counter and stacked m, v."""
+    z = lambda: T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params_stacked)
+    first = T.leaves(params_stacked)[0]
+    return adamw.AdamWState(
+        step=torch.zeros((first.shape[0],), dtype=torch.int32,
+                         device=first.device), m=z(), v=z())
+
+
+# ---------------------------------------------------------------------------
+# outer DiLoCoX step (the cross-cluster sync)
+# ---------------------------------------------------------------------------
+
+class OuterState(NamedTuple):
+    anchor: Any          # theta^{t-1} (unstacked, global)
+    outer_opt: Any       # Nesterov momentum
+    delta_pending: Any   # cluster-stacked pseudo-grads (previous round)
+    error: Any           # cluster-stacked EF buffers
+    q_state: Any         # cluster-stacked PowerSGD warm starts
+
+
+def init_outer_state(params, n_clusters: int,
+                     ccfg: mc.MeshCompressionConfig) -> OuterState:
+    """Round-0 outer state for ``n_clusters`` local cluster rows. The
+    anchor is ``params`` itself: the outer step updates it in place."""
+    stack = lambda tree: T.tree_map(
+        lambda x: torch.zeros((n_clusters,) + tuple(x.shape),
+                              dtype=torch.float32, device=x.device), tree)
+    q0 = mc.init_q_state(params, ccfg)
+    q_stacked = T.tree_map(
+        lambda x: x.unsqueeze(0).expand((n_clusters,) + tuple(x.shape))
+        .clone(), q0)
+    return OuterState(anchor=params, outer_opt=nesterov.init(params),
+                      delta_pending=stack(params), error=stack(params),
+                      q_state=q_stacked)
+
+
+def make_outer_step(cfg: ModelConfig, ccfg: mc.MeshCompressionConfig, *,
+                    outer_lr: float = 0.7, outer_momentum: float = 0.9,
+                    cluster_group=None):
+    """``(params_stacked_postH, outer_state, rank_scalar) ->
+    (params_stacked_next, outer_state')``: Alg. 2's communicate + delayed
+    outer update with the one-step-delay schedule.
+
+    The local clusters' pending deltas are compressed and their payloads
+    gathered over ``cluster_group`` first; then, leaf by leaf, the mean
+    Delta is reconstructed and the leaf's EF buffer, pending delta,
+    anchor, momentum and replicas are updated in place, so no second
+    full-size tree exists at any time (the JAX function's tree-at-once
+    form holds about six). ``outer_step.gather_bytes`` is the byte count
+    this rank handed to the last all-gather."""
+
+    @torch.no_grad()
+    def outer_step(params_stacked, st: OuterState, rank_scalar):
+        # communicate: compress + gather LAST round's pseudo-grads
+        payloads, q_new = mc.compress_local(st.delta_pending, st.q_state,
+                                            rank_scalar, ccfg)
+        outer_step.gather_bytes = mc.gather_bytes(payloads)
+        gathered = mc.gather_payloads(payloads, cluster_group)
+        del payloads
+        leaves = zip(gathered, T.leaves(params_stacked), T.leaves(st.anchor),
+                     T.leaves(st.outer_opt.momentum),
+                     T.leaves(st.delta_pending), T.leaves(st.error),
+                     T.leaves(st.q_state))
+        for rows, p, a, v, d, e, q in leaves:
+            Delta = mc.decompress_mean_leaf(rows, a.shape, mc.factor_width(q),
+                                            ccfg).to(d.dtype)
+            # Alg. 2 error feedback: e = delta^{t-1} - Delta^{t-1}
+            torch.sub(d, Delta[None], out=e)
+            # next pending: (anchor - theta_inner) + e
+            torch.sub(a.float()[None], p.float(), out=d)
+            d.add_(e)
+            # delayed outer update on the anchor
+            nesterov.update_leaf(Delta, v, a, lr=outer_lr,
+                                 momentum=outer_momentum)
+            del Delta
+            # replicas restart from the outer-updated params
+            p.copy_(a[None].expand_as(p))
+        outer_opt = nesterov.NesterovState(step=st.outer_opt.step + 1,
+                                           momentum=st.outer_opt.momentum)
+        return params_stacked, OuterState(
+            anchor=st.anchor, outer_opt=outer_opt,
+            delta_pending=st.delta_pending, error=st.error, q_state=q_new)
+
+    outer_step.gather_bytes = 0
+    return outer_step
+
+
+# ---------------------------------------------------------------------------
+# serving step
+# ---------------------------------------------------------------------------
 
 def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None):
     """One decode step: token + caches -> next token (greedy) + caches.

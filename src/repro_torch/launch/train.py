@@ -1,0 +1,407 @@
+"""End-to-end DiLoCoX training driver on ``torch.distributed`` (port of the
+gspmd path of ``repro.launch.train``).
+
+    for outer step t:  H x train_step (per cluster)
+                       outer_step     (compress -> gather -> Nesterov,
+                                       one-step-delay semantics)
+                       AdaGradCmp     (Alg. 3 host-side controller)
+
+``--devices`` = clusters x data x model processes, one card each (one CPU
+process each with ``--device cpu``), laid out as a ("clusters", "data",
+"model") ``DeviceMesh``. Rank (c, j) trains cluster c on its j-th slice
+of the cluster's batch; the data group averages gradients every step; the
+clusters group meets once per round, in the outer step's all-gather of
+the packed int4 payload. NCCL on the card, gloo on the CPU, rendezvous
+through a ``FileStore`` in a temporary directory. ``--devices 1`` runs in
+this process (still through a process group of size 1); more devices
+spawn one process per rank.
+
+Usage (2 CPU processes, one cluster each):
+  python -m repro_torch.launch.train --arch granite-3-8b --smoke \\
+      --device cpu --devices 2 --clusters 2 --data 1 --model 1 \\
+      --rounds 2 --h-steps 2
+
+Not ported: ``--inner pp`` (ROADMAP A.12); ``--model`` > 1, i.e. tensor
+parallelism and FSDP placement (``parallel/sharding.py``, ROADMAP A.11b):
+within a cluster the weights are replicated over the data group;
+``--ckpt-dir`` with more than one device (A.11b). The JAX driver's
+activation sharder has no counterpart: constraints have no effect on a
+data-parallel runtime.
+
+Parameters come from a ``torch.Generator`` seeded 0 and batches from the
+port's ``SyntheticLM`` streams, so a run of this driver and one of the
+JAX driver see different numbers; the tests carry JAX's over.
+"""
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+
+def _parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--devices", type=int, default=8)
+    ap.add_argument("--clusters", type=int, default=2)
+    ap.add_argument("--data", type=int, default=2)
+    ap.add_argument("--model", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--h-steps", type=int, default=10)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--inner-lr", type=float, default=1e-3)
+    ap.add_argument("--outer-lr", type=float, default=0.5)
+    ap.add_argument("--outer-momentum", type=float, default=0.7)
+    ap.add_argument("--rank", type=int, default=16)
+    ap.add_argument("--adaptive", action="store_true")
+    ap.add_argument("--h-policy", default="global",
+                    choices=["global", "balance"],
+                    help="per-cluster local-step scheduling: balance gives "
+                         "each cluster its own H from --step-times so slow "
+                         "sites do fewer local steps per round")
+    ap.add_argument("--step-times", default="",
+                    help="comma-separated per-cluster step seconds "
+                         "(measured on the real sites) for --h-policy "
+                         "balance; default: uniform (== global)")
+    ap.add_argument("--h-min", type=int, default=1)
+    ap.add_argument("--inner", default="gspmd", choices=["gspmd", "pp"],
+                    help="inner engine: gspmd = the per-cluster step "
+                         "(launch/steps.py); pp = the pipeline-parallel "
+                         "engine, not ported yet (ROADMAP A.12)")
+    ap.add_argument("--pp-stages", type=int, default=2)
+    ap.add_argument("--pp-micro", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--trace", default="",
+                    help="write a wall-clock Chrome-trace JSON of the "
+                         "driver's round/inner/outer spans here")
+    ap.add_argument("--log-json", action="store_true",
+                    help="mirror log lines as JSON objects on stderr")
+    ap.add_argument("--cpu-threads", type=int, default=0,
+                    help="torch.set_num_threads in every rank (0: the "
+                         "host's cores split over the CPU ranks; torch's "
+                         "default in one process)")
+    ap.add_argument("--state-out", default="",
+                    help="write each rank's rows of the round state (params, "
+                         "inner and outer state) here after every round, "
+                         "as round_RRRR.rankK.npz")
+    ap.add_argument("--join-timeout", type=float, default=3600.0,
+                    help="seconds to wait for the spawned ranks")
+    return ap.parse_args(argv)
+
+
+def _check_args(args) -> None:
+    """The refusals and the JAX driver's checks, before any process
+    starts."""
+    if args.inner == "pp":
+        raise NotImplementedError("--inner pp (the pipeline-parallel inner "
+                                  "engine) is not ported yet (ROADMAP A.12)")
+    if args.model > 1:
+        raise NotImplementedError("--model > 1 (tensor parallelism and FSDP "
+                                  "placement, parallel/sharding.py) is not "
+                                  "ported yet (ROADMAP A.11b)")
+    C = args.clusters
+    assert C * args.data * args.model == args.devices, (
+        "--devices must equal clusters * data * model")
+    if args.ckpt_dir and args.devices > 1:
+        raise NotImplementedError("--ckpt-dir with more than one device (a "
+                                  "checkpoint gathered across ranks) is not "
+                                  "ported yet (ROADMAP A.11b)")
+    if args.global_batch % C or (args.global_batch // C) % args.data:
+        raise ValueError(f"--global-batch {args.global_batch} must split "
+                         f"into {C} clusters x {args.data} data ranks")
+
+
+def _setup_obs(args, rank: int):
+    """Logger (stdout, byte-stable lines, rank 0's info lines only) +
+    optional wall-clock tracer. Returns ``(log, tracer, span)``."""
+    from repro_torch.obs import Tracer, configure_logging, get_logger
+
+    if rank == 0:
+        configure_logging(stream=sys.stdout,
+                          json_stream=(sys.stderr if args.log_json else None),
+                          level="info")
+    else:                       # the other ranks report warnings only
+        configure_logging(stream=None, json_stream=None, level="warning")
+    log = get_logger("launch.train")
+    tracer = Tracer("train-driver") if args.trace and rank == 0 else None
+    if tracer is not None:
+        span = tracer.span
+    else:
+        def span(name, **kw):
+            return contextlib.nullcontext()
+    return log, tracer, span
+
+
+def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
+        data_group=None, rank: int = 0, on_round=None):
+    """The gspmd round loop for this rank's ``clusters`` (cluster indices;
+    all of them with no ``cluster_group``: the in-process stacked run) on
+    its ``data_rank``-th slice of each cluster's batch. Returns a summary
+    dict (per round: mean loss, executed H, rank, wire bytes, gathered
+    bytes, synchronized round/inner/outer seconds). ``on_round(r, params,
+    opt, outer_state)`` sees the state after each round."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import adaptive, diloco
+    from repro_torch.core import mesh_compression as mc
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import all_reduce_sum
+    from repro_torch.models import model as M
+    from repro_torch import tree as T
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    C = args.clusters
+    CL = len(clusters)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params1 = M.init_params(cfg, gen, device)
+    params = diloco.stack_replicas(params1, CL)
+    opt = steps.init_inner_state(params)
+    ccfg = mc.MeshCompressionConfig(rank=args.rank)
+    # the anchor is params1 itself, updated in place by the outer step
+    outer_state = steps.init_outer_state(params1, CL, ccfg)
+
+    balance_h = args.h_policy == "balance"
+    step_times = ([float(s) for s in args.step_times.split(",")]
+                  if args.step_times else [1.0] * C)
+    assert len(step_times) == C, "--step-times needs one entry per cluster"
+
+    def plan_round_h(h_budget):
+        h_map = adaptive.plan_h(
+            adaptive.HSpec(policy="balance", h_min=args.h_min),
+            h_budget, np.asarray(step_times), np.ones(C, bool))
+        return [h_map[c] for c in range(C)]
+
+    # uniform-at-budget rounds run the plain train step; only genuinely
+    # heterogeneous rounds use the masked variant (the JAX driver's rule)
+    train_step = steps.make_train_step(cfg, inner_lr=args.inner_lr,
+                                       data_group=data_group,
+                                       cluster_group=cluster_group)
+    train_step_h = (steps.make_train_step(
+        cfg, inner_lr=args.inner_lr, per_cluster_h=True,
+        data_group=data_group, cluster_group=cluster_group)
+        if balance_h else None)
+    outer_step = steps.make_outer_step(
+        cfg, ccfg, outer_lr=args.outer_lr,
+        outer_momentum=args.outer_momentum, cluster_group=cluster_group)
+
+    Bc = args.global_batch // C
+    n_data = 1 if data_group is None else args.data
+    rows = slice(data_rank * Bc // n_data, (data_rank + 1) * Bc // n_data)
+    data = [SyntheticLM(cfg.vocab_size, args.seq_len, Bc, seed=0,
+                        data_shard=c) for c in clusters]
+    ada_cfg = adaptive.AdaGradCmpConfig(r1=args.rank, h1=args.h_steps,
+                                        mode="overlap")
+    ada = adaptive.AdaGradCmpState.create(ada_cfg)
+
+    def cluster_mean(stacked):
+        """f32 mean over all clusters of a cluster-stacked tree: a
+        full-size sum across the clusters group (the JAX driver's
+        ``x.mean(0)`` under GSPMD)."""
+        return T.tree_map(
+            lambda x: all_reduce_sum(x.float().sum(0), cluster_group) / C,
+            stacked)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    log, tracer, span = _setup_obs(args, rank)
+    summary = {k: [] for k in ("mean_loss", "h", "rank", "wire_bytes",
+                               "gather_bytes", "round_s", "inner_s",
+                               "outer_s")}
+    h_vec_static = plan_round_h(args.h_steps) if balance_h else None
+    for r in range(args.rounds):
+        # pre-observe controller state = what this round executes
+        h_t = ada.h_t if args.adaptive else args.h_steps
+        r_exec = ada.r_t
+        if balance_h:
+            h_vec = plan_round_h(h_t) if args.adaptive else h_vec_static
+        else:
+            h_vec = [h_t] * C
+        het_round = any(hc != h_t for hc in h_vec)
+        losses = []
+        sync()
+        t0 = time.perf_counter()
+        with span("round", round=r):
+            with span("inner", round=r):
+                for h in range(max(h_vec)):
+                    toks = torch.stack([d.next_batch()["tokens"][rows]
+                                        for d in data]).to(device)
+                    batch = {"tokens": toks}
+                    if het_round:
+                        active = [h < h_vec[c] for c in clusters]
+                        params, opt, loss = train_step_h(params, opt, batch,
+                                                         active)
+                    else:
+                        params, opt, loss = train_step(params, opt, batch)
+                    losses.append(float(loss))
+                sync()
+            t1 = time.perf_counter()
+            with span("outer", round=r):
+                params, outer_state = outer_step(params, outer_state, r_exec)
+                sync()
+        t2 = time.perf_counter()
+        wire = mc.wire_bytes_tree(params1, ccfg,
+                                  rank=r_exec if args.adaptive else None)
+        h_str = (f"H={h_t}" if not het_round
+                 else "H=" + "/".join(str(hc) for hc in h_vec))
+        log.info(f"round {r}: mean_loss={np.mean(losses):.4f} "
+                 f"{h_str} r={r_exec} wire_per_cluster={wire/1e6:.2f}MB",
+                 round=r, mean_loss=float(np.mean(losses)), h=h_vec,
+                 rank=int(r_exec), wire_bytes=wire,
+                 gather_bytes=outer_step.gather_bytes)
+        for key, val in (("mean_loss", float(np.mean(losses))),
+                         ("h", list(h_vec)), ("rank", int(r_exec)),
+                         ("wire_bytes", wire),
+                         ("gather_bytes", outer_step.gather_bytes),
+                         ("round_s", t2 - t0), ("inner_s", t1 - t0),
+                         ("outer_s", t2 - t1)):
+            summary[key].append(val)
+        if args.adaptive:
+            ada = adaptive.observe_mean_pseudo_grad(
+                ada, cluster_mean(outer_state.delta_pending), ada_cfg)
+        if args.ckpt_dir:
+            ckpt_lib.save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
+                          {"params": params, "outer": outer_state._asdict()},
+                          step=r, meta={"arch": args.arch})
+        if args.state_out:
+            ckpt_lib.save(os.path.join(args.state_out,
+                                       f"round_{r:04d}.rank{rank}"),
+                          {"params": params, "opt": opt,
+                           "outer": outer_state._asdict()},
+                          step=r, meta={"clusters": list(clusters),
+                                        "data_rank": data_rank})
+        if on_round is not None:
+            on_round(r, params, opt, outer_state)
+    log.info("TRAIN-DRIVER-OK")
+    if tracer is not None:
+        tracer.write(args.trace)
+        log.info(f"wrote {args.trace}")
+    return summary
+
+
+def _worker(rank: int, args, store_path: str, on_round=None,
+            summary_path: str = ""):
+    """One rank: joins the process group, builds the mesh, runs its
+    cluster, and leaves the group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_cluster_mesh
+
+    device = resolve_device(args.device)
+    threads = args.cpu_threads
+    if not threads and device.type == "cpu" and args.devices > 1:
+        threads = max(1, (os.cpu_count() or 1) // args.devices)
+    if threads:
+        torch.set_num_threads(threads)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.FileStore(store_path, args.devices),
+                            rank=rank, world_size=args.devices)
+    try:
+        mesh = make_cluster_mesh(args.clusters, args.data, args.model,
+                                 device_type=device.type)
+        c, j, _ = mesh.get_coordinate()
+        summary = run(args, device, clusters=[c], data_rank=j,
+                      cluster_group=mesh.get_group("clusters"),
+                      data_group=mesh.get_group("data"), rank=rank,
+                      on_round=on_round)
+    finally:
+        dist.destroy_process_group()
+    if summary_path and rank == 0:
+        with open(summary_path, "w") as f:
+            json.dump(summary, f)
+    return summary
+
+
+def _spawn(args, store_path: str, summary_path: str) -> None:
+    """One process per rank (spawn start method); waits at most
+    ``--join-timeout`` seconds, stops every rank if one fails or time
+    runs out, and raises naming the ranks that did not finish."""
+    import multiprocessing.connection as mpc
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_worker,
+                         args=(rank, args, store_path, None, summary_path))
+             for rank in range(args.devices)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + args.join_timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            left = deadline - time.monotonic()
+            if left <= 0 or any(p.exitcode not in (None, 0) for p in procs):
+                break
+            mpc.wait([p.sentinel for p in procs if p.is_alive()],
+                     timeout=min(left, 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = {rank: p.exitcode for rank, p in enumerate(procs) if p.exitcode}
+    if bad:
+        raise RuntimeError(f"training ranks failed or timed out after "
+                           f"{args.join_timeout} s: exit codes {bad}")
+
+
+def main(argv=None, *, on_round=None, store_dir=None):
+    """Runs the driver; returns rank 0's summary (see ``run``).
+    ``on_round`` (in-process runs only) sees the state after each round;
+    the process group's rendezvous file lives in a new temporary
+    directory under ``store_dir`` (default: the system's), removed
+    afterwards."""
+    args = _parse_args(argv)
+    _check_args(args)
+
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and args.devices > torch.cuda.device_count():
+        raise RuntimeError(f"--devices {args.devices} needs one card per "
+                           f"rank; {torch.cuda.device_count()} visible")
+    if on_round is not None and args.devices > 1:
+        raise ValueError("on_round sees in-process runs only (--devices 1); "
+                         "use --state-out across processes")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_", dir=store_dir)
+    store_path = os.path.join(tmp, "store")
+    try:
+        if args.devices == 1:
+            return _worker(0, args, store_path, on_round)
+        summary_path = os.path.join(tmp, "summary.json")
+        _spawn(args, store_path, summary_path)
+        with open(summary_path) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

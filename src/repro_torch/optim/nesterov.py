@@ -27,6 +27,15 @@ def init(params) -> NesterovState:
 
 
 @torch.no_grad()
+def update_leaf(g, v, p, *, lr=0.7, momentum=0.9):
+    """``update`` on one leaf: momentum ``v`` and params ``p`` in place."""
+    g = g.float()
+    v.mul_(momentum).add_(g)
+    step_dir = momentum * v + g
+    p.sub_((lr * step_dir).to(p.dtype))
+
+
+@torch.no_grad()
 def update(pseudo_grads, state: NesterovState, params, *, lr=0.7,
            momentum=0.9):
     """theta <- theta - lr*(mu*v_new + Delta), v_new = mu*v + Delta
@@ -34,9 +43,6 @@ def update(pseudo_grads, state: NesterovState, params, *, lr=0.7,
     direction already (theta_anchor - theta_local)."""
     for p, g, v in zip(T.leaves(params), T.leaves(pseudo_grads),
                        T.leaves(state.momentum)):
-        g = g.float()
-        v.mul_(momentum).add_(g)
-        step_dir = momentum * v + g
-        p.sub_((lr * step_dir).to(p.dtype))
+        update_leaf(g, v, p, lr=lr, momentum=momentum)
     return params, NesterovState(step=state.step + 1,
                                  momentum=state.momentum)

@@ -254,3 +254,98 @@ def test_cuda_flash_attention_refuses_outside_envelope():
     q48, k48, v48, _ = _flash_inputs(1, 128, 4, 2, 48, 128)
     with pytest.raises(ValueError):
         fa.flash_attention(q48, k48, v48)
+
+
+# ---------------------------------------------------------------------------
+# lowrank_mm (B.7): the mesh runtime's batched, strided matmul
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import lowrank_mm as lm  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
+                                   (100, 70, 36), (1, 512, 64),
+                                   (333, 129, 257)])
+def test_cuda_matmul_matches_plain(no_tf32, m, k, n, dtype):
+    """The JAX gate of test_kernels.py: rtol/atol 1e-4 (2e-2 for bf16)."""
+    _need_cuda()
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    a, b = a.to(dtype).cuda(), b.to(dtype).cuda()
+    before = lm.cuda_matmul.launches
+    got = lm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert lm.cuda_matmul.launches == before + 1 and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               lm.matmul_plain(a, b).float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_views_and_batches_are_bitwise(no_tf32):
+    """A transposed view gives the bits of its contiguous copy; a batched
+    launch gives each matrix the bits of its own launch; mixed dtypes
+    promote."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.standard_normal((3, 130, 200)).astype(
+        np.float32)).cuda()
+    p = torch.from_numpy(rng.standard_normal((3, 130, 24)).astype(
+        np.float32)).cuda()
+    got = lm.matmul(d.transpose(1, 2), p)                      # M^T P
+    assert torch.equal(got, lm.matmul(d.transpose(1, 2).contiguous(), p))
+    for i in range(3):
+        assert torch.equal(got[i], lm.matmul(d[i].T, p[i]))
+    q = got
+    hat = lm.matmul(p, q.transpose(1, 2))                      # P Q^T
+    assert torch.equal(hat, lm.matmul(p, q.transpose(1, 2).contiguous()))
+    np.testing.assert_allclose(hat.cpu().numpy(),
+                               lm.matmul_plain(p, q.transpose(1, 2))
+                               .cpu().numpy(), rtol=1e-4, atol=1e-3)
+    mixed = lm.matmul(p[0].to(torch.bfloat16), q[0].T)
+    assert mixed.dtype == torch.float32
+    with pytest.raises(TypeError):
+        lm.matmul(p.double(), q.double().transpose(1, 2))
+    with pytest.raises(ValueError):
+        lm.matmul(p, q.cpu().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_compression_matches_cpu(no_tf32):
+    """compress_gather_mean on the card (lowrank_mm and quant4 kernels)
+    against its plain run on the CPU: the mean within one int4 step per
+    factor (factor ulps may move a code), the warm start within 1e-4 of
+    its column norm."""
+    _need_cuda()
+    from repro_torch.core import mesh_compression as mc
+
+    rng = np.random.default_rng(6)
+    tree = {"w": torch.from_numpy(rng.standard_normal((2, 3, 256, 192))
+                                  .astype(np.float32) * 0.1),
+            "b": torch.from_numpy(rng.standard_normal((2, 192))
+                                  .astype(np.float32))}
+    cfg = mc.MeshCompressionConfig(rank=24)
+    q = {k: v.unsqueeze(0).expand((2,) + tuple(v.shape)).clone()
+         for k, v in mc.init_q_state({k: v[0] for k, v in tree.items()},
+                                     cfg).items()}
+    before = (lm.cuda_matmul.launches, q4.cuda_quant4_pack.launches)
+    D, qn = mc.compress_gather_mean({k: v.cuda() for k, v in tree.items()},
+                                    {k: v.cuda() for k, v in q.items()},
+                                    20, cfg)
+    torch.cuda.synchronize()
+    assert lm.cuda_matmul.launches == before[0] + 3
+    assert q4.cuda_quant4_pack.launches == before[1] + 2 * 2 * 3 + 2
+    D_p, qn_p = mc.compress_gather_mean(tree, q, 20, cfg)
+    payloads, _ = mc.compress_local(tree, q, 20, cfg)
+    step = max(16 * float(row[i + 1].max()) * float(row[i + 3].max())
+               for row in payloads[1] for i in range(0, len(row), 4))
+    np.testing.assert_allclose(D["w"].cpu().numpy(), D_p["w"].numpy(),
+                               rtol=0, atol=step)
+    np.testing.assert_allclose(D["b"].cpu().numpy(), D_p["b"].numpy(),
+                               rtol=0, atol=float(payloads[0][0][1].max()))
+    col = qn_p["w"].norm(dim=-2, keepdim=True)
+    assert ((qn["w"].cpu() - qn_p["w"]).abs() <= 1e-4 * col).all()

@@ -49,7 +49,10 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.optim.adamw", "repro_torch.optim.nesterov",
               "repro_torch.optim.schedules", "repro_torch.data.synthetic",
               "repro_torch.train.trainer", "repro_torch.train.quickstart",
-              "repro_torch.tree"):
+              "repro_torch.tree", "repro_torch.kernels.lowrank_mm",
+              "repro_torch.core.mesh_compression",
+              "repro_torch.launch.steps", "repro_torch.launch.mesh",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -70,7 +73,7 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("a GPU is present: the CUDA default is legitimate here")
     from repro_torch.configs.base import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import quickstart, trainer
@@ -86,6 +89,9 @@ def test_entry_points_raise_without_cuda():
             run(cfg, trainer.TrainConfig(), 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "opt-1.3b", "--smoke", "--devices", "1",
+                    "--clusters", "1", "--data", "1", "--model", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "opt-1.3b", "--smoke", "--paged"])
     with pytest.raises(RuntimeError, match="CUDA"):
