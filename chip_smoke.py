@@ -17,8 +17,11 @@ continues:
         gates tests/test_kernels.py holds the Pallas kernels to, each
         product elementwise to its plain version within an f32
         accumulation bound (``_gate_product``), q_new to the ref chain's
-        within rtol/atol 1e-5 sqrt(K / 2048) for a K-term reduction, and
-        the kernels' fused EF form bit for bit to the hoisted one;
+        within rtol/atol 1e-5 sqrt(K / 2048) for a K-term reduction, the
+        kernels' fused EF form bit for bit to the hoisted one, and two
+        calls of each kernel (and of the whole pipeline) bit for bit
+        equal; each leaf's line names the projections' split-K plan
+        (tiles, splits S, blocks);
      c. flash attention, the forward and the backward kernels, at the
         training shape (opt-1.3b, B 4 x S 512), opt-1.3b at 2,048 tokens,
         the GQA shapes of granite-3-8b, hundred-m and gemma3-1b's global
@@ -38,7 +41,9 @@ continues:
      layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
      int4, the fused kernels), 2 rounds with the delay and EF: finite
      losses, round 0 leaves the params bit for bit, and every compressor
-     kernel launched as often as the tree's leaves say;
+     kernel launched as often as the tree's leaves say; then the
+     compressor's ms per round beside phase 3b's kernel times of one
+     cluster's call times the clusters (``compressor_share``);
      b. the same run with ``flash_attention=True`` (same seed, params and
         data): the same gates, the flash launches the path must make
         (``flash_launches_expected``), and each round's losses within
@@ -101,8 +106,10 @@ def build():
     for name, path in paths.items():
         print(f"built {name}: {path.name}")
         for line in _build.ptxas_report.get(name, "").splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print("  " + line.strip())
+            if "Compiling entry function" in line:
+                print("  " + line.split("'")[1])
+            elif "registers" in line or "smem" in line or "spill" in line:
+                print("    " + line.strip())
     print(f"build seconds: {time.monotonic() - t0:.3f}")
 
 
@@ -524,11 +531,19 @@ def compressor_kernels():
                 _fail(f"fused m={m} n={n} r_t={rt}: q_new off the ref "
                       f"chain's by {float(q_gap.max()):.3e}, over rtol/atol "
                       f"{q_tol:.3e} ({q_ratio:.2f}x)")
+            again = fc.fused_compress_ef(d, None, q, rt, compute_error=False)
+            for what, a, b in zip(("recon", "q_new") + pay._fields,
+                                  (hat, q_new) + tuple(pay),
+                                  (again[0], again[2]) + tuple(again[3])):
+                if not torch.equal(a, b):
+                    _fail(f"fused m={m} n={n} r_t={rt}: {what} differs "
+                          f"between two calls")
             print(f"m={m} n={n} r_t={rt} x{count}: recon vs oracle "
                   f"{err:.3e}, vs ref chain {chain:.3e} (one int4 step "
                   f"{one_step:.3e}), q_new vs ref chain at {q_ratio:.3f}x "
-                  f"rtol/atol {q_tol:.3e}", flush=True)
-            del hat, dec, hat_r, q_r, q_new
+                  f"rtol/atol {q_tol:.3e}; two calls bitwise equal",
+                  flush=True)
+            del hat, dec, hat_r, q_r, q_new, again
         # times at r_t = 64, the trainer's variant (no EF operand)
         qm = q.contiguous()
         tag = f"m={m} n={n}"
@@ -536,11 +551,19 @@ def compressor_kernels():
         P_plain = fc.project_plain(d, None, qm)
         err3, ratio3 = _gate_product(f"fused_project {tag}", P, P_plain, d,
                                      qm)
+        if not torch.equal(P, fc.cuda_project(d, None, qm)):
+            _fail(f"fused_project {tag}: two calls differ")
         P = (_orthonormalize(P)).contiguous()
         Q, pq, sq = fc.cuda_project_t_pack(d, None, P)
         Q_plain, _, _ = fc.project_t_pack_plain(d, None, P)
         err4, ratio4 = _gate_product(f"fused_project_t_pack {tag}", Q,
                                      Q_plain, d.T, P)
+        for a, b in zip((Q, pq, sq), fc.cuda_project_t_pack(d, None, P)):
+            if not torch.equal(a, b):
+                _fail(f"fused_project_t_pack {tag}: two calls differ")
+        plans = {name: (tiles, S, tiles * S) for name, (tiles, S, _) in (
+            ("project", fc._proj_plan(m, n)),
+            ("t_pack", fc._proj_t_plan(m, n)))}
         pp, sp = q4.cuda_quant4_pack(P.reshape(-1))
         hat, _ = fc.cuda_reconstruct(pp, sp, pq, sq, None, None, m, n, RANK,
                                      with_ef=False)
@@ -581,12 +604,17 @@ def compressor_kernels():
         add("fused_reconstruct", count, t5, p5, l5,
             (mr + nr) // 2 + 4 * (_nblk(mr) + _nblk(nr)) + 4 * mn, flops,
             err5)
+        b3, _ = _bound(4 * (mn + nr + mr), flops)
+        b4, _ = _bound(4 * (mn + mr + nr) + nr // 2 + 4 * _nblk(nr), flops)
         print(f"m={m} n={n} x{count} ms kernel/plain/matmul: project "
               f"{t3:.4f}/{p3:.4f}/{l3:.4f} t_pack {t4:.4f}/{p4:.4f}/{l4:.4f} "
               f"pack(P) {t1:.4f}/{pl1:.4f} recon {t5:.4f}/{p5:.4f}/{l5:.4f}; "
               f"max abs err vs plain {err3:.3e} {err4:.3e} {err5:.3e} "
               f"(project, t_pack at {ratio3:.4f}x, {ratio4:.4f}x their "
-              f"tolerance)", flush=True)
+              f"tolerance, two calls bitwise equal); bound ms project "
+              f"{b3:.4f} t_pack {b4:.4f}; split-K plan (tiles, S, blocks): "
+              f"project {plans['project']} t_pack {plans['t_pack']}",
+              flush=True)
         if (m, n) == max(low, key=lambda k: k[0] * k[1]):
             ef_forms(d, qm, P, pp, sp, gen, flush)
         del d, q, qm, P, P_plain, Q, Q_plain, pq, sq, pp, sp, hat
@@ -912,6 +940,21 @@ def train(flash=False):
     if launches != want:
         _fail(f"train: launches {launches}, expected {want}")
     return launches, res, peak
+
+
+def compressor_share(res, comp_rows):
+    """Phase 4's compressor ms per round (``RunResult.compress_s``: the
+    whole compressor, host steps included) beside phase 3b's kernel
+    times of one cluster's call times the clusters: how much of the
+    compressor the kernels are."""
+    ms = {row["name"]: row["ms"] * TRAIN["n_clusters"] for row in comp_rows}
+    kernels = sum(ms.values())
+    for r, s in enumerate(res.compress_s):
+        print(f"round {r}: compressor {1e3 * s:.1f} ms per round; its "
+              f"kernels at phase 3b's times x {TRAIN['n_clusters']} "
+              f"clusters {kernels:.1f} ms ({100 * kernels / (1e3 * s):.1f} "
+              f"%: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+              + ")", flush=True)
 
 
 FLASH_TRAIN_RTOL = 1e-3
@@ -1429,6 +1472,7 @@ def main():
     mm_row = lowrank_mm_kernel()
     torch.cuda.empty_cache()
     einsum_run = train()
+    compressor_share(einsum_run[1], comp_rows)
     torch.cuda.empty_cache()
     flash_run = train(flash=True)
     compare_train(einsum_run, flash_run)

@@ -71,12 +71,14 @@ ARCH_IDS = ["opt-1.3b", "granite-3-8b", "gemma3-1b", "hundred-m"]
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
                for a in ARCH_IDS}
 
-# architectures of the JAX package that the port does not carry yet
+# architectures of the JAX package that the port does not carry yet: the
+# dense configs (A.16a) and the non-dense families (A.16)
 _NOT_PORTED = {
-    "deepseek-v2-236b": "A.16", "arctic-480b": "A.16", "stablelm-12b": "A.16",
-    "phi3-medium-14b": "A.16", "zamba2-1.2b": "A.16",
+    "qwen1.5-107b": "A.16a", "stablelm-12b": "A.16a",
+    "phi3-medium-14b": "A.16a",
+    "deepseek-v2-236b": "A.16", "arctic-480b": "A.16", "zamba2-1.2b": "A.16",
     "seamless-m4t-large-v2": "A.16", "qwen2-vl-7b": "A.16",
-    "xlstm-1.3b": "A.16", "qwen1.5-107b": "A.11",
+    "xlstm-1.3b": "A.16",
 }
 
 

@@ -41,8 +41,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **_ERR,
     },
     "fused_compress": {
-        "fused_project_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
-        "fused_project_t_pack_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "fused_project_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
+        "fused_project_t_pack_f32": ([_P] * 7 + [_I] * 7 + [_P], _I),
         "fused_reconstruct_f32": ([_P] * 8 + [_I] * 4 + [_P], _I),
         **_ERR,
     },

@@ -15,18 +15,23 @@ JAX package:
                         (kernel 5; ``fused_decompress`` is its EF-less dual)
 
 Each of ``project``, ``project_t_pack`` and ``reconstruct`` launches its
-hand-written CUDA kernel (``csrc/fused_compress.cu``, replacing
+hand-written CUDA kernels (``csrc/fused_compress.cu``, replacing
 ``_proj_kernel``, ``_proj_t_pack_kernel`` and ``_recon_kernel``) for CUDA
 tensors and runs its plain PyTorch version for CPU tensors; no other
-switch, no fallback. ``cuda_project.launches`` etc. count launches.
+switch, no fallback. ``cuda_project.launches`` etc. count wrapper calls.
+The two projections split K over the card (``_split_k``): a call runs
+the GEMM and, where S > 1 or a pack follows, a second pass that adds the
+split partials in split order, so it counts once but may launch two
+kernels.
 
 The kernels mask their ragged edges themselves, so the JAX driver's grid
 padding (``_pad2d``, ``_pad_packed``) has no counterpart here. The kernels
 keep the EF add on the operand tile (``e`` given: ``with_e``), but the
 driver hoists it, as the JAX driver does: delta + e is materialized once
-and every kernel reads one operand. On an H100 that is also the faster
-form at the (24576, 8192) leaf (PERF.md): the SIMT kernels are bound by
-their instruction stream, not by the extra reads of e.
+and every kernel reads one operand. With the split-K projections the
+fused form is the faster one on an H100 at the (24576, 8192) leaf,
+kernels 3-5 with e' 4.04-4.15 ms against 4.34-4.37 (PERF.md); switching
+``fused_compress_ef`` to it is open work (ROADMAP B).
 
 Adaptive rank: factors keep the warm start's width r_max; columns >= r_t
 are exactly zero in P, Q, the codes and q_new. Wire bytes are
@@ -34,6 +39,7 @@ bit-identical to ``ref.quant4_pack_ref`` on the row-major flat factors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -43,18 +49,72 @@ from repro_torch.device import on_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import FusedPayload, col_mask as _col_mask
 
-TILE = 64          # output tile of the CUDA kernels (csrc/fused_compress.cu)
+TILE = 64          # reconstruction tile, and the row unit of t_pack's pack
 R_MAX = 64         # widest factor the kernels take
-SMEM_FLOATS = (227 * 1024 - 4 * 32 * (2 * TILE + 1)) // 4
+BM = 128           # rows of a projection GEMM's output tile (its columns: r)
+BK = 16            # the projection GEMMs' K step
+MIN_CHUNK = 256    # fewest terms of a split-K chunk (but the last)
+SMS = 132          # streaming multiprocessors of an H100 SXM: a constant,
+                   # so the plan, and the sum order, depend on the shape alone
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+SMEM_FLOATS = 227 * 1024 // 4    # t_pack's (tile_rows, r) shared tile
 
 
 def _row_tile(r: int, block: int) -> int:
-    """Rows of Q per block of kernel 4: a multiple of the 64-row sub-tile
-    whose ``rows * r`` is a whole number of quantization blocks, so no
-    block straddles two CUDA blocks (the JAX ``_row_tile`` rule, here with
-    the kernel's 64-row unit instead of a VMEM cap)."""
+    """Rows of Q per block of t_pack's pack: a multiple of 64 rows whose
+    ``rows * r`` is a whole number of quantization blocks, so no block
+    straddles two CUDA blocks (the JAX ``_row_tile`` rule, here with a
+    64-row unit instead of a VMEM cap)."""
     unit = block // math.gcd(r, block)
     return TILE * unit // math.gcd(TILE, unit)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_k(tiles: int, K: int) -> Tuple[int, int]:
+    """The split-K plan ``(S, chunk)`` of a projection GEMM with ``tiles``
+    output tiles of BM rows and K terms per output element: split s sums
+    terms [s * chunk, min(K, (s + 1) * chunk)). ``chunk`` is a multiple
+    of the K step and S = ceil(K / chunk), so the chunks cover [0, K)
+    once and none is empty; every chunk but the last holds at least
+    MIN_CHUNK terms (or all K). Where such a plan gives two waves of
+    blocks (tiles * S >= 2 * SMS), only those count; of them the plan
+    with the least modelled time wins: the busiest SM's FMAs
+    (ceil(tiles * S / SMS) blocks of ``chunk`` terms at the f32 rate) plus
+    the HBM traffic of the S partials (written, then read by the second
+    pass). The plan depends on the shape alone, so the sum order, and
+    with it every output bit, is the same in every call."""
+    steps = -(-K // BK)
+    term_s = 2 * BM * R_MAX / (F32_FLOPS_PER_S / SMS)   # one block, one term
+    plans = {}
+    for c in range(min(MIN_CHUNK // BK, steps), steps + 1):
+        chunk = c * BK
+        S = -(-K // chunk)
+        t = (-(-tiles * S // SMS) * chunk * term_s
+             + (S > 1) * S * tiles * BM * R_MAX * 8 / HBM_BYTES_PER_S)
+        if S not in plans or t < plans[S][0]:
+            plans[S] = (t, chunk)
+    wide = [S for S in plans if tiles * S >= 2 * SMS] or list(plans)
+    S = min(wide, key=lambda S: (plans[S][0], S))
+    return S, plans[S][1]
+
+
+def _proj_plan(m: int, n: int) -> Tuple[int, int, int]:
+    """(tiles, S, chunk) of ``cuda_project``: rows m, K = n."""
+    tiles = -(-m // BM)
+    return (tiles,) + _split_k(tiles, n)
+
+
+def _proj_t_plan(m: int, n: int) -> Tuple[int, int, int]:
+    """(tiles, S, chunk) of ``cuda_project_t_pack``: rows n, K = m."""
+    tiles = -(-n // BM)
+    return (tiles,) + _split_k(tiles, m)
+
+
+def _workspace(S, rows, r, device):
+    """The S partials of a split GEMM, each ceil4(rows * r) floats."""
+    return torch.empty(S * (-(-rows * r // 4) * 4), dtype=torch.float32,
+                       device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -127,12 +187,16 @@ def _stream(t):
 
 
 def cuda_project(d, e, qm):
+    """P = (d + e) @ qm: the split-K GEMM, then (S > 1) the split sum.
+    ``launches`` counts calls, one per call whatever S is."""
     m, n = _check_operands(d, e, qm.shape[1])
     r = qm.shape[1]
     _check_f32("qm", qm, (n, r), d.device)
+    _, S, chunk = _proj_plan(m, n)
     p = torch.empty((m, r), dtype=torch.float32, device=d.device)
+    ws = _workspace(S, m, r, d.device) if S > 1 else None
     _lib_call("fused_project_f32", d.data_ptr(), _ptr(e), qm.data_ptr(),
-              p.data_ptr(), m, n, r, _stream(d))
+              p.data_ptr(), _ptr(ws), m, n, r, S, chunk, _stream(d))
     cuda_project.launches += 1
     return p
 
@@ -141,6 +205,9 @@ cuda_project.launches = 0
 
 
 def cuda_project_t_pack(d, e, p, block: int = 256):
+    """(Q = (d + e)^T @ p, int4 codes, scales): the split-K GEMM, then the
+    pass that adds the partials in split order and packs Q. ``launches``
+    counts calls (two kernels each)."""
     m, n = _check_operands(d, e, p.shape[1])
     r = p.shape[1]
     _check_f32("p", p, (m, r), d.device)
@@ -150,14 +217,17 @@ def cuda_project_t_pack(d, e, p, block: int = 256):
     if tile_rows * r > SMEM_FLOATS:
         raise ValueError(f"r={r}, block={block}: a {tile_rows}-row tile "
                          f"does not fit in shared memory")
+    _, S, chunk = _proj_t_plan(m, n)
     nblk = -(-n * r // block)
     q = torch.empty((n, r), dtype=torch.float32, device=d.device)
+    ws = _workspace(S, n, r, d.device) if S > 1 else q
     packed = torch.empty(nblk * (block // 2), dtype=torch.uint8,
                          device=d.device)
     scales = torch.empty(nblk, dtype=torch.float32, device=d.device)
     _lib_call("fused_project_t_pack_f32", d.data_ptr(), _ptr(e), p.data_ptr(),
-              q.data_ptr(), packed.data_ptr(), scales.data_ptr(), m, n, r,
-              tile_rows, block, _stream(d))
+              q.data_ptr(), ws.data_ptr(), packed.data_ptr(),
+              scales.data_ptr(), m, n, r, S, chunk, tile_rows, block,
+              _stream(d))
     cuda_project_t_pack.launches += 1
     return q, packed, scales
 

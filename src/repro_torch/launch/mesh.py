@@ -7,8 +7,8 @@ group out as ("clusters", "data", "model"), row-major, with
 "clusters" group share a data index and meet only in the outer step (the
 slow links), the ranks of one "data" group share a cluster. The
 production and serving meshes (a pod axis, the serving flattening) wait
-for the pipeline-parallel and multi-card serving slices (ROADMAP A.11,
-A.12).
+for tensor parallelism and multi-card serving (ROADMAP A.11b) and the
+pipeline-parallel engine (A.12).
 """
 from __future__ import annotations
 

@@ -11,12 +11,25 @@ tests use it too):
 4. the decompress dual reproduces the reconstruction exactly;
 5. adaptive rank: masked columns of P, Q and q_new exactly 0.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 
 ULP_K = 16
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` at the repo root as a module, for its gates and
+    shapes (it imports torch only; its ``main`` needs a GPU)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _np(t):

@@ -1,27 +1,23 @@
 """The product gate ``chip_smoke.py`` holds the compressor's GEMM kernels
-to (``_gate_product``), checked on the CPU against an emulation of the
-kernels' arithmetic: a sequential float32 sum over K in index order (the
-CUDA kernels' order) must pass it with a wide margin, and the same sum
-missing one 32-wide K tile (the kernels' K step) must fail it, at the
-reduction lengths of the training configuration's leaves."""
-import importlib.util
-from pathlib import Path
+to (``_gate_product``), checked on the CPU against emulations of the
+kernels' summation orders, at the reduction lengths of the training
+configuration's leaves:
 
+- a sequential float32 sum over K in index order (``lowrank_mm``'s
+  order) passes it with a wide margin, and the same sum missing one
+  32-wide K tile fails it;
+- the split-K order of the two projections (``fused_compress.cu``):
+  a sequential sum over each chunk of the plan (``_split_k``), then the
+  chunk partials added in split order, passes it below 0.1 of its
+  tolerance, and the same sum missing one chunk partial, or one 16-wide
+  K step inside a chunk, fails it."""
 import numpy as np
 import pytest
 import torch
 
+from _fused_contract import load_chip_smoke as _chip_smoke
 from repro_torch.core.compression import _orthonormalize
-
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from repro_torch.kernels import fused_compress as fc
 
 
 def _sequential(a, b):
@@ -58,3 +54,39 @@ def test_product_gate_passes_kernel_order_and_catches_a_dropped_tile(kind,
     dropped = _sequential(a, b) - a[:, k0:k0 + 32] @ b[k0:k0 + 32]
     with pytest.raises(SystemExit, match="off its plain version"):
         cs._gate_product(kind, dropped, want, a, b)
+
+
+def _split_order(a, b, S, chunk):
+    """a @ b in the projections' split-K order: each chunk summed
+    sequentially in float32, then the S partials added left to right in
+    float32. Returns the sum and the partials."""
+    parts = [_sequential(a[:, s * chunk:(s + 1) * chunk],
+                         b[s * chunk:(s + 1) * chunk]).numpy()
+             for s in range(S)]
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return torch.from_numpy(acc), parts
+
+
+@pytest.mark.parametrize("kind,K,tiles", [("project", 50272, 16),
+                                          ("project_t_pack", 24576, 16),
+                                          ("project_t_pack", 98304, 16)])
+def test_product_gate_passes_split_k_order_and_catches_a_lost_chunk(kind, K,
+                                                                    tiles):
+    cs = _chip_smoke()
+    a, b = _operands(kind, K, seed=K + 1)
+    S, chunk = fc._split_k(tiles, K)
+    assert S > 1
+    want = a @ b
+    got, parts = _split_order(a, b, S, chunk)
+    _, ratio = cs._gate_product(kind, got, want, a, b)
+    assert ratio < 0.1
+    lost = S // 2
+    no_chunk = sum(parts[:lost] + parts[lost + 1:], np.zeros_like(parts[0]))
+    with pytest.raises(SystemExit, match="off its plain version"):
+        cs._gate_product(kind, torch.from_numpy(no_chunk), want, a, b)
+    k0 = lost * chunk + fc.BK * (chunk // fc.BK // 2)
+    no_step = got - a[:, k0:k0 + fc.BK] @ b[k0:k0 + fc.BK]
+    with pytest.raises(SystemExit, match="off its plain version"):
+        cs._gate_product(kind, no_step, want, a, b)

@@ -54,7 +54,7 @@ def test_cuda_paged_attention_refuses_outside_envelope():
 # ---------------------------------------------------------------------------
 
 from _fused_contract import (assert_fused_contract, fused_inputs,  # noqa: E402
-                             one_int4_step, quant_inputs)
+                             load_chip_smoke, one_int4_step, quant_inputs)
 from repro_torch.kernels import fused_compress as fc  # noqa: E402
 from repro_torch.kernels import quant4 as q4  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -148,6 +148,51 @@ def test_cuda_fused_kernels_with_e_match_plain(no_tf32, m, n, r):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(e_new.cpu().numpy(), e_new_p.cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,rt", [
+    (128, 20004, 16, None),       # project S > 1, K % 16 = 4, float4 tiles
+    (128, 20003, 64, 40),         # project S > 1, odd n: scalar tiles
+    (20003, 96, 16, 12),          # t_pack S > 1, K % 16 = 3
+    (20003, 97, 64, None),        # t_pack S > 1, odd n: scalar tiles
+    (2048, 50272, 64, None)])     # the head leaf: project S > 1
+def test_cuda_split_k_projections_match_plain(no_tf32, m, n, r, rt):
+    """The split-K projections where K is no multiple of the chunk or of
+    the K step: P and Q within chip_smoke.py's product gate of their plain
+    versions, the packed Q bit-identical to quant4_pack_ref of the
+    kernel's own Q, masked columns exactly 0, one count per call, and two
+    calls bit for bit equal (a fixed split order, no atomics)."""
+    _need_cuda()
+    gate = load_chip_smoke()._gate_product
+    rng = np.random.default_rng(m + n + r)
+    d = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)
+                         * 0.3).cuda()
+    qm = torch.from_numpy(rng.standard_normal((n, r)).astype(np.float32))
+    if rt is not None:
+        qm[:, rt:] = 0
+    qm = qm.cuda()
+    (_, s3, c3), (_, s4, c4) = fc._proj_plan(m, n), fc._proj_t_plan(m, n)
+    assert max(s3, s4) > 1 and (n % c3 or m % c4)
+    before = (fc.cuda_project.launches, fc.cuda_project_t_pack.launches)
+    P = fc.project(d, None, qm)
+    gate("project", P, fc.project_plain(d, None, qm), d, qm)
+    P = torch.linalg.qr(P)[0].contiguous()
+    if rt is not None:
+        P[:, rt:] = 0
+    Q, pq, sq = fc.project_t_pack(d, None, P)
+    gate("project_t_pack", Q, fc.project_t_pack_plain(d, None, P)[0], d.T, P)
+    assert (fc.cuda_project.launches,
+            fc.cuda_project_t_pack.launches) == (before[0] + 1, before[1] + 1)
+    p_ref, s_ref, _ = ref.quant4_pack_ref(Q.cpu().reshape(-1))
+    np.testing.assert_array_equal(pq.cpu().numpy(), p_ref.numpy())
+    np.testing.assert_allclose(sq.cpu().numpy(), s_ref.numpy(), rtol=1e-6)
+    if rt is not None:
+        assert not Q[:, rt:].any()
+    P3 = fc.cuda_project(d, None, qm)
+    assert torch.equal(P3, fc.cuda_project(d, None, qm))
+    for a, b in zip((Q, pq, sq), fc.cuda_project_t_pack(d, None, P)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

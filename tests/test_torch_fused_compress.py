@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from _fused_contract import (ULP_K, assert_fused_contract, fused_inputs,
-                             one_int4_step)
+                             load_chip_smoke, one_int4_step)
 from repro.kernels import ref as jref
 from repro.kernels.fused_compress import fused_compress_ef as j_fused
 from repro_torch.kernels import fused_compress as fc
@@ -121,3 +121,32 @@ def test_row_tile_packs_whole_blocks():
     for r in range(1, 65):
         t = fc._row_tile(r, 256)
         assert t % 64 == 0 and (t * r) % 256 == 0 and t * r <= fc.SMEM_FLOATS
+
+
+# the low-rank leaves of chip_smoke.train_config() (opt-1.3b, 12 layers)
+LEAF_SHAPES = [(2048, 50272), (24576, 2048), (24576, 8192), (50272, 2048),
+               (98304, 2048)]
+
+
+def test_leaf_shapes_are_the_training_configs():
+    cs = load_chip_smoke()
+    assert sorted(cs.leaf_shapes(cs.train_config())[0]) == LEAF_SHAPES
+
+
+@pytest.mark.parametrize("tiles,K", sorted(
+    {fc._proj_plan(m, n)[0:1] + (n,) for m, n in LEAF_SHAPES}
+    | {fc._proj_t_plan(m, n)[0:1] + (m,) for m, n in LEAF_SHAPES}
+    | {(16, 5000), (1, 5000), (16, 31), (393, 31), (1, 20004), (2, 257)}))
+def test_split_k_plan_covers_k_and_fills_the_card(tiles, K):
+    """The projections' split-K plan: chunks of whole K steps that cover
+    [0, K) once with none empty, no chunk but the last under MIN_CHUNK
+    terms, and two waves of blocks on the card wherever chunks of
+    MIN_CHUNK terms allow them (the pack's row tile, whole quantization
+    blocks at every rank: ``test_row_tile_packs_whole_blocks``)."""
+    S, chunk = fc._split_k(tiles, K)
+    assert chunk % fc.BK == 0 and S >= 1
+    assert (S - 1) * chunk < K <= S * chunk
+    assert S == 1 or chunk >= fc.MIN_CHUNK
+    if tiles * -(-K // fc.MIN_CHUNK) >= 2 * fc.SMS:
+        assert tiles * S >= 2 * fc.SMS
+    assert (S, chunk) == fc._split_k(tiles, K)

@@ -149,3 +149,14 @@ def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.build_segments(dataclasses.replace(get_config("opt-1.3b"),
                                              family="moe"))
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("qwen1.5-107b", "A.16a"), ("stablelm-12b", "A.16a"),
+    ("phi3-medium-14b", "A.16a"),
+    ("zamba2-1.2b", "A.16"), ("deepseek-v2-236b", "A.16")])
+def test_unported_archs_name_the_open_item(arch, item):
+    """Dense configs wait for A.16a, the non-dense families for A.16."""
+    with pytest.raises(NotImplementedError,
+                       match=rf"\(ROADMAP {item.replace('.', r'[.]')}\)"):
+        get_config(arch)
