@@ -20,7 +20,9 @@ continues:
         within rtol/atol 1e-5 sqrt(K / 2048) for a K-term reduction, the
         kernels' fused EF form bit for bit to the hoisted one, and two
         calls of each kernel (and of the whole pipeline) bit for bit
-        equal; each leaf's line names the projections' split-K plan
+        equal, and the reconstruction bit for bit lowrank_mm(unpack P,
+        unpack Q^T) (the mesh runtime's decompression of the same
+        payload); each leaf's line names the projections' split-K plan
         (tiles, splits S, blocks);
      c. flash attention, the forward and the backward kernels, at the
         training shape (opt-1.3b, B 4 x S 512), opt-1.3b at 2,048 tokens,
@@ -34,9 +36,12 @@ continues:
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
         within the f32 accumulation bound (``_gate_product``), each view
-        bit for bit equal to its contiguous copy, and at the five shapes of
-        tests/test_kernels.py in f32 and bf16 within the JAX gate; times
-        beside the plain version and torch.matmul;
+        bit for bit equal to its contiguous copy, a batched launch bit for
+        bit each matrix's own launch, two calls bit for bit equal, and at
+        the five shapes of tests/test_kernels.py in f32 and bf16 within the
+        JAX gate; each product's route (split, rank, general) and split
+        plan, times beside the plain version and torch.matmul, summed per
+        route, and at the batched split products the plan against S = 1;
   4. train: ``run_diloco_training`` on opt-1.3b at full width, 12 of 24
      layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
      int4, the fused kernels), 2 rounds with the delay and EF: finite
@@ -53,9 +58,9 @@ continues:
      d. the mesh driver ``repro_torch.launch.train.main`` on full opt-1.3b
         (24 layers, full width), one cluster on the card through a process
         group of size 1 (NCCL), 2 rounds of H = 4: finite losses, round 0
-        leaves the params bit for bit, lowrank_mm and the int4 kernels
-        launched as often as the tree's leaves say, the all-gather handed
-        the payload's bytes, peak memory;
+        leaves the params bit for bit, lowrank_mm (by route) and the int4
+        kernels launched as often as the tree's leaves say, the all-gather
+        handed the payload's bytes, peak memory;
   5. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
      paged engine; the kernel's launch count must equal device steps x 24;
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
@@ -450,6 +455,7 @@ def compressor_kernels():
     in the tree)."""
     from repro_torch.core.compression import LowRankQuant, _orthonormalize
     from repro_torch.kernels import fused_compress as fc
+    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.kernels import quant4 as q4
     from repro_torch.kernels import ref
 
@@ -525,6 +531,16 @@ def compressor_kernels():
                       f"({one_step:.3e})")
             if rt < RANK and q_new[:, rt:].any():
                 _fail(f"fused m={m} n={n}: q_new columns >= {rt} not zero")
+            # the mesh runtime's decompression of the same payload: the same
+            # decode (quant4 unpack's rule) and the same K-resident GEMM
+            Pu = q4.cuda_quant4_unpack(pay.packed_p, pay.scales_p,
+                                       m * RANK).reshape(m, RANK)
+            Qu = q4.cuda_quant4_unpack(pay.packed_q, pay.scales_q,
+                                       n * RANK).reshape(n, RANK)
+            if not torch.equal(hat, lm.cuda_matmul(Pu, Qu.T)):
+                _fail(f"fused m={m} n={n} r_t={rt}: recon differs from "
+                      f"lowrank_mm(unpack P, unpack Q^T)")
+            del Pu, Qu
             q_gap = (q_new - q_r).abs()
             q_ratio = float((q_gap / (q_tol * (1 + q_r.abs()))).max())
             if q_ratio > 1.0:
@@ -541,8 +557,8 @@ def compressor_kernels():
             print(f"m={m} n={n} r_t={rt} x{count}: recon vs oracle "
                   f"{err:.3e}, vs ref chain {chain:.3e} (one int4 step "
                   f"{one_step:.3e}), q_new vs ref chain at {q_ratio:.3f}x "
-                  f"rtol/atol {q_tol:.3e}; two calls bitwise equal",
-                  flush=True)
+                  f"rtol/atol {q_tol:.3e}; two calls bitwise equal; recon "
+                  f"bitwise lowrank_mm(unpack P, unpack Q^T)", flush=True)
             del hat, dec, hat_r, q_r, q_new, again
         # times at r_t = 64, the trainer's variant (no EF operand)
         qm = q.contiguous()
@@ -870,6 +886,7 @@ def flash_launches_expected(cfg, tcfg, rounds):
 
 def train(flash=False):
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.models import model as M
     from repro_torch.train import trainer as T
 
@@ -899,10 +916,15 @@ def train(flash=False):
             "quant4_unpack": calls * n_quant,
             "fused_project": calls * n_low,
             "fused_project_t_pack": calls * n_low,
-            "fused_reconstruct": calls * n_low}
+            "fused_reconstruct": calls * n_low,
+            # the stacked trainer's compressor is the fused kernels (recon
+            # runs the K-resident GEMM inside its own call); lowrank_mm is
+            # the mesh runtime's
+            "lowrank_mm": 0}
     want.update(flash_launches_expected(cfg, tcfg, TRAIN_ROUNDS) if flash
                 else {"flash_attention": 0, "flash_attention_bwd": 0})
     wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers["lowrank_mm"] = lm.cuda_matmul
     wrappers["flash_attention"] = fa.cuda_flash_attention_fwd
     wrappers["flash_attention_bwd"] = fa.cuda_flash_attention_bwd
     gc.collect()
@@ -1140,10 +1162,23 @@ def _mm_operands(gen, dev, batch, m, k, n, trans):
     return rnd(batch, m, k, scale=0.3), rnd(batch, k, n)
 
 
+def _route_tag(lm, a, b):
+    """A product's route on the card and, on the split route, its plan."""
+    a3, b3 = (a, b) if a.dim() == 3 else (a[None], b[None])
+    route = lm._route(a3, b3)
+    if route != "split":
+        return route, None
+    return route, lm._split_plan(a3.shape[1], a3.shape[2])
+
+
 def lowrank_mm_kernel(dev=None, cfg=None):
     """lowrank_mm against its plain version at every product of phase 4d
     and at the JAX test shapes; returns the kernel's row, its numbers
-    summed over one cluster's outer step (each product times its leaves)."""
+    summed over one cluster's outer step (each product times its leaves).
+    Each product's line names its route and split plan; at the batched
+    split products the plan is timed against S = 1 (batch-free plans
+    cost the batched launches partial traffic; the plan rule may not
+    look at the batch)."""
     from repro_torch.kernels import lowrank_mm as lm
 
     _phase("kernel vs plain: lowrank_mm (mesh outer-step products)")
@@ -1152,10 +1187,12 @@ def lowrank_mm_kernel(dev=None, cfg=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    by_route = {}
     worst, worst_ratio = 0.0, 0.0
     for (batch, m, k, n, trans), count in sorted(mesh_products(
             cfg or mesh_config()).items()):
         a, b = _mm_operands(gen, dev, batch, m, k, n, trans)
+        route, plan = _route_tag(lm, a, b)
         tag = (f"batch {batch} ({m} x {k}) @ ({k} x {n}) transposed "
                f"{trans} x{count}")
         got = lm.cuda_matmul(a, b)
@@ -1163,11 +1200,18 @@ def lowrank_mm_kernel(dev=None, cfg=None):
         errs = [_gate_product(f"lowrank_mm {tag} [{i}]", got[i], want[i],
                               a[i], b[i]) for i in range(batch)]
         err, ratio = max(e for e, _ in errs), max(r for _, r in errs)
+        del want, errs
+        if not torch.equal(got, lm.cuda_matmul(a, b)):
+            _fail(f"lowrank_mm {tag}: two calls differ ({route} route)")
         if trans != "-" and not torch.equal(
                 got, lm.cuda_matmul(a.contiguous(), b.contiguous())):
             _fail(f"lowrank_mm {tag}: the strided view differs from its "
                   f"contiguous copy")
-        del want, errs
+        for i in sorted({0, batch - 1}) if batch > 1 else ():
+            if not torch.equal(got[i], lm.cuda_matmul(a[i:i + 1],
+                                                      b[i:i + 1])[0]):
+                _fail(f"lowrank_mm {tag}: matrix {i} of the batched launch "
+                      f"differs from its own launch")
         ms = time_ms(lambda: lm.cuda_matmul(a, b), flush=flush)
         plain = time_ms(lambda: lm.matmul_plain(a, b), flush=flush)
         lib = time_ms(lambda: torch.matmul(a, b), flush=flush)
@@ -1177,10 +1221,27 @@ def lowrank_mm_kernel(dev=None, cfg=None):
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("nbytes", nbytes), ("flops", flops)):
             tot[key] += count * val
+        r_tot = by_route.setdefault(route, dict(ms=0.0, library_ms=0.0,
+                                                bound_ms=0.0))
+        r_tot["ms"] += count * ms
+        r_tot["library_ms"] += count * lib
+        r_tot["bound_ms"] += count * bound
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-        print(f"{tag}: max abs err {err:.3e} ({ratio:.4f}x the f32 bound), "
-              f"ms kernel/plain/torch.matmul/bound {ms:.4f}/{plain:.4f}/"
-              f"{lib:.4f}/{bound:.4f} ({by})", flush=True)
+        s1 = ""
+        if route == "split" and batch > 1 and plan[0] > 1:
+            one = (1, -(-k // 16) * 16)
+            g1 = lm.cuda_matmul(a[:1], b[:1], _plan_override=one)
+            _gate_product(f"lowrank_mm {tag} at S = 1", g1[0],
+                          lm.matmul_plain(a[:1], b[:1])[0], a[0], b[0])
+            del g1
+            t1 = time_ms(lambda: lm.cuda_matmul(a, b, _plan_override=one),
+                         flush=flush)
+            s1 = f"; at S = 1 {t1:.4f} ms"
+        print(f"{tag}: route {route}, plan (S, chunk) {plan}; max abs err "
+              f"{err:.3e} ({ratio:.4f}x the f32 bound), two calls, views "
+              f"and batches bitwise; ms kernel/plain/torch.matmul/bound "
+              f"{ms:.4f}/{plain:.4f}/{lib:.4f}/{bound:.4f} ({by}){s1}",
+              flush=True)
         del a, b, got
         torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1195,9 +1256,18 @@ def lowrank_mm_kernel(dev=None, cfg=None):
                 _fail(f"lowrank_mm {dtype} ({m}, {k}, {n}): outside the JAX "
                       f"gate rtol/atol {tol} (max abs err "
                       f"{float(gap.max()):.3e})")
-            print(f"JAX test shape {dtype} ({m} x {k}) @ ({k} x {n}): max abs "
-                  f"err {float(gap.max()):.3e} (gate {tol})", flush=True)
+            if not torch.equal(got, lm.cuda_matmul(a, b).float()):
+                _fail(f"lowrank_mm {dtype} ({m}, {k}, {n}): two calls differ")
+            route, plan = _route_tag(lm, a, b)
+            print(f"JAX test shape {dtype} ({m} x {k}) @ ({k} x {n}): route "
+                  f"{route}, plan {plan}; max abs err "
+                  f"{float(gap.max()):.3e} (gate {tol}); two calls bitwise",
+                  flush=True)
     bound_ms, bound_by = _bound(tot["nbytes"], tot["flops"])
+    for route, r_tot in sorted(by_route.items()):
+        print(f"lowrank_mm {route} route, one cluster's outer step: kernel "
+              f"{r_tot['ms']:.4f} ms, torch.matmul {r_tot['library_ms']:.4f} "
+              f"ms, bound {r_tot['bound_ms']:.4f} ms", flush=True)
     print(f"lowrank_mm: one cluster's outer step: kernel {tot['ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.4f} ms, torch.matmul (TF32 off; here also "
           f"the plain version's product) {tot['library_ms']:.4f} ms, bound "
@@ -1224,7 +1294,8 @@ MESH_ARGS = ["--arch", "opt-1.3b", "--device", "cuda", "--devices", "1",
 def mesh_launches_expected(cfg, rounds, clusters):
     """Launches of the mesh outer step: per round and low-rank leaf, one
     lowrank_mm each for P = M Q, Q = M^T P (batched over the leaf's
-    clusters x lead matrices) and P Q^T (over all clusters' matrices);
+    clusters x lead matrices) and P Q^T (over all clusters' matrices),
+    counted also by route;
     per cluster, one quant4 pack of P and of Q per matrix and one per
     quant-only leaf; the same count of unpacks for all clusters'
     payloads. No other kernel runs in the driver."""
@@ -1241,7 +1312,13 @@ def mesh_launches_expected(cfg, rounds, clusters):
             n_low += 1
             mats += lead
     packs = rounds * clusters * (2 * mats + n_quant)
-    return {"lowrank_mm": rounds * 3 * n_low, "quant4_pack": packs,
+    # by route: P = M Q and Q = M^T P take the split route (f32, r <= 64
+    # columns, a row-major factor), P Q^T the rank route (K = r <= 64);
+    # nothing in the outer step takes the general route
+    return {"lowrank_mm": rounds * 3 * n_low,
+            "lowrank_mm_split": rounds * 2 * n_low,
+            "lowrank_mm_rank": rounds * n_low, "lowrank_mm_general": 0,
+            "quant4_pack": packs,
             "quant4_unpack": packs, "fused_project": 0,
             "fused_project_t_pack": 0, "fused_reconstruct": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
@@ -1309,11 +1386,14 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     for w in wrappers.values():
         w.launches = 0
+    lm.cuda_matmul.routes = dict.fromkeys(lm.ROUTES, 0)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         summary = train_lib.main(argv, on_round=on_round)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
+    launches.update({f"lowrank_mm_{route}": n
+                     for route, n in lm.cuda_matmul.routes.items()})
     peak = torch.cuda.max_memory_allocated()
     print(out.getvalue(), end="")
     gather = mesh_gather_bytes(cfg, args.rank)
@@ -1503,7 +1583,10 @@ def main():
         kernels.append(row)
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name]))
-    kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"]))
+    kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
+                        launches_by_path={
+                            route: mesh_launches[f"lowrank_mm_{route}"]
+                            for route in ("split", "rank", "general")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-"""The compressor's kernels of two trees on one card, in turns: phase 3b of
-``chip_smoke.py`` (every kernel against its plain version at every leaf
-shape of the training configuration, with its time) run from a checkout
-of another commit and from this tree, in the order parent, change,
-change, parent, each in its own process.
+"""The compressor's kernels and lowrank_mm of two trees on one card, in
+turns: phases 3b (every compressor kernel against its plain version at
+every leaf shape of the training configuration, with its time) and 3d
+(lowrank_mm at every product of the mesh driver's outer step) of
+``chip_smoke.py``, run from a checkout of another commit and from this
+tree, in the order parent, change, change, parent, each in its own
+process.
 
     python3 scripts/compressor_ab.py --parent DIR [--out build/ab]
 
@@ -10,8 +12,10 @@ DIR holds the other commit's files (``git archive <commit> | tar -x -C
 DIR``, in a directory that .gitignore lists). Each turn's output goes to
 ``<out>/ab_<turn>_<tree>.log``; the script prints the card's name and
 power limit, each turn's per-leaf project and t_pack times (kernel /
-plain / torch.matmul ms) and each kernel's time summed over one
-cluster's compressor call. Needs one NVIDIA GPU.
+plain / torch.matmul ms) and per-product lowrank_mm times (kernel /
+torch.matmul ms), then each kernel's time summed over one cluster's
+compressor call (lowrank_mm: over one cluster's outer step) and each
+product's, median of two turns per tree. Needs one NVIDIA GPU.
 """
 import argparse
 import json
@@ -27,29 +31,39 @@ PHASE = ("import json, sys, torch\n"
          "import chip_smoke as cs\n"
          "torch.backends.cuda.matmul.allow_tf32 = False\n"
          "cs.build()\n"
-         "print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n")
+         "print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n"
+         "print('AB-MM ' + json.dumps(cs.lowrank_mm_kernel()))\n")
 LEAF = re.compile(r"^m=(\d+) n=(\d+) x(\d+) ms kernel/plain/matmul: project "
                   r"([\d.]+)/([\d.]+)/([\d.]+) t_pack ([\d.]+)/([\d.]+)/"
                   r"([\d.]+)")
+PRODUCT = re.compile(r"^(batch \d+ \(\d+ x \d+\) @ \(\d+ x \d+\) transposed \S "
+                     r"x\d+): .*ms kernel/plain/torch\.matmul/bound ([\d.]+)/"
+                     r"([\d.]+)/([\d.]+)/([\d.]+)")
 
 
 def turn(tree, log):
     env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
     out = subprocess.run([sys.executable, "-c", PHASE], cwd=tree, env=env,
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True, timeout=1500)
     with open(log, "w") as f:
         f.write(out.stdout + out.stderr)
     if out.returncode != 0:
         raise SystemExit(f"FAIL {tree}: exit {out.returncode}, see {log}\n"
                          + out.stderr[-2000:])
     rows = {}
-    leaves = []
+    leaves, products = [], {}
     for line in out.stdout.splitlines():
         if line.startswith("AB-ROWS "):
-            rows = {r["name"]: r for r in json.loads(line[8:])}
+            rows.update({r["name"]: r for r in json.loads(line[8:])})
+        elif line.startswith("AB-MM "):
+            row = json.loads(line[6:])
+            rows[row["name"]] = row
         elif LEAF.match(line):
             leaves.append(LEAF.match(line).groups())
-    return rows, leaves
+        elif PRODUCT.match(line):
+            tag, ms, _, lib, _ = PRODUCT.match(line).groups()
+            products[tag] = (float(ms), float(lib))
+    return rows, leaves, products
 
 
 def main():
@@ -64,16 +78,28 @@ def main():
     print(smi, flush=True)
     trees = {"parent": os.path.abspath(args.parent), "change": HERE}
     runs = {"parent": [], "change": []}
+    prods = {"parent": [], "change": []}
     for i, tag in enumerate(["parent", "change", "change", "parent"]):
-        rows, leaves = turn(trees[tag],
-                            os.path.join(args.out, f"ab_{i}_{tag}.log"))
+        rows, leaves, products = turn(
+            trees[tag], os.path.join(args.out, f"ab_{i}_{tag}.log"))
         runs[tag].append(rows)
+        prods[tag].append(products)
         print(f"turn {i} ({tag}):", flush=True)
         for m, n, c, *t in leaves:
             print(f"  m={m} n={n} x{c} ms kernel/plain/matmul: project "
                   f"{'/'.join(t[:3])} t_pack {'/'.join(t[3:])}", flush=True)
-    print(f"one cluster's compressor call, ms (median of two turns each; "
-          f"{smi}):")
+        for name, (ms, lib) in products.items():
+            print(f"  lowrank_mm {name} ms kernel/matmul: {ms:.4f}/{lib:.4f}",
+                  flush=True)
+    print(f"lowrank_mm per product, ms (median of two turns each; {smi}):")
+    for name in prods["change"][0]:
+        med = {tag: statistics.median(p[name][0] for p in prods[tag])
+               for tag in prods}
+        lib = statistics.median(p[name][1] for p in prods["change"])
+        print(f"  {name}: parent {med['parent']:.4f} change "
+              f"{med['change']:.4f} torch.matmul {lib:.4f}", flush=True)
+    print(f"one cluster's compressor call (lowrank_mm: outer step), ms "
+          f"(median of two turns each; {smi}):")
     for name in runs["change"][0]:
         vals = {tag: [r[name]["ms"] for r in runs[tag]] for tag in runs}
         lib = runs["change"][0][name]["library_ms"]

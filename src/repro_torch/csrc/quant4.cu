@@ -72,13 +72,9 @@ quant4_unpack_kernel(const uint8_t* __restrict__ packed,
   const float scale = scales[b];
   for (int j = lane; j < half; j += 32) {
     const uint32_t byte = packed[b * half + j];
-    int lo = (int)(byte & 0xFu);
-    int hi = (int)(byte >> 4);
-    lo = lo >= 8 ? lo - 16 : lo;
-    hi = hi >= 8 ? hi - 16 : hi;
     const long long i = b * block + 2 * j;
-    if (i < n) out[i] = (float)lo * scale;
-    if (i + 1 < n) out[i + 1] = (float)hi * scale;
+    if (i < n) out[i] = decode4(byte, scale);
+    if (i + 1 < n) out[i + 1] = decode4(byte >> 4, scale);
   }
 }
 

@@ -43,7 +43,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_compress": {
         "fused_project_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
         "fused_project_t_pack_f32": ([_P] * 7 + [_I] * 7 + [_P], _I),
-        "fused_reconstruct_f32": ([_P] * 8 + [_I] * 4 + [_P], _I),
+        "fused_reconstruct_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
         **_ERR,
     },
     "flash_attention": {
@@ -54,7 +54,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **_ERR,
     },
     "lowrank_mm": {
-        "lowrank_mm": ([_P, _I, _P, _I, _P] + [_I] * 4 + [_L] * 6 + [_P], _I),
+        "lowrank_mm": ([_P, _I, _P, _I, _P] + [_I] * 4 + [_L] * 6
+                       + [_I] * 3 + [_P, _P], _I),
         **_ERR,
     },
 }

@@ -19,10 +19,14 @@ hand-written CUDA kernels (``csrc/fused_compress.cu``, replacing
 ``_proj_kernel``, ``_proj_t_pack_kernel`` and ``_recon_kernel``) for CUDA
 tensors and runs its plain PyTorch version for CPU tensors; no other
 switch, no fallback. ``cuda_project.launches`` etc. count wrapper calls.
-The two projections split K over the card (``_split_k``): a call runs
+The two projections split K over the card (``_plan.split_k``): a call runs
 the GEMM and, where S > 1 or a pack follows, a second pass that adds the
 split partials in split order, so it counts once but may launch two
-kernels.
+kernels. ``reconstruct`` decodes both factors once into f32 scratch
+(quant4 unpack's arithmetic), then runs the K-resident GEMM of
+``csrc/rank_gemm.cuh`` with the EF epilogue: one count, three kernels.
+The GEMMs are shared with ``lowrank_mm`` (``csrc/proj_gemm.cuh``,
+``csrc/rank_gemm.cuh``, the plan in ``_plan.py``).
 
 The kernels mask their ragged edges themselves, so the JAX driver's grid
 padding (``_pad2d``, ``_pad_packed``) has no counterpart here. The kernels
@@ -39,26 +43,20 @@ bit-identical to ``ref.quant4_pack_ref`` on the row-major flat factors.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.device import on_device
-from repro_torch.kernels import ref
+from repro_torch.kernels import _plan, ref
 from repro_torch.kernels.ref import FusedPayload, col_mask as _col_mask
 
-TILE = 64          # reconstruction tile, and the row unit of t_pack's pack
-R_MAX = 64         # widest factor the kernels take
-BM = 128           # rows of a projection GEMM's output tile (its columns: r)
-BK = 16            # the projection GEMMs' K step
-MIN_CHUNK = 256    # fewest terms of a split-K chunk (but the last)
-SMS = 132          # streaming multiprocessors of an H100 SXM: a constant,
-                   # so the plan, and the sum order, depend on the shape alone
-F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.kernels._plan import BM, R_MAX
+
+TILE = 64          # the row unit of t_pack's pack
 SMEM_FLOATS = 227 * 1024 // 4    # t_pack's (tile_rows, r) shared tile
+_INT_MAX = 2 ** 31 - 1
 
 
 def _row_tile(r: int, block: int) -> int:
@@ -70,51 +68,20 @@ def _row_tile(r: int, block: int) -> int:
     return TILE * unit // math.gcd(TILE, unit)
 
 
-@functools.lru_cache(maxsize=None)
-def _split_k(tiles: int, K: int) -> Tuple[int, int]:
-    """The split-K plan ``(S, chunk)`` of a projection GEMM with ``tiles``
-    output tiles of BM rows and K terms per output element: split s sums
-    terms [s * chunk, min(K, (s + 1) * chunk)). ``chunk`` is a multiple
-    of the K step and S = ceil(K / chunk), so the chunks cover [0, K)
-    once and none is empty; every chunk but the last holds at least
-    MIN_CHUNK terms (or all K). Where such a plan gives two waves of
-    blocks (tiles * S >= 2 * SMS), only those count; of them the plan
-    with the least modelled time wins: the busiest SM's FMAs
-    (ceil(tiles * S / SMS) blocks of ``chunk`` terms at the f32 rate) plus
-    the HBM traffic of the S partials (written, then read by the second
-    pass). The plan depends on the shape alone, so the sum order, and
-    with it every output bit, is the same in every call."""
-    steps = -(-K // BK)
-    term_s = 2 * BM * R_MAX / (F32_FLOPS_PER_S / SMS)   # one block, one term
-    plans = {}
-    for c in range(min(MIN_CHUNK // BK, steps), steps + 1):
-        chunk = c * BK
-        S = -(-K // chunk)
-        t = (-(-tiles * S // SMS) * chunk * term_s
-             + (S > 1) * S * tiles * BM * R_MAX * 8 / HBM_BYTES_PER_S)
-        if S not in plans or t < plans[S][0]:
-            plans[S] = (t, chunk)
-    wide = [S for S in plans if tiles * S >= 2 * SMS] or list(plans)
-    S = min(wide, key=lambda S: (plans[S][0], S))
-    return S, plans[S][1]
-
-
 def _proj_plan(m: int, n: int) -> Tuple[int, int, int]:
     """(tiles, S, chunk) of ``cuda_project``: rows m, K = n."""
-    tiles = -(-m // BM)
-    return (tiles,) + _split_k(tiles, n)
+    return _plan.row_plan(m, n)
 
 
 def _proj_t_plan(m: int, n: int) -> Tuple[int, int, int]:
     """(tiles, S, chunk) of ``cuda_project_t_pack``: rows n, K = m."""
-    tiles = -(-n // BM)
-    return (tiles,) + _split_k(tiles, m)
+    return _plan.row_plan(n, m)
 
 
 def _workspace(S, rows, r, device):
     """The S partials of a split GEMM, each ceil4(rows * r) floats."""
-    return torch.empty(S * (-(-rows * r // 4) * 4), dtype=torch.float32,
-                       device=device)
+    return torch.empty(_plan.workspace_floats(S, rows * r),
+                       dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +130,7 @@ def _check_operands(d, e, r):
     if not 1 <= r <= R_MAX:
         raise ValueError(f"rank {r} outside the kernels' envelope "
                          f"1..{R_MAX}")
-    if -(-m // TILE) > 65535 or n >= 2 ** 31:     # kernel 5's grid.y
+    if -(-m // BM) > 65535 or n >= 2 ** 31:    # kernel 5's grid.y: 128 rows
         raise ValueError(f"matrix {m} x {n} outside the kernels' envelope")
     return m, n
 
@@ -253,12 +220,18 @@ def cuda_reconstruct(pp, sp, pq, sq, d, e, m: int, n: int, r: int,
         _check_f32("delta", d, (m, n), dev)
         if e is not None:
             _check_f32("error", e, (m, n), dev)
+    if (m + n) * r > _INT_MAX:
+        raise ValueError(f"factors ({m} + {n}) x {r} exceed the decode's "
+                         f"int32 indexing")
     hat = torch.empty((m, n), dtype=torch.float32, device=dev)
     enew = torch.empty_like(hat) if with_ef else None
+    # the decoded factors, P (m, r) and Q (n, r), as f32 scratch
+    pf = torch.empty((m + n) * r, dtype=torch.float32, device=dev)
     _lib_call("fused_reconstruct_f32", pp.data_ptr(), sp.data_ptr(),
               pq.data_ptr(), sq.data_ptr(),
               _ptr(d) if with_ef else None, _ptr(e) if with_ef else None,
-              hat.data_ptr(), _ptr(enew), m, n, r, block, _stream(pp))
+              hat.data_ptr(), _ptr(enew), pf.data_ptr(),
+              pf[m * r:].data_ptr(), m, n, r, block, _stream(pp))
     cuda_reconstruct.launches += 1
     return hat, enew
 

@@ -7,17 +7,21 @@ configuration's leaves:
   order) passes it with a wide margin, and the same sum missing one
   32-wide K tile fails it;
 - the split-K order of the two projections (``fused_compress.cu``):
-  a sequential sum over each chunk of the plan (``_split_k``), then the
+  a sequential sum over each chunk of the plan (``_plan.split_k``), then the
   chunk partials added in split order, passes it below 0.1 of its
   tolerance, and the same sum missing one chunk partial, or one 16-wide
-  K step inside a chunk, fails it."""
+  K step inside a chunk, fails it;
+- the same split order at ``lowrank_mm``'s plans for the mesh outer
+  step's P = M Q products (m = 2,048 rows, K = 50,272, 8,192 and 2,048).
+"""
 import numpy as np
 import pytest
 import torch
 
 from _fused_contract import load_chip_smoke as _chip_smoke
 from repro_torch.core.compression import _orthonormalize
-from repro_torch.kernels import fused_compress as fc
+from repro_torch.kernels import _plan
+from repro_torch.kernels import lowrank_mm as lm
 
 
 def _sequential(a, b):
@@ -76,7 +80,7 @@ def test_product_gate_passes_split_k_order_and_catches_a_lost_chunk(kind, K,
                                                                     tiles):
     cs = _chip_smoke()
     a, b = _operands(kind, K, seed=K + 1)
-    S, chunk = fc._split_k(tiles, K)
+    S, chunk = _plan.split_k(tiles, K)
     assert S > 1
     want = a @ b
     got, parts = _split_order(a, b, S, chunk)
@@ -86,7 +90,30 @@ def test_product_gate_passes_split_k_order_and_catches_a_lost_chunk(kind, K,
     no_chunk = sum(parts[:lost] + parts[lost + 1:], np.zeros_like(parts[0]))
     with pytest.raises(SystemExit, match="off its plain version"):
         cs._gate_product(kind, torch.from_numpy(no_chunk), want, a, b)
-    k0 = lost * chunk + fc.BK * (chunk // fc.BK // 2)
-    no_step = got - a[:, k0:k0 + fc.BK] @ b[k0:k0 + fc.BK]
+    k0 = lost * chunk + _plan.BK * (chunk // _plan.BK // 2)
+    no_step = got - a[:, k0:k0 + _plan.BK] @ b[k0:k0 + _plan.BK]
     with pytest.raises(SystemExit, match="off its plain version"):
         cs._gate_product(kind, no_step, want, a, b)
+
+
+@pytest.mark.parametrize("K", [50272, 8192, 2048])
+def test_product_gate_passes_lowrank_split_order_and_catches_a_lost_chunk(K):
+    """lowrank_mm's split route at the plan of a 2,048-row output (the
+    head's and the layers' P = M Q): the split order passes the gate below
+    0.1 of its tolerance; a lost chunk partial or K step fails it."""
+    cs = _chip_smoke()
+    a, b = _operands("project", K, seed=K + 2)
+    S, chunk = lm._split_plan(2048, K)
+    assert S > 1
+    want = a @ b
+    got, parts = _split_order(a, b, S, chunk)
+    _, ratio = cs._gate_product("lowrank_mm", got, want, a, b)
+    assert ratio < 0.1
+    lost = S - 1
+    no_chunk = sum(parts[:lost], np.zeros_like(parts[0]))
+    with pytest.raises(SystemExit, match="off its plain version"):
+        cs._gate_product("lowrank_mm", torch.from_numpy(no_chunk), want, a, b)
+    k0 = _plan.BK * (chunk // _plan.BK // 2)
+    no_step = got - a[:, k0:k0 + _plan.BK] @ b[k0:k0 + _plan.BK]
+    with pytest.raises(SystemExit, match="off its plain version"):
+        cs._gate_product("lowrank_mm", no_step, want, a, b)

@@ -394,3 +394,101 @@ def test_cuda_mesh_compression_matches_cpu(no_tf32):
                                rtol=0, atol=float(payloads[0][0][1].max()))
     col = qn_p["w"].norm(dim=-2, keepdim=True)
     assert ((qn["w"].cpu() - qn_p["w"]).abs() <= 1e-4 * col).all()
+
+
+def _mm_case(batch, m, k, n, trans, seed):
+    """(a, b) on the card; ``trans`` a or b: that operand is a transposed
+    view of a row-major tensor, as the mesh compressor forms M^T and Q^T."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+    if trans == "a":
+        return rnd(batch, k, m).transpose(1, 2) * 0.3, rnd(batch, k, n)
+    if trans == "b":
+        return rnd(batch, m, k), rnd(batch, n, k).transpose(1, 2)
+    return rnd(batch, m, k) * 0.3, rnd(batch, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,batch,m,k,n,trans", [
+    ("split", 2, 130, 1030, 24, "-"),     # S > 1, K % 16 = 6
+    ("split", 3, 257, 2051, 40, "a"),     # M^T P, K % 4 = 3: scalar A tiles
+    ("split", 1, 333, 20003, 64, "-"),    # K % 4 = 3: scalar tiles
+    ("split", 2, 130, 1030, 7, "-"),      # r = 7: scalar tiles
+    ("rank", 2, 130, 24, 203, "b"),       # P Q^T, n % 4 = 3: scalar stores
+    ("rank", 3, 257, 40, 131, "b"),
+    ("rank", 1, 300, 64, 50, "b"),        # n <= 64, Q^T a view
+    ("rank", 2, 70, 64, 130, "-"),        # row-major B: column-fast staging
+    ("rank", 2, 130, 7, 90, "b"),         # K % 4 = 3: scalar staging
+    ("general", 2, 130, 70, 90, "-"),
+    ("general", 1, 100, 333, 257, "a")])
+def test_cuda_matmul_routes_at_ragged_shapes(no_tf32, route, batch, m, k, n,
+                                             trans):
+    """Each route of lowrank_mm where rows are no multiple of 128, K no
+    multiple of 16 and n no multiple of 4: each matrix within
+    chip_smoke.py's product gate of the plain version, one count for the
+    route, two calls bitwise equal, a view bitwise its contiguous copy, a
+    batched launch bitwise each matrix's own launch."""
+    _need_cuda()
+    gate = load_chip_smoke()._gate_product
+    a, b = _mm_case(batch, m, k, n, trans, seed=m + k + n)
+    assert lm._route(a, b) == route
+    before = (lm.cuda_matmul.launches, dict(lm.cuda_matmul.routes))
+    got = lm.matmul(a, b)
+    assert lm.cuda_matmul.launches == before[0] + 1
+    assert lm.cuda_matmul.routes == dict(before[1], **{
+        route: before[1][route] + 1})
+    want = lm.matmul_plain(a, b)
+    for i in range(batch):
+        gate(f"{route} [{i}]", got[i], want[i], a[i], b[i])
+    assert torch.equal(got, lm.matmul(a, b))
+    assert torch.equal(got, lm.matmul(a.contiguous(), b.contiguous()))
+    for i in range(batch):
+        assert torch.equal(got[i], lm.matmul(a[i:i + 1], b[i:i + 1])[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r", [(257, 129, 8), (300, 203, 64),
+                                   (130, 1030, 40), (96, 70, 7)])
+@pytest.mark.parametrize("ef", ["off", "without e", "with e"])
+def test_cuda_reconstruct_matches_plain_and_lowrank_mm(no_tf32, m, n, r, ef):
+    """The reconstruction (decode, then the K-resident GEMM with the EF
+    epilogue) within 16 eps |Pq||Qq|^T of its plain version; hat bit for
+    bit lowrank_mm(unpack P, unpack Q^T); e' = d (+ e) - hat exactly; two
+    calls bitwise equal; one count per call."""
+    _need_cuda()
+    rng = np.random.default_rng(m * n + r)
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+    P, Q = rnd(m * r, scale=0.1), rnd(n * r)
+    d, e = rnd(m, n, scale=0.3), rnd(m, n, scale=0.05)
+    pp, sp = q4.quant4_pack(P)
+    pq, sq = q4.quant4_pack(Q)
+    with_ef = ef != "off"
+    e_arg = e if ef == "with e" else None
+    before = fc.cuda_reconstruct.launches
+    hat, e_new = fc.reconstruct(pp, sp, pq, sq, d, e_arg, m, n, r,
+                                with_ef=with_ef)
+    assert fc.cuda_reconstruct.launches == before + 1
+    hat_p, e_new_p = fc.reconstruct_plain(pp, sp, pq, sq, d, e_arg, m, n, r,
+                                          with_ef=with_ef)
+    Pq = q4.quant4_unpack(pp, sp, m * r).reshape(m, r)
+    Qq = q4.quant4_unpack(pq, sq, n * r).reshape(n, r)
+    bound = 16 * torch.finfo(torch.float32).eps * (Pq.abs() @ Qq.abs().T)
+    assert bool(((hat - hat_p).abs() <= bound + 1e-30).all())
+    assert torch.equal(hat, lm.matmul(Pq, Qq.T))
+    if with_ef:
+        assert torch.equal(e_new, (d if e_arg is None else d + e_arg) - hat)
+        np.testing.assert_allclose(e_new.cpu().numpy(),
+                                   e_new_p.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        assert e_new is None
+    again = fc.reconstruct(pp, sp, pq, sq, d, e_arg, m, n, r, with_ef=with_ef)
+    assert torch.equal(hat, again[0])
+    if with_ef:
+        assert torch.equal(e_new, again[1])

@@ -20,6 +20,7 @@ from _fused_contract import (ULP_K, assert_fused_contract, fused_inputs,
                              load_chip_smoke, one_int4_step)
 from repro.kernels import ref as jref
 from repro.kernels.fused_compress import fused_compress_ef as j_fused
+from repro_torch.kernels import _plan
 from repro_torch.kernels import fused_compress as fc
 from repro_torch.kernels import ref
 
@@ -143,10 +144,10 @@ def test_split_k_plan_covers_k_and_fills_the_card(tiles, K):
     terms, and two waves of blocks on the card wherever chunks of
     MIN_CHUNK terms allow them (the pack's row tile, whole quantization
     blocks at every rank: ``test_row_tile_packs_whole_blocks``)."""
-    S, chunk = fc._split_k(tiles, K)
-    assert chunk % fc.BK == 0 and S >= 1
+    S, chunk = _plan.split_k(tiles, K)
+    assert chunk % _plan.BK == 0 and S >= 1
     assert (S - 1) * chunk < K <= S * chunk
-    assert S == 1 or chunk >= fc.MIN_CHUNK
-    if tiles * -(-K // fc.MIN_CHUNK) >= 2 * fc.SMS:
-        assert tiles * S >= 2 * fc.SMS
-    assert (S, chunk) == fc._split_k(tiles, K)
+    assert S == 1 or chunk >= _plan.MIN_CHUNK
+    if tiles * -(-K // _plan.MIN_CHUNK) >= 2 * _plan.SMS:
+        assert tiles * S >= 2 * _plan.SMS
+    assert (S, chunk) == _plan.split_k(tiles, K)
