@@ -31,7 +31,10 @@ continues:
         within the JAX gate rtol/atol 2e-3 and an elementwise f32 bound
         (``flash_tolerances``), the backward (fed the plain forward's o
         and lse) within the same kind of bound and bitwise equal over two
-        calls; times beside the plain versions and SDPA;
+        calls; each case's dK/dV and dQ plans; times beside the plain
+        versions and SDPA, and the least time at the 3xTF32 tensor-core
+        rate beside the f32 SIMT one (``flash_bound``); at the training
+        shape, each kernel's time (``kernel_profile``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
@@ -82,6 +85,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
 ATOL, RTOL = 1e-5, 1e-3          # the JAX package's gate for this kernel
 SCRATCH = 1e3                    # scratch-page garbage that must never leak
 
@@ -685,13 +689,21 @@ def flash_bound(B, Sq, Sk, H, KV, d, causal, bwd):
     """Least time of the forward (q, k, v -> o, lse: 4 d flops per pair)
     or the backward (q, k, v, o, lse, dO -> dq, dk, dv: 10 d flops per
     pair, S recomputed, then dP, dV, dK, dQ), each input read and each
-    output written once."""
+    output written once. The kernels take each f32 product as three TF32
+    tensor-core products (3xTF32), so the operations take 3 x flops at the
+    TF32 rate. Returns (ms, "bytes" or "operations", and the same flops'
+    time at the f32 SIMT rate, the bound before the tensor cores)."""
     pairs = B * H * flash_pairs(Sq, Sk, causal)
     n_q, n_kv, n_lse = B * Sq * H * d, B * Sk * KV * d, B * H * Sq
     if bwd:
-        return _bound(4 * (3 * n_q + 2 * n_kv + n_lse + n_q + 2 * n_kv),
-                      10 * d * pairs)
-    return _bound(4 * (2 * n_q + 2 * n_kv + n_lse), 4 * d * pairs)
+        nbytes = 4 * (3 * n_q + 2 * n_kv + n_lse + n_q + 2 * n_kv)
+        flops = 10 * d * pairs
+    else:
+        nbytes, flops = 4 * (2 * n_q + 2 * n_kv + n_lse), 4 * d * pairs
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            flops / F32_FLOPS_PER_S * 1e3)
 
 
 def flash_tolerances(q, k, v, o, lse, do, causal):
@@ -752,6 +764,20 @@ def _gate(name, got, want, tol):
     return float(err.max()), ratio
 
 
+def kernel_profile(fn, reps=5):
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches (``torch.profiler`` over ``reps`` calls after one, L2 warm)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.device_time_total / reps
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def library_attention(q, k, v, causal):
     """Yardstick only (the port never calls it): PyTorch's fused attention
     on the (B, heads, S, d) views of the same tensors."""
@@ -766,8 +792,8 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
     judged on its own; gates, times and bounds. Returns the rows of the
     two kernels at the training shape (the first case), with the worst
     errors over all cases."""
+    from repro_torch.kernels import _plan, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
 
     _phase("kernel vs plain: flash attention, forward and backward")
     dev = dev or torch.device("cuda")
@@ -829,10 +855,20 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
             return torch.autograd.grad(out, (ql, kl, vl), do)
 
         lib_fb = time_ms(lib_fwd_bwd, flush=flush)
-        bound_f, by_f = flash_bound(B, Sq, Sk, H, KV, d, causal, bwd=False)
-        bound_b, by_b = flash_bound(B, Sq, Sk, H, KV, d, causal, bwd=True)
+        bound_f, by_f, simt_f = flash_bound(B, Sq, Sk, H, KV, d, causal,
+                                            bwd=False)
+        bound_b, by_b, simt_b = flash_bound(B, Sq, Sk, H, KV, d, causal,
+                                            bwd=True)
+        split, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+        blocks = _plan.flash_dkdv_blocks(B, H, Sk, d, split)
+        dq_split = _plan.flash_dq_plan(B, H, Sq, Sk, d)
         print(f"{name} (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} causal "
-              f"{causal}): fwd max abs err o {err_o:.3e} ({ratio_o:.4f}x "
+              f"{causal}): dK/dV plan split {split} parts {parts} blocks "
+              f"{blocks}, dQ plan split {dq_split} blocks "
+              f"{B * H * -(-Sq // _plan.FLASH_ROWS) * dq_split}; bound ms "
+              f"3xTF32/f32 SIMT fwd {bound_f:.4f}/"
+              f"{simt_f:.4f} bwd {bound_b:.4f}/{simt_b:.4f}; fwd max abs "
+              f"err o {err_o:.3e} ({ratio_o:.4f}x "
               f"its f32 bound) lse {err_lse:.3e}; bwd dq/dk/dv "
               f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} ({ratios[0]:.4f}/"
               f"{ratios[1]:.4f}/{ratios[2]:.4f}x), bitwise reproducible; "
@@ -842,6 +878,12 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
               f"fwd+bwd {lib_fb:.4f}, kernels fwd+bwd {ms_f + ms_b:.4f}",
               flush=True)
         if not rows:
+            prof = kernel_profile(lambda: (
+                fa.cuda_flash_attention_fwd(q, k, v, causal),
+                fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)))
+            print(f"{name}: us per call by kernel (torch.profiler, L2 warm): "
+                  + ", ".join(f"{k_} {us:.1f}" for k_, us in prof.items()),
+                  flush=True)
             src = "src/repro_torch/csrc/flash_attention.cu"
             tpu = "src/repro/kernels/flash_attention.py:24"
             rows = {

@@ -1,132 +1,330 @@
 // Causal GQA flash attention for Hopper (sm_90a), float32: a forward kernel
-// and a FlashAttention-2-style backward in three kernels, with no atomics.
+// and a FlashAttention-2-style backward in four kernels, with no atomics.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
-//   flash_fwd_kernel      <- _flash_kernel (pallas_call at :96)
-//                            O = softmax(Q K^T / sqrt(d), mask) V, and the
-//                            per-row log-sum-exp lse (B, H, Sq), f32, that
-//                            the backward reads
+//   flash_fwd_kernel       <- _flash_kernel (pallas_call at :96)
+//                             O = softmax(Q K^T / sqrt(d), mask) V, and the
+//                             per-row log-sum-exp lse (B, H, Sq), f32, that
+//                             the backward reads
 // The TPU kernel has no gradient (the JAX package defines no custom_vjp for
 // it); the backward is new, the gradient of ref.flash_attention_ref:
-//   flash_bwd_dot_kernel  D = rowsum(dO * O)                       (B, H, Sq)
-//   flash_bwd_dkdv_kernel dK, dV of one (b, kv head, k tile), summed over
-//                         the G query heads of its group and the q tiles at
-//                         or below the diagonal in a fixed order: no
-//                         atomics, so two calls are bitwise equal
-//   flash_bwd_dq_kernel   dQ of one (b, h, q tile)
-// Both passes recompute P = exp(S - lse) and dS = P * (dP - D).
+//   flash_bwd_dot_kernel   D = rowsum(dO * O)                      (B, H, Sq)
+//   flash_bwd_dkdv_kernel  dK, dV of one (b, query head, k tile) over one
+//                          range of q tiles: the dK/dV of its KV head when
+//                          G = 1 and one range, else a partial
+//   flash_bwd_dq_kernel    dQ of one (b, h, q tile) over one range of its k
+//                          tiles: dQ itself when there is one range, else a
+//                          partial
+//   flash_sum_parts_kernel dK, dV (dQ) = the partials summed in a fixed
+//                          order (query head of the group, then range)
+// Both passes recompute P = exp(S - lse) and dS = P * (dP - D). No atomics,
+// so two calls are bitwise equal.
 //
 // Layouts: q (B, Sq, H, d), k and v (B, Sk, KV, d), read through the
-// strides the wrapper passes (last dim contiguous): no transposed copies, as
-// the JAX wrapper makes (:80-82). Query head h reads KV head h / G,
-// G = H / KV, by index; the KV heads are never repeated. o, dO, dq
-// (B, Sq, H, d) and dk, dv (B, Sk, KV, d) are contiguous. The causal mask is
-// top-left aligned (key j is seen by query i iff j <= i), for Sq != Sk too,
-// as in the reference; masked scores are -1e30, not -inf.
+// strides the wrapper passes (last dim contiguous, every pointer and stride
+// a multiple of 16 bytes): no transposed copies, as the JAX wrapper makes
+// (:80-82). Query head h reads KV head h / G, G = H / KV, by index. o, dO,
+// dq (B, Sq, H, d) and dk, dv (B, Sk, KV, d) are contiguous. The causal
+// mask is top-left aligned (key j is seen by query i iff j <= i), for
+// Sq != Sk too, as in the reference; masked scores are -1e30, not -inf.
 //
 // Bound on this card: per unmasked (q, k) pair the forward does 4 d flops
 // (a row of Q K^T and of P V) and the backward 10 d (S again, dP, dV, dK,
-// dQ). At the training shape (B 4, S 512, H 32, d 64, causal) the forward
-// is 4.3 GFLOP against 67 MB of q, k, v and o: 0.064 ms at 67 TFLOP/s of
-// f32 SIMT against 0.020 ms at 3.35 TB/s of HBM. So it is bound by
-// operations (TF32 is off: f32 is the configs' param dtype), and the
-// backward the more so.
+// dQ). The products run on the tensor cores as 3xTF32 (tf32_mma.cuh: three
+// TF32 mma per product keep the f32 gates; one does not), so the least
+// time is 3 x flops at 495 TFLOP/s: at the training shape (B 4, S 512,
+// H 32, d 64, causal) 0.026 ms forward and 0.065 ms backward, against
+// 0.020 ms of HBM traffic forward; 0.064 and 0.161 ms at the f32 SIMT
+// rate. Operations bound both.
 //
-// Design (a first, simple version: SIMT fma, no wgmma, no TMA). 256
-// threads as a 16 x 16 grid (ty, tx); every tile product is register-tiled,
-// thread (ty, tx) owning rows ty + 16 i and columns tx + 16 j. Tiles sit in
-// dynamic shared memory with an odd row pitch (d + 1, BK + 1, BQ + 1), so
-// neither the row-wise nor the column-wise reads of a product conflict.
-// The forward keeps the online-softmax state (m, l and the output rows) in
-// registers, in f32; a row's max and sum reduce over the 16 lanes of a
-// half warp that own it. A loop over k tiles inside the block takes the
-// place of the Pallas K grid axis. Under the causal mask a block visits
-// only the k tiles at or below its diagonal (the dK/dV kernel only the q
-// tiles at or above it); ragged tails of Sq and Sk are masked, so every S
-// works, 384 included (the Pallas kernel asserts S % 256 == 0 there).
-// Tiles: BQ = 64 queries; BK = 64 keys for d <= 128, 32 for d = 256, where
-// the dK/dV kernel holds 214.5 KB of shared memory (opted in above 48 KB).
+// Design. 128 threads, 4 warps, two blocks an SM where shared memory
+// allows; a block keeps 64 rows resident (16 per warp: queries in the
+// forward and dQ, keys in dK/dV) and streams the other side in tiles of
+// 64, 64, 32, 16 rows at d = 32, 64, 128, 256 (dK/dV's q tiles: 32 at
+// d <= 64) through a two-stage ring filled by 16-byte cp.async, so the
+// next tile is in flight while this one is multiplied. At d <= 64 the
+// dK/dV kernel splits each Q and dO tile into its TF32 parts once, into
+// tiles of their own, sparing its warps 3 of every 4 splits of a B
+// element; elsewhere each warp splits the fragments it reads. At d = 256
+// (two accumulators a warp) the two score products S and dP run in one
+// loop. Rows have a pitch of d + 4
+// floats: 16-byte aligned, and every fragment read (ldmatrix for the
+// k-contiguous operands, two 32-bit loads at rows 2t, 2t + 1 for the
+// products over S's columns) falls on 32 distinct banks. S (and dP) stay
+// in registers in the mma's C layout; the online softmax (m, l, the O
+// accumulator) too, with row max and sum over the 4 lanes of a quad. P and
+// dS never go through shared memory: their C fragments are the A fragments
+// of P V, dS K, P^T dO and dS^T Q (tf32_mma.cuh). Under the causal mask a
+// block visits only the tiles at or below (dK/dV: at or above) its
+// diagonal; ragged tails of Sq and Sk are masked, so every S works, 384
+// included (the Pallas kernel asserts S % 256 == 0 there). The forward and
+// dQ grids run the longest causal q tiles first.
+//
+// Grids that fill the card, with no atomics. dK/dV: one block per (k tile,
+// b * H + h, range * NC + column chunk). A block per query head gives
+// B H ceil(Sk / 64) blocks (the KV head's G-fold sum moves to the
+// partials); where that is under the card's 132 SMs the plan
+// (kernels/_plan.py::flash_dkdv_plan, a function of the shape alone) also
+// cuts each k tile's q tiles into `split` ranges. With G split > 1
+// partials, flash_sum_parts_kernel adds them in order. At d = 256 the
+// dK/dV columns come in two chunks of 128 (NC = 2), each block recomputing
+// S and dP, so that its accumulators fit in registers. dQ: one block per
+// (q tile, b * H + h, range); where B H ceil(Sq / 64) is under 132 SMs
+// (gemma3-1b's global layers: 32 blocks) the plan (flash_dq_plan) cuts
+// each q tile's k tiles into ranges too, and their partials are summed in
+// order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define N_THREADS 256
-#define BQ 64
+#include "cp_async.cuh"
+#include "tf32_mma.cuh"
+
+#define N_THREADS 128           // 4 warps; two blocks an SM, so up to 255
+                                // registers a thread (the SM's 65,536)
+#define ROWS 64                 // resident rows of a block, 16 per warp
+#define DOT_THREADS 256
+#define SUM_THREADS 256
 #define NEG_BIG (-1e30f)
 
 struct Strides {        // elements between consecutive b, s and head indices
   long long b, s, h;
 };
 
-// ---------------------------------------------------------------------------
-// register-tiled products over tiles in shared memory
-// ---------------------------------------------------------------------------
-
-// c[i][j] += sum_k A[ty + 16 i][k] * B[tx + 16 j][k]   (A B^T, row-major tiles)
-template <int RI, int CJ, int INNER>
-__device__ __forceinline__ void dot_rows(const float* __restrict__ A, int lda,
-                                         const float* __restrict__ B, int ldb,
-                                         int ty, int tx, float c[RI][CJ]) {
-#pragma unroll 4
-  for (int k = 0; k < INNER; ++k) {
-    float a[RI], b[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) a[i] = A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) b[j] = B[(tx + 16 * j) * ldb + k];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
+// rows of a k tile the forward and dQ stream at head dim D (the shared
+// memory budget)
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D <= 64 ? 64 : (D == 128 ? 32 : 16);
 }
 
-// c[i][j] += sum_k A[ty + 16 i][k] * B[k][tx + 16 j]   (A B, row-major tiles)
-template <int RI, int CJ, int INNER>
-__device__ __forceinline__ void mul_cols(const float* __restrict__ A, int lda,
-                                         const float* __restrict__ B, int ldb,
-                                         int ty, int tx, float c[RI][CJ]) {
-#pragma unroll 4
-  for (int k = 0; k < INNER; ++k) {
-    float a[RI], b[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) a[i] = A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) b[j] = B[k * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
+// whether the dK/dV kernel splits each Q and dO tile into its TF32 parts
+// once, into tiles of their own, or each warp splits the B fragments it
+// reads. At d <= 64 the split copies of 32-row q tiles fit two blocks an
+// SM, and they spare the 4 warps 3 of every 4 splits of a B element (the
+// same in the forward and dQ, on 32-row k tiles, lost more than it saved).
+template <int D>
+__host__ __device__ constexpr bool presplit() {
+  return D <= 64;
 }
 
-// rows r0 .. r0 + R - 1 of one head of a (B, S, heads, D) tensor into a
-// (R, D + 1) tile; `base` points at (b, 0, head, 0); rows >= S read as 0
+// rows of a q tile the dK/dV kernel streams at head dim D
+template <int D>
+__host__ __device__ constexpr int q_tile_rows() {
+  return presplit<D>() ? 32 : tile_rows<D>();
+}
+
+// dK/dV columns a block accumulates
+template <int D>
+__host__ __device__ constexpr int col_chunk() {
+  return D <= 128 ? D : 128;
+}
+
+// ---------------------------------------------------------------------------
+// tiles and fragments
+// ---------------------------------------------------------------------------
+
+// rows r0 .. r0 + R - 1 of one head of a (B, S, heads, D) tensor into an
+// (R, D + 4) tile by 16-byte cp.async; `base` points at (b, 0, head, 0);
+// rows >= S are zeros
 template <int D, int R>
-__device__ __forceinline__ void load_rows(float* __restrict__ tile,
+__device__ __forceinline__ void load_tile(float* __restrict__ tile,
                                           const float* __restrict__ base,
                                           long long row_stride, int r0,
                                           int S) {
-  for (int idx = threadIdx.x; idx < R * D; idx += N_THREADS) {
-    const int r = idx / D, c = idx % D, row = r0 + r;
-    tile[r * (D + 1) + c] = row < S ? base[row * row_stride + c] : 0.f;
+  constexpr int C = D / 4;
+  for (int idx = threadIdx.x; idx < R * C; idx += N_THREADS) {
+    const int r = idx / C, c = (idx % C) * 4, row = r0 + r;
+    const bool ok = row < S;
+    cp_async16(tile + r * (D + 4) + c, ok ? base + row * row_stride + c : base,
+               ok);
   }
 }
 
-// max and sum over the 16 lanes of a half warp (the lanes sharing ty)
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// R entries v[r0 ..] of a row vector into shared memory; past S, zeros
+template <int R>
+__device__ __forceinline__ void load_vec(float* __restrict__ dst,
+                                         const float* __restrict__ v, int r0,
+                                         int S) {
+  for (int r = threadIdx.x; r < R; r += N_THREADS) {
+    const bool ok = r0 + r < S;
+    cp_async4(dst + r, ok ? v + r0 + r : v, ok);
+  }
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
+// an (R, D + 4) f32 tile's TF32 parts, hi and lo, in the same layout
+template <int D, int R>
+__device__ __forceinline__ void split_tile(const float* __restrict__ x,
+                                           float* __restrict__ hi,
+                                           float* __restrict__ lo) {
+  constexpr int C = D / 4;
+  for (int idx = threadIdx.x; idx < R * C; idx += N_THREADS) {
+    const int at = idx / C * (D + 4) + idx % C * 4;
+    const float4 v = *reinterpret_cast<const float4*>(x + at);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(hi + at) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(lo + at) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// A streamed tile as the B operand of a product: its f32 rows, split where
+// a fragment is read, or (Split) its TF32 parts from split_tile. Both keep
+// the f32 tile's layout; `at` moves either to an element.
+struct Split {
+  const float* hi;
+  const float* lo;
+};
+
+__device__ __forceinline__ const float* at(const float* t, int off) {
+  return t + off;
+}
+
+__device__ __forceinline__ Split at(Split t, int off) {
+  return {t.hi + off, t.lo + off};
+}
+
+// the f32 tile, or the split one at `parts` (hi, then lo n floats on)
+template <bool PS>
+__device__ __forceinline__ auto b_operand(const float* f32,
+                                          const float* parts, int n) {
+  if constexpr (PS) {
+    return Split{parts, parts + n};
+  } else {
+    return f32;
+  }
+}
+
+// B fragments of two k steps of an n-tile, by one ldmatrix at `t` (each)
+__device__ __forceinline__ void frag_b2(const float* t, FragB& f0,
+                                        FragB& f1) {
+  float b[4];
+  ldsm_x4(b, t);
+  f0 = split_b(b[0], b[1]);
+  f1 = split_b(b[2], b[3]);
+}
+
+__device__ __forceinline__ void frag_b2(Split t, FragB& f0, FragB& f1) {
+  float h[4], l[4];
+  ldsm_x4(h, t.hi);
+  ldsm_x4(l, t.lo);
+  f0 = {{__float_as_uint(h[0]), __float_as_uint(h[1])},
+        {__float_as_uint(l[0]), __float_as_uint(l[1])}};
+  f1 = {{__float_as_uint(h[2]), __float_as_uint(h[3])},
+        {__float_as_uint(l[2]), __float_as_uint(l[3])}};
+}
+
+// the B fragment {t[0], t[ld]} (two 32-bit reads)
+__device__ __forceinline__ FragB frag_b(const float* t, int ld) {
+  return split_b(t[0], t[ld]);
+}
+
+__device__ __forceinline__ FragB frag_b(Split t, int ld) {
+  return {{__float_as_uint(t.hi[0]), __float_as_uint(t.hi[ld])},
+          {__float_as_uint(t.lo[0]), __float_as_uint(t.lo[ld])}};
+}
+
+// rows 16 w .. 16 w + 15 (the warp's), columns kk .. kk + 7 of a tile with
+// pitch LD, as an A fragment
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* __restrict__ rows16,
+                                        int kk, int lane) {
+  float r[4];
+  ldsm_x4(r, rows16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + kk
+                 + 4 * (lane >> 4));
+  return split_a(r);
+}
+
+// C[16 x 8 n] += A[16 rows, D] B[8 n rows, D]^T for n-tiles n = 0 .. NT - 1
+// of `Bt` (rows 8 n ..): both operands k-contiguous, read by ldmatrix; two
+// k steps per round, the B tile of one n-tile over both in one ldmatrix
+template <int D, int NT, typename BT>
+__device__ __forceinline__ void dot_rows(const float* __restrict__ A16,
+                                         BT Bt, int lane, float (&c)[NT][4]) {
+  constexpr int LD = D + 4;
+  const auto brow = at(Bt, (lane & 7) * LD + 4 * (lane >> 3));
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 16) {
+    const FragA a0 = frag_a<LD>(A16, kk, lane);
+    const FragA a1 = frag_a<LD>(A16, kk + 8, lane);
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int n = 0; n < NT; ++n) {
+      FragB b0, b1;
+      frag_b2(at(brow, 8 * n * LD + kk), b0, b1);
+      mma_3xtf32(c[n], a0, b0);
+      mma_3xtf32(c[n], a1, b1);
+    }
+  }
+}
+
+// c1 += A1 B1^T and c2 += A2 B2^T (dot_rows): one after the other, or, at
+// NT <= 2 (d = 256: two accumulators a warp), in one loop, so that four
+// accumulator chains are in flight; the same sums either way
+template <int D, int NT, typename BT>
+__device__ __forceinline__ void dot_pair(const float* __restrict__ A1, BT B1,
+                                         const float* __restrict__ A2, BT B2,
+                                         int lane, float (&c1)[NT][4],
+                                         float (&c2)[NT][4]) {
+  if constexpr (NT > 2) {
+    dot_rows<D, NT>(A1, B1, lane, c1);
+    dot_rows<D, NT>(A2, B2, lane, c2);
+  } else {
+    constexpr int LD = D + 4;
+    const int boff = (lane & 7) * LD + 4 * (lane >> 3);
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 16) {
+      const FragA a0 = frag_a<LD>(A1, kk, lane);
+      const FragA a1 = frag_a<LD>(A1, kk + 8, lane);
+      const FragA e0 = frag_a<LD>(A2, kk, lane);
+      const FragA e1 = frag_a<LD>(A2, kk + 8, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragB b0, b1, f0, f1;
+        frag_b2(at(B1, boff + 8 * n * LD + kk), b0, b1);
+        frag_b2(at(B2, boff + 8 * n * LD + kk), f0, f1);
+        mma_3xtf32(c1[n], a0, b0);
+        mma_3xtf32(c2[n], e0, f0);
+        mma_3xtf32(c1[n], a1, b1);
+        mma_3xtf32(c2[n], e1, f1);
+      }
+    }
+  }
+}
+
+// acc[16 x 8 j] += P[16, 8 KT] M[8 KT, cols c0 + 8 j ..] for j < CT, with
+// P held as C fragments p[KT] (columns = M's rows) and M a tile of pitch
+// D + 4 read at rows 8 k + 2t, 8 k + 2t + 1
+template <int D, int KT, int CT, typename BT>
+__device__ __forceinline__ void mul_rows(const float (&p)[KT][4], BT M,
+                                         int c0, int lane,
+                                         float (&acc)[CT][4]) {
+  constexpr int LD = D + 4;
+  const auto m = at(M, 2 * (lane & 3) * LD + c0 + (lane >> 2));
+#pragma unroll
+  for (int k = 0; k < KT; ++k) {
+    const FragA a = split_c_as_a(p[k]);
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      mma_3xtf32(acc[j], a, frag_b(at(m, 8 * k * LD + 8 * j), LD));
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ bool masked(int row, int col, int Sq, int Sk,
@@ -134,11 +332,11 @@ __device__ __forceinline__ bool masked(int row, int col, int Sq, int Sk,
   return row >= Sq || col >= Sk || (causal && col > row);
 }
 
-// number of k tiles a q tile starting at q0 must visit
+// number of k tiles of `bk` keys a q tile starting at q0 must visit
 __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
                                        int causal) {
   int n = (Sk + bk - 1) / bk;
-  if (causal) n = min(n, (min(q0 + BQ, Sq) - 1) / bk + 1);
+  if (causal) n = min(n, (min(q0 + ROWS, Sq) - 1) / bk + 1);
   return n;
 }
 
@@ -146,87 +344,102 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
 // forward: one block per (q tile, b * H + h)
 // ---------------------------------------------------------------------------
 
-template <int D, int BK>
-__global__ void __launch_bounds__(N_THREADS)
+template <int D>
+__global__ void __launch_bounds__(N_THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int G, int Sq, int Sk,
                  Strides sq, Strides sk, Strides sv, int causal, float scale) {
-  constexpr int RI = BQ / 16, CJ = BK / 16, DJ = D / 16;
-  constexpr int LD = D + 1, LP = BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // (BQ, LD)
-  float* Ks = Qs + BQ * LD;       // (BK, LD)
-  float* Vs = Ks + BK * LD;       // (BK, LD)
-  float* Ps = Vs + BK * LD;       // (BQ, LP)
+  constexpr int BK = tile_rows<D>(), LD = D + 4, NT = BK / 8, DT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // (ROWS, LD)
+  float* Ks = Qs + ROWS * LD;     // 2 stages x (BK, LD)
+  float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  load_rows<D, BQ>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<D, ROWS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<D, BK>(Ks, kb, sk.s, 0, Sk);
+  load_tile<D, BK>(Vs, vb, sv.s, 0, Sk);
+  cp_async_commit();
 
-  float m[RI], l[RI], acc[RI][DJ];
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = NEG_BIG;
-    l[i] = 0.f;
+  for (int i = 0; i < DT; ++i)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const float* Qw = Qs + 16 * warp * LD;
+  const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
   const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();              // the previous tile's readers are done
-    load_rows<D, BK>(Ks, kb, sk.s, k0, Sk);
-    load_rows<D, BK>(Vs, vb, sv.s, k0, Sk);
-    __syncthreads();
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-    dot_rows<RI, CJ, D>(Qs, LD, Ks, LD, ty, tx, s);
-    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = NEG_BIG;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        // rows past Sq are never stored, so only columns are masked here
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (edge && (col >= Sk || (causal && col > row))) x = NEG_BIG;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+    const int st = kt & 1, k0 = kt * BK;
+    if (kt + 1 < n_kt) {
+      load_tile<D, BK>(Ks + (st ^ 1) * BK * LD, kb, sk.s, k0 + BK, Sk);
+      load_tile<D, BK>(Vs + (st ^ 1) * BK * LD, vb, sv.s, k0 + BK, Sk);
+      cp_async_commit();
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
-    mul_cols<RI, DJ, BK>(Ps, LP, Vs, LD, ty, tx, acc);
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    dot_rows<D, NT>(Qw, Ks + st * BK * LD, lane, s);      // S = Q K^T
+
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    float mx[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // rows past Sq are never stored, so only columns are masked here
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + 8 * n + 2 * t + (e & 1);
+        float x = s[n][e] * scale;
+        if (edge && (col >= Sk || (causal && col > row))) x = NEG_BIG;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+    mul_rows<D, NT, DT>(s, Vs + st * BK * LD, 0, lane, acc);   // O += P V
+    __syncthreads();              // this stage's readers are done
   }
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float sum = quad_sum(l[r]);
     if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * Sq + row) * H + h) * D;
+    const float denom = fmaxf(sum, 1e-30f);
+    float* orow = o + (((long long)b * Sq + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] / denom;
-    if (tx == 0) lse[((long long)b * H + h) * Sq + row] = m[i] + logf(l[i]);
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(acc[i][2 * r] / denom, acc[i][2 * r + 1] / denom);
+    if (t == 0) lse[((long long)b * H + h) * Sq + row] = m[r] + logf(sum);
   }
 }
 
@@ -235,11 +448,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(N_THREADS)
+__global__ void __launch_bounds__(DOT_THREADS)
 flash_bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dO,
                      float* __restrict__ Dout, int H, int Sq,
                      long long rows) {
-  const long long row = ((long long)blockIdx.x * N_THREADS + threadIdx.x) / 32;
+  const long long row =
+      ((long long)blockIdx.x * DOT_THREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;        // uniform across the warp
   const float* orow = o + row * D;
@@ -258,176 +472,256 @@ flash_bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dO,
 }
 
 // ---------------------------------------------------------------------------
-// backward 2: dK, dV of one (k tile, b * KV + kv head)
+// backward 2: dK, dV of one (k tile, b * H + h, range * NC + column chunk)
 // ---------------------------------------------------------------------------
 
-template <int D, int BK>
-__global__ void __launch_bounds__(N_THREADS)
+template <int D>
+__global__ void __launch_bounds__(N_THREADS, 2)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dO,
                       const float* __restrict__ lse,
                       const float* __restrict__ Dd, float* __restrict__ dk,
-                      float* __restrict__ dv, int H, int KV, int Sq, int Sk,
-                      Strides sq, Strides sk, Strides sv, int causal,
-                      float scale) {
-  constexpr int RI = BK / 16, CQ = BQ / 16, DJ = D / 16;
-  constexpr int LD = D + 1, LP = BQ + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;               // (BK, LD)
-  float* Vs = Ks + BK * LD;       // (BK, LD)
-  float* Qs = Vs + BK * LD;       // (BQ, LD)
-  float* dOs = Qs + BQ * LD;      // (BQ, LD)
-  float* Ps = dOs + BQ * LD;      // (BK, LP): P^T
-  float* dSs = Ps + BK * LP;      // (BK, LP): dS^T
-  float* lse_s = dSs + BK * LP;   // (BQ,)
-  float* D_s = lse_s + BQ;        // (BQ,)
-  const int G = H / KV;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int k0 = blockIdx.x * BK;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+                      float* __restrict__ dv, float* __restrict__ parts,
+                      int H, int G, int Sq, int Sk, Strides sq, Strides sk,
+                      Strides sv, int causal, float scale, int split) {
+  constexpr int BQ = q_tile_rows<D>(), DC = col_chunk<D>(), NC = D / DC;
+  constexpr int LD = D + 4, NT = BQ / 8, CT = DC / 8;
+  constexpr int STAGE = 2 * BQ * LD + 2 * BQ;
+  constexpr bool PS = presplit<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;               // (ROWS, LD)
+  float* Vs = Ks + ROWS * LD;     // (ROWS, LD)
+  float* ring = Vs + ROWS * LD;   // 2 stages x [Q (BQ, LD), dO (BQ, LD),
+                                  //             lse (BQ), D (BQ)]
+  float* Qp = ring + 2 * STAGE;   // PS: this Q tile's hi, lo (BQ, LD) each
+  float* dOp = Qp + 2 * BQ * LD;  // PS: dO's
+  const int KV = H / G;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
+  const int range = blockIdx.z / NC, c0 = (blockIdx.z % NC) * DC;
+  const int k0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
-  load_rows<D, BK>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
-  load_rows<D, BK>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
-
-  float dk_acc[RI][DJ], dv_acc[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dO + (long long)b * Sq * do_s + h * D;
+  const float* lse_h = lse + ((long long)b * H + h) * Sq;
+  const float* D_h = Dd + ((long long)b * H + h) * Sq;
+  // this block's q tiles: range `range` of the split of those at or above
+  // the diagonal
   const int nq = (Sq + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;   // first q tile with a row >= k0
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const float* lse_h = lse + ((long long)b * H + h) * Sq;
-    const float* D_h = Dd + ((long long)b * H + h) * Sq;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();            // the previous tile's readers are done
-      load_rows<D, BQ>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
-      load_rows<D, BQ>(dOs, dO + (long long)b * Sq * do_s + h * D, do_s,
-                       q0, Sq);
-      for (int r = threadIdx.x; r < BQ; r += N_THREADS) {
-        const bool in = q0 + r < Sq;
-        lse_s[r] = in ? lse_h[q0 + r] : 0.f;
-        D_s[r] = in ? D_h[q0 + r] : 0.f;
-      }
-      __syncthreads();
-      float sT[RI][CQ], dpT[RI][CQ];
+  const int first = causal ? min(k0 / BQ, nq) : 0;
+  const int qt_lo = first + (nq - first) * range / split;
+  const int qt_hi = first + (nq - first) * (range + 1) / split;
+
+  load_tile<D, ROWS>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
+  load_tile<D, ROWS>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
+  auto load_q = [&](float* st, int qt) {
+    load_tile<D, BQ>(st, qb, sq.s, qt * BQ, Sq);
+    load_tile<D, BQ>(st + BQ * LD, dob, do_s, qt * BQ, Sq);
+    load_vec<BQ>(st + 2 * BQ * LD, lse_h, qt * BQ, Sq);
+    load_vec<BQ>(st + 2 * BQ * LD + BQ, D_h, qt * BQ, Sq);
+  };
+  if (qt_lo < qt_hi) load_q(ring, qt_lo);
+  cp_async_commit();
+
+  float dk_acc[CT][4], dv_acc[CT][4];
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+  for (int j = 0; j < CT; ++j)
 #pragma unroll
-        for (int j = 0; j < CQ; ++j) sT[i][j] = dpT[i][j] = 0.f;
-      dot_rows<RI, CQ, D>(Ks, LD, Qs, LD, ty, tx, sT);    // S^T  (k, q)
-      dot_rows<RI, CQ, D>(Vs, LD, dOs, LD, ty, tx, dpT);  // dP^T (k, q)
-      const bool edge = q0 + BQ > Sq || k0 + BK > Sk
-                        || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-#pragma unroll
-        for (int j = 0; j < CQ; ++j) {
-          const int c = tx + 16 * j;
-          float p = expf(sT[i][j] * scale - lse_s[c]);
-          if (edge && masked(q0 + c, k0 + ty + 16 * i, Sq, Sk, causal))
-            p = 0.f;
-          Ps[(ty + 16 * i) * LP + c] = p;
-          dSs[(ty + 16 * i) * LP + c] = p * (dpT[i][j] - D_s[c]);
-        }
-      }
-      __syncthreads();
-      mul_cols<RI, DJ, BQ>(Ps, LP, dOs, LD, ty, tx, dv_acc);   // P^T dO
-      mul_cols<RI, DJ, BQ>(dSs, LP, Qs, LD, ty, tx, dk_acc);   // dS^T Q
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const float* Kw = Ks + 16 * warp * LD;
+  const float* Vw = Vs + 16 * warp * LD;
+  const int key0 = k0 + 16 * warp + g;      // this thread's keys: +0, +8
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    float* st = ring + ((qt - qt_lo) & 1) * STAGE;
+    if (qt + 1 < qt_hi) {
+      load_q(ring + ((qt + 1 - qt_lo) & 1) * STAGE, qt + 1);
+      cp_async_commit();
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
     }
+    __syncthreads();
+    const float* Qt = st;
+    const float* dOt = st + BQ * LD;
+    const float* lse_s = st + 2 * BQ * LD;
+    const float* D_s = lse_s + BQ;
+    const int q0 = qt * BQ;
+    if constexpr (PS) {
+      split_tile<D, BQ>(Qt, Qp, Qp + BQ * LD);
+      split_tile<D, BQ>(dOt, dOp, dOp + BQ * LD);
+      __syncthreads();
+    }
+    const auto Qb = b_operand<PS>(Qt, Qp, BQ * LD);
+    const auto dOb = b_operand<PS>(dOt, dOp, BQ * LD);
+    float sT[NT][4], dpT[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+    dot_pair<D, NT>(Kw, Qb, Vw, dOb, lane, sT, dpT);   // S^T, dP^T (k, q)
+    const bool edge = q0 + BQ > Sq || k0 + ROWS > Sk
+                      || (causal && k0 + ROWS - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        float p = expf(sT[n][e] * scale - lse_s[c]);
+        if (edge && masked(q0 + c, key0 + 8 * (e >> 1), Sq, Sk, causal))
+          p = 0.f;
+        sT[n][e] = p;                        // P^T
+        dpT[n][e] = p * (dpT[n][e] - D_s[c]);  // dS^T
+      }
+    mul_rows<D, NT, CT>(sT, dOb, c0, lane, dv_acc);    // dV += P^T dO
+    mul_rows<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);    // dK += dS^T Q
+    __syncthreads();              // this stage's readers are done
   }
+  cp_async_wait_all();            // an empty range leaves K, V in flight
+
+  // G = 1 and one range: the block owns its dK/dV; else partial
+  // (h % G) * split + range, in the order flash_sum_parts_kernel adds them
+  const long long n_out = (long long)gridDim.y / H * Sk * KV * D;
+  const int n_parts = G * split;
+  const long long part = (long long)(h % G) * split + range;
+  float* out_k = n_parts == 1 ? dk : parts + part * n_out;
+  float* out_v = n_parts == 1 ? dv : parts + (n_parts + part) * n_out;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Sk) continue;
-    const long long off = (((long long)b * Sk + row) * KV + kvh) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    const long long off = (((long long)b * Sk + key) * KV + kvh) * D + c0
+                          + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = dk_acc[i][j] * scale;
-      dv[off + tx + 16 * j] = dv_acc[i][j];
+    for (int j = 0; j < CT; ++j) {
+      *reinterpret_cast<float2*>(out_k + off + 8 * j) = make_float2(
+          dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(out_v + off + 8 * j) =
+          make_float2(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
     }
   }
 }
 
+// out[y] (n4 float4) = its n_parts partials, parts[y][p] (p = 0 ..
+// n_parts - 1, each n4 float4), summed in part order; y = blockIdx.y
+__global__ void __launch_bounds__(SUM_THREADS)
+flash_sum_parts_kernel(const float4* __restrict__ parts, float4* out0,
+                       float4* out1, int n_parts, long long n4) {
+  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (i >= n4) return;
+  const float4* src = parts + blockIdx.y * n_parts * n4 + i;
+  float4 acc = src[0];
+  for (int p = 1; p < n_parts; ++p) {
+    const float4 x = src[p * n4];
+    acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
+  }
+  (blockIdx.y ? out1 : out0)[i] = acc;
+}
+
 // ---------------------------------------------------------------------------
-// backward 3: dQ of one (q tile, b * H + h)
+// backward 3: dQ of one (q tile, b * H + h, range of its k tiles)
 // ---------------------------------------------------------------------------
 
-template <int D, int BK>
-__global__ void __launch_bounds__(N_THREADS)
+template <int D>
+__global__ void __launch_bounds__(N_THREADS, 2)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
                     const float* __restrict__ Dd, float* __restrict__ dq,
-                    int H, int G, int Sq, int Sk, Strides sq, Strides sk,
-                    Strides sv, int causal, float scale) {
-  constexpr int RI = BQ / 16, CJ = BK / 16, DJ = D / 16;
-  constexpr int LD = D + 1, LP = BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // (BQ, LD)
-  float* dOs = Qs + BQ * LD;      // (BQ, LD)
-  float* Ks = dOs + BQ * LD;      // (BK, LD)
-  float* Vs = Ks + BK * LD;       // (BK, LD)
-  float* dSs = Vs + BK * LD;      // (BQ, LP)
+                    float* __restrict__ parts, int H, int G, int Sq, int Sk,
+                    Strides sq, Strides sk, Strides sv, int causal,
+                    float scale, int split) {
+  constexpr int BK = tile_rows<D>(), LD = D + 4, NT = BK / 8, DT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // (ROWS, LD)
+  float* dOs = Qs + ROWS * LD;    // (ROWS, LD)
+  float* Ks = dOs + ROWS * LD;    // 2 stages x (BK, LD)
+  float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  load_rows<D, BQ>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
-  load_rows<D, BQ>(dOs, dO + (long long)b * Sq * do_s + h * D, do_s, q0,
-                   Sq);
-
-  float lse_r[RI], D_r[RI], acc[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const long long at = ((long long)b * H + h) * Sq + row;
-    lse_r[i] = row < Sq ? lse[at] : 0.f;
-    D_r[i] = row < Sq ? Dd[at] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  load_tile<D, ROWS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<D, ROWS>(dOs, dO + (long long)b * Sq * do_s + h * D, do_s, q0,
+                     Sq);
+  // this block's k tiles: range blockIdx.z of the split of those at or
+  // below the diagonal
   const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_rows<D, BK>(Ks, kb, sk.s, k0, Sk);
-    load_rows<D, BK>(Vs, vb, sv.s, k0, Sk);
-    __syncthreads();
-    float s[RI][CJ], dp[RI][CJ];
+  const int kt_lo = n_kt * blockIdx.z / split;
+  const int kt_hi = n_kt * (blockIdx.z + 1) / split;
+  if (kt_lo < kt_hi) {
+    load_tile<D, BK>(Ks, kb, sk.s, kt_lo * BK, Sk);
+    load_tile<D, BK>(Vs, vb, sv.s, kt_lo * BK, Sk);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
+  float lse_r[2], D_r[2], acc[DT][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long at = ((long long)b * H + h) * Sq + row;
+    lse_r[r] = row < Sq ? lse[at] : 0.f;
+    D_r[r] = row < Sq ? Dd[at] : 0.f;
+  }
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<RI, CJ, D>(Qs, LD, Ks, LD, ty, tx, s);     // S  (q, k)
-    dot_rows<RI, CJ, D>(dOs, LD, Vs, LD, ty, tx, dp);   // dP (q, k)
-    const bool edge = q0 + BQ > Sq || k0 + BK > Sk
-                      || (causal && k0 + BK - 1 > q0);
+  for (int i = 0; i < DT; ++i)
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] * scale - lse_r[i]);
-        if (edge && masked(q0 + ty + 16 * i, k0 + c, Sq, Sk, causal))
-          p = 0.f;
-        dSs[(ty + 16 * i) * LP + c] = p * (dp[i][j] - D_r[i]);
-      }
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const float* Qw = Qs + 16 * warp * LD;
+  const float* dOw = dOs + 16 * warp * LD;
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1, k0 = kt * BK;
+    if (kt + 1 < kt_hi) {
+      load_tile<D, BK>(Ks + (st ^ 1) * BK * LD, kb, sk.s, k0 + BK, Sk);
+      load_tile<D, BK>(Vs + (st ^ 1) * BK * LD, vb, sv.s, k0 + BK, Sk);
+      cp_async_commit();
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
-    mul_cols<RI, DJ, BK>(dSs, LP, Ks, LD, ty, tx, acc);     // dS K
+    const float* Kt = Ks + st * BK * LD;
+    const float* Vt = Vs + st * BK * LD;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    dot_pair<D, NT>(Qw, Kt, dOw, Vt, lane, s, dp);      // S, dP (q, k)
+    const bool edge = q0 + ROWS > Sq || k0 + BK > Sk
+                      || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = expf(s[n][e] * scale - lse_r[r]);
+        if (edge && masked(row0 + 8 * r, k0 + 8 * n + 2 * t + (e & 1), Sq, Sk,
+                           causal))
+          p = 0.f;
+        s[n][e] = p * (dp[n][e] - D_r[r]);           // dS
+      }
+    mul_rows<D, NT, DT>(s, Kt, 0, lane, acc);         // dQ += dS K
+    __syncthreads();              // this stage's readers are done
   }
+  cp_async_wait_all();            // an empty range leaves Q, dO in flight
+
+  // one range: the block owns its dQ; else partial blockIdx.z
+  const long long n_out = (long long)gridDim.y * Sq * D;   // dq's size
+  float* out = split == 1 ? dq : parts + blockIdx.z * n_out;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    float* dqrow = dq + (((long long)b * Sq + row) * H + h) * D;
+    float* dqrow = out + (((long long)b * Sq + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dqrow[tx + 16 * j] = acc[i][j] * scale;
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<float2*>(dqrow + 8 * i) =
+          make_float2(acc[i][2 * r] * scale, acc[i][2 * r + 1] * scale);
   }
 }
 
@@ -445,74 +739,126 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 struct Args {
   const float *q, *k, *v, *o, *dO, *lse;
-  float *out, *lse_out, *Dd, *dq, *dk, *dv;
-  int B, H, KV, Sq, Sk, causal;
+  float *out, *lse_out, *Dd, *dq, *dk, *dv, *parts;
+  int B, H, KV, Sq, Sk, causal, split, dq_split;
   Strides sq, sk, sv;
   float scale;
   cudaStream_t stream;
 };
 
-template <int D, int BK>
+template <int D>
 static int launch_fwd(const Args& a) {
-  const size_t smem = sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1)
-                                       + BQ * (BK + 1));
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, BK>, smem);
+  constexpr int BK = tile_rows<D>(), LD = D + 4;
+  const size_t smem = sizeof(float) * (ROWS * LD + 4 * BK * LD);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.Sq + BQ - 1) / BQ), (unsigned)(a.B * a.H));
-  flash_fwd_kernel<D, BK><<<grid, N_THREADS, smem, a.stream>>>(
+  dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H));
+  flash_fwd_kernel<D><<<grid, N_THREADS, smem, a.stream>>>(
       a.q, a.k, a.v, a.out, a.lse_out, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq,
       a.sk, a.sv, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BK>
+template <int D>
 static int launch_bwd(const Args& a) {
+  constexpr int BT = tile_rows<D>(), BQ = q_tile_rows<D>(), LD = D + 4;
+  constexpr int NC = D / col_chunk<D>(), PS = presplit<D>();
+  const int G = a.H / a.KV;
   const long long rows = (long long)a.B * a.Sq * a.H;
-  flash_bwd_dot_kernel<D><<<(unsigned)((rows * 32 + N_THREADS - 1)
-                                       / N_THREADS),
-                            N_THREADS, 0, a.stream>>>(a.o, a.dO, a.Dd, a.H,
-                                                      a.Sq, rows);
+  flash_bwd_dot_kernel<D><<<(unsigned)((rows * 32 + DOT_THREADS - 1)
+                                       / DOT_THREADS),
+                            DOT_THREADS, 0, a.stream>>>(a.o, a.dO, a.Dd, a.H,
+                                                        a.Sq, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_kv = sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1)
-                                          + 2 * BK * (BQ + 1) + 2 * BQ);
-  err = allow_smem(flash_bwd_dkdv_kernel<D, BK>, smem_kv);
+  const size_t smem_kv = sizeof(float) * (2 * ROWS * LD
+                                          + 2 * (2 * BQ * LD + 2 * BQ)
+                                          + 4 * PS * BQ * LD);
+  err = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv((unsigned)((a.Sk + BK - 1) / BK), (unsigned)(a.B * a.KV));
-  flash_bwd_dkdv_kernel<D, BK><<<grid_kv, N_THREADS, smem_kv, a.stream>>>(
-      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dk, a.dv, a.H, a.KV, a.Sq, a.Sk,
-      a.sq, a.sk, a.sv, a.causal, a.scale);
+  dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
+               (unsigned)(a.split * NC));
+  flash_bwd_dkdv_kernel<D><<<grid_kv, N_THREADS, smem_kv, a.stream>>>(
+      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dk, a.dv, a.parts, a.H, G, a.Sq,
+      a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the partials: 2 G split of dk's size, then dq_split of dq's
+  const int n_parts = G * a.split;
+  const long long n_kv4 = (long long)a.B * a.Sk * a.KV * D / 4;
+  float* parts_q = a.parts + (n_parts > 1 ? 2 * n_parts * n_kv4 * 4 : 0);
+  if (n_parts > 1) {
+    dim3 grid_sum((unsigned)((n_kv4 + SUM_THREADS - 1) / SUM_THREADS), 2);
+    flash_sum_parts_kernel<<<grid_sum, SUM_THREADS, 0, a.stream>>>(
+        (const float4*)a.parts, (float4*)a.dk, (float4*)a.dv, n_parts,
+        n_kv4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
-  const size_t smem_q = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1)
-                                         + BQ * (BK + 1));
-  err = allow_smem(flash_bwd_dq_kernel<D, BK>, smem_q);
+  const size_t smem_q = sizeof(float) * (2 * ROWS * LD + 4 * BT * LD);
+  err = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_q((unsigned)((a.Sq + BQ - 1) / BQ), (unsigned)(a.B * a.H));
-  flash_bwd_dq_kernel<D, BK><<<grid_q, N_THREADS, smem_q, a.stream>>>(
-      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dq, a.H, a.H / a.KV, a.Sq, a.Sk,
-      a.sq, a.sk, a.sv, a.causal, a.scale);
+  dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
+              (unsigned)a.dq_split);
+  flash_bwd_dq_kernel<D><<<grid_q, N_THREADS, smem_q, a.stream>>>(
+      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dq, parts_q, a.H, G, a.Sq, a.Sk,
+      a.sq, a.sk, a.sv, a.causal, a.scale, a.dq_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.dq_split == 1) return (int)err;
+  const long long n_q4 = (long long)a.B * a.Sq * a.H * D / 4;
+  flash_sum_parts_kernel<<<(unsigned)((n_q4 + SUM_THREADS - 1)
+                                      / SUM_THREADS),
+                           SUM_THREADS, 0, a.stream>>>(
+      (const float4*)parts_q, (float4*)a.dq, nullptr, a.dq_split, n_q4);
   return (int)cudaGetLastError();
 }
 
-// head dims 32, 64, 128, 256 (the ported configs'); BK 32 at 256 so the
-// dK/dV kernel's tiles fit in shared memory
+// head dims 32, 64, 128, 256 (the ported configs')
 template <bool FWD>
 static int dispatch(int d, const Args& a) {
   switch (d) {
-    case 32: return FWD ? launch_fwd<32, 64>(a) : launch_bwd<32, 64>(a);
-    case 64: return FWD ? launch_fwd<64, 64>(a) : launch_bwd<64, 64>(a);
-    case 128: return FWD ? launch_fwd<128, 64>(a) : launch_bwd<128, 64>(a);
-    case 256: return FWD ? launch_fwd<256, 32>(a) : launch_bwd<256, 32>(a);
+    case 32: return FWD ? launch_fwd<32>(a) : launch_bwd<32>(a);
+    case 64: return FWD ? launch_fwd<64>(a) : launch_bwd<64>(a);
+    case 128: return FWD ? launch_fwd<128>(a) : launch_bwd<128>(a);
+    case 256: return FWD ? launch_fwd<256>(a) : launch_bwd<256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-static bool valid(int B, int H, int KV, int Sq, int Sk) {
-  return B > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Sk > 0
-         && (long long)B * H <= 65535;
+static bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// shape, and the 16-byte alignment cp.async needs of q, k, v
+static bool valid(const Args& a) {
+  const Strides* st[3] = {&a.sq, &a.sk, &a.sv};
+  for (const Strides* s : st)
+    if ((s->b | s->s | s->h) & 3) return false;
+  return a.B > 0 && a.KV > 0 && a.H % a.KV == 0 && a.Sq > 0 && a.Sk > 0
+         && (long long)a.B * a.H <= 65535 && aligned16(a.q)
+         && aligned16(a.k) && aligned16(a.v);
+}
+
+static Args make_args(const void* q, const void* k, const void* v, int B,
+                      int H, int KV, int Sq, int Sk, int d, long long qsb,
+                      long long qss, long long qsh, long long ksb,
+                      long long kss, long long ksh, long long vsb,
+                      long long vss, long long vsh, int causal,
+                      void* stream) {
+  Args a = {};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.causal = causal;
+  a.split = a.dq_split = 1;
+  a.sq = {qsb, qss, qsh};
+  a.sk = {ksb, kss, ksh};
+  a.sv = {vsb, vss, vsh};
+  a.scale = 1.0f / sqrtf((float)d);
+  a.stream = (cudaStream_t)stream;
+  return a;
 }
 
 extern "C" int flash_attention_fwd_f32(
@@ -520,34 +866,30 @@ extern "C" int flash_attention_fwd_f32(
     int H, int KV, int Sq, int Sk, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, void* stream) {
-  if (!valid(B, H, KV, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  Args a = {};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
+  Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
+                     ksh, vsb, vss, vsh, causal, stream);
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
   a.out = (float*)o;
   a.lse_out = (float*)lse;
-  a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.causal = causal;
-  a.sq = {qsb, qss, qsh};
-  a.sk = {ksb, kss, ksh};
-  a.sv = {vsb, vss, vsh};
-  a.scale = 1.0f / sqrtf((float)d);
-  a.stream = (cudaStream_t)stream;
   return dispatch<true>(d, a);
 }
 
+// `split` ranges of q tiles per dK/dV block and `dq_split` ranges of k
+// tiles per dQ block (kernels/_plan.py); `parts` holds 2 (H / KV) split
+// partials of dk's size when (H / KV) split > 1, then dq_split of dq's
+// when dq_split > 1
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* Dd, void* dq, void* dk, void* dv,
     int B, int H, int KV, int Sq, int Sk, int d, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
-    void* stream) {
-  if (!valid(B, H, KV, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  Args a = {};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
+    int split, int dq_split, void* parts, void* stream) {
+  Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
+                     ksh, vsb, vss, vsh, causal, stream);
+  if (!valid(a) || split < 1 || dq_split < 1 || !aligned16(dO)
+      || (((H / KV) * split > 1 || dq_split > 1) && !aligned16(parts)))
+    return (int)cudaErrorInvalidValue;
   a.o = (const float*)o;
   a.dO = (const float*)dO;
   a.lse = (const float*)lse;
@@ -555,12 +897,9 @@ extern "C" int flash_attention_bwd_f32(
   a.dq = (float*)dq;
   a.dk = (float*)dk;
   a.dv = (float*)dv;
-  a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.causal = causal;
-  a.sq = {qsb, qss, qsh};
-  a.sk = {ksb, kss, ksh};
-  a.sv = {vsb, vss, vsh};
-  a.scale = 1.0f / sqrtf((float)d);
-  a.stream = (cudaStream_t)stream;
+  a.parts = (float*)parts;
+  a.split = split;
+  a.dq_split = dq_split;
   return dispatch<false>(d, a);
 }
 

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace pgemm {
 
 constexpr int BM = 128;            // output rows per block
@@ -49,38 +51,6 @@ constexpr int BK = 16;             // K step
 constexpr int THREADS = 128;       // 16 x 8 threads, an 8 x 8 register tile each
 constexpr int A_LD = BM + 4;       // row stride of the A tile in shared memory
 constexpr int SUM_THREADS = 256;
-
-// ---------------------------------------------------------------------------
-// cp.async: 16- and 4-byte copies into shared memory; src_size 0 fills the
-// destination with zeros and reads nothing (the tile's ragged edge)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// all but the newest committed group have landed
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);

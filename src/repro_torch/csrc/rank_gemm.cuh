@@ -124,8 +124,8 @@ __device__ __forceinline__ void prefetch_b(float* __restrict__ Bs, Operand o,
     const int q = c & 15, j = c >> 4;
     if (q < nq) {
       const bool ok = j0 + j < n;
-      pgemm::cp_async16(Bs + j * BROW + 4 * (q ^ ((j >> 2) & 7)),
-                        p + (ok ? (j0 + j) * o.s_x + 4 * q : 0), ok);
+      cp_async16(Bs + j * BROW + 4 * (q ^ ((j >> 2) & 7)),
+                 p + (ok ? (j0 + j) * o.s_x + 4 * q : 0), ok);
     }
   }
 }
@@ -210,7 +210,7 @@ rank_gemm_kernel(Operand a, Operand b, int m, int n, int K, int a_mode,
   stage_kmajor(As, LDA, a, rz / row_tiles, (long long)(rz % row_tiles) * BM,
                m, K, a_mode);
   prefetch_b(Bs, b, rz / row_tiles, (long long)(u % col_tiles) * BN, n, nq);
-  pgemm::cp_async_commit();
+  cp_async_commit();
   // this thread's B chunks: columns 4tx + c and 64 + 4tx + c share the
   // swizzle tx % 8
   const int swz = tx & 7;
@@ -219,8 +219,8 @@ rank_gemm_kernel(Operand a, Operand b, int m, int n, int K, int a_mode,
     if (u + 1 < u_end)
       prefetch_b(Bs + (cur ^ 1) * BN * BROW, b, rz_next / row_tiles,
                  (long long)((u + 1) % col_tiles) * BN, n, nq);
-    pgemm::cp_async_commit();
-    pgemm::cp_async_wait_prior();
+    cp_async_commit();
+    cp_async_wait_prior();
     __syncthreads();
 
     const float* Bc = Bs + cur * BN * BROW;
@@ -265,7 +265,7 @@ rank_gemm_kernel(Operand a, Operand b, int m, int n, int K, int a_mode,
                    (long long)(rz % row_tiles) * BM, m, K, a_mode);
     }
   }
-  pgemm::cp_async_wait_all();
+  cp_async_wait_all();
 }
 
 // any layout: one output tile per block, both tiles staged k-major

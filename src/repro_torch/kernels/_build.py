@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_fwd_f32": ([_P] * 5 + [_I] * 6 + [_L] * 9
                                     + [_I, _P], _I),
         "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 6 + [_L] * 9
-                                    + [_I, _P], _I),
+                                    + [_I] * 3 + [_P, _P], _I),
         **_ERR,
     },
     "lowrank_mm": {

@@ -1,12 +1,15 @@
-"""The split-K plan of the projection GEMM (``csrc/proj_gemm.cuh``), shared
-by its two users: the compressor's projections (``fused_compress``) and
-``lowrank_mm``'s split route.
+"""Work plans of the kernels that split a reduction over blocks:
 
-The plan depends on the output's row tiles and the reduction length K
-alone, never on a batch or on the operands' strides, so every output bit
-is the same function of the inputs in every call: a batched launch gives
-each matrix the bits of its own launch, and a transposed view the bits of
-its contiguous copy.
+- the split-K plan of the projection GEMM (``csrc/proj_gemm.cuh``), shared
+  by its two users: the compressor's projections (``fused_compress``) and
+  ``lowrank_mm``'s split route;
+- the dK/dV and dQ plans of the flash backward
+  (``csrc/flash_attention.cu``).
+
+Each plan depends on the shape alone, never on a batch or on the
+operands' strides, so every output bit is the same function of the inputs
+in every call: a batched launch gives each matrix the bits of its own
+launch, and a transposed view the bits of its contiguous copy.
 """
 from __future__ import annotations
 
@@ -60,3 +63,72 @@ def workspace_floats(S: int, elems: int) -> int:
     """Floats of the S partials of ``elems`` outputs, each ceil4(elems)
     (0 at S = 1: the GEMM writes the output)."""
     return 0 if S == 1 else S * (-(-elems // 4) * 4)
+
+
+FLASH_ROWS = 64    # resident rows of a flash block (4 warps x 16)
+
+
+def flash_tile(d: int) -> int:
+    """Rows of the k tiles the forward and dQ kernels stream at head dim
+    ``d`` (the kernels' ``tile_rows``)."""
+    return 64 if d <= 64 else 32 if d == 128 else 16
+
+
+def flash_q_tile(d: int) -> int:
+    """Rows of the q tiles the dK/dV kernel streams at head dim ``d`` (the
+    kernels' ``q_tile_rows``: 32 where it splits them to TF32 once, d <=
+    64)."""
+    return 32 if d <= 64 else flash_tile(d)
+
+
+def flash_col_chunks(d: int) -> int:
+    """dK/dV column chunks of 128 a block accumulates at head dim ``d``
+    (the kernels' D / ``col_chunk``)."""
+    return d // 128 if d > 128 else 1
+
+
+def flash_dkdv_blocks(B: int, H: int, Sk: int, d: int, split: int) -> int:
+    """Blocks of the dK/dV kernel's grid: (k tile, b * H + h, range *
+    column chunks + chunk)."""
+    return B * H * -(-Sk // FLASH_ROWS) * flash_col_chunks(d) * split
+
+
+@functools.lru_cache(maxsize=None)
+def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int,
+                    d: int) -> Tuple[int, int]:
+    """``(split, parts)`` of the flash backward's dK/dV kernel. A block owns
+    one (b, query head, k tile of FLASH_ROWS keys, column chunk); where
+    those blocks are fewer than the card's SMS, each k tile's q tiles are
+    also cut into ``split`` ranges (at most one q tile of
+    ``flash_q_tile(d)`` rows each), enough for SMS blocks. ``parts`` =
+    (H / KV) split partial dK/dV the sum pass adds in order (query head of
+    the group, then range); at 1 the blocks write dK/dV themselves."""
+    blocks = flash_dkdv_blocks(B, H, Sk, d, 1)
+    split = 1
+    if blocks < SMS:
+        split = min(-(-SMS // blocks), -(-Sq // flash_q_tile(d)))
+    return split, (H // KV) * split
+
+
+@functools.lru_cache(maxsize=None)
+def flash_dq_plan(B: int, H: int, Sq: int, Sk: int, d: int) -> int:
+    """Ranges of k tiles (of ``flash_tile(d)`` keys) a dQ block's q tile is
+    cut into: 1 where the B H ceil(Sq / FLASH_ROWS) blocks of one q tile
+    each fill the card's SMS, else enough for SMS blocks, at most the k
+    tiles of Sk. More than one range means as many partial dQ, summed in
+    order."""
+    blocks = B * H * -(-Sq // FLASH_ROWS)
+    if blocks >= SMS:
+        return 1
+    return min(-(-SMS // blocks), -(-Sk // flash_tile(d)))
+
+
+def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int,
+                       d: int) -> int:
+    """Floats of the backward's partials at this shape: 2 parts of dk's
+    size (dk's and dv's) where the dK/dV plan has more than one part, then
+    the dQ plan's ranges of dq's size where it has more than one."""
+    _, parts = flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    dq_split = flash_dq_plan(B, H, Sq, Sk, d)
+    return ((parts > 1) * 2 * parts * B * Sk * KV * d
+            + (dq_split > 1) * dq_split * B * Sq * H * d)

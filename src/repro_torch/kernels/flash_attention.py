@@ -4,26 +4,35 @@
 ``flash_attention(q, k, v, causal=True)`` applies ``FlashAttention``, a
 ``torch.autograd.Function``: its forward saves ``q, k, v, o, lse`` and its
 backward returns ``dq, dk, dv``. For CUDA tensors they launch the
-hand-written kernels of ``csrc/flash_attention.cu``: the forward replaces
-the TPU kernel ``_flash_kernel``, and the backward (three kernels, no
-atomics) is new, since the TPU kernel has none. For CPU tensors they run
-the plain versions ``ref.flash_attention_fwd_ref`` /
-``ref.flash_attention_bwd_ref``. There is no other switch and no fallback:
-a failed build or launch raises. ``cuda_flash_attention_fwd.launches`` and
+hand-written kernels of ``csrc/flash_attention.cu``, whose products run on
+the tensor cores as 3xTF32 (three TF32 products per f32 product, which
+keep the f32 gates): the forward replaces the TPU kernel
+``_flash_kernel``, and the backward (D = rowsum(dO * O), dK/dV, dQ, no
+atomics) is new, since the TPU kernel has none. Where the dK/dV or dQ
+plan (``_plan.flash_dkdv_plan``, ``_plan.flash_dq_plan``, functions of
+the shape) splits the work into partials, the wrapper allocates them and
+the kernels add them in a fixed order. For CPU tensors they run the plain
+versions ``ref.flash_attention_fwd_ref`` / ``ref.flash_attention_bwd_ref``.
+There is no other switch and no fallback: a failed build or launch
+raises.
+``cuda_flash_attention_fwd.launches`` and
 ``cuda_flash_attention_bwd.launches`` count the wrappers' launches.
 
 Layouts are the JAX package's: q (B,Sq,H,d), k and v (B,Sk,KV,d), query
 head h reading KV head h // (H // KV); the causal mask is top-left aligned
 (key j is seen by query i iff j <= i). The kernels take float32 with head
 dims 32, 64, 128 and 256, any Sq and Sk (ragged tails are masked), and q,
-k, v through their strides (last dim contiguous).
+k, v through their strides (last dim contiguous); a view whose start or
+strides are not multiples of 16 bytes, which the kernels' 16-byte copies
+cannot read, is copied first (the same bits: the kernels compute the
+same sums for every layout).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import on_device
-from repro_torch.kernels import ref
+from repro_torch.kernels import _plan, ref
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernels' template instantiations
 
@@ -53,6 +62,14 @@ def _check(q, k, v):
     return B, Sq, H, d, Sk, KV
 
 
+def _aligned(t):
+    """``t`` itself if the kernels' 16-byte copies can read it, else a
+    contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(q, k, v):
     return [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
 
@@ -74,6 +91,7 @@ def _stream(t):
 def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
     """(o (B,Sq,H,d), lse (B,H,Sq)) from the forward kernel."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty((B, Sq, H, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _lib_call("flash_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
@@ -88,8 +106,9 @@ cuda_flash_attention_fwd.launches = 0
 
 def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) from the backward kernels (D = rowsum(dO * O), then dK
-    and dV, then dQ); ``o`` and ``do`` contiguous (B,Sq,H,d) f32, ``lse``
-    (B,H,Sq) f32, as the forward returns them."""
+    and dV, their partials summed where the plan splits, then dQ); ``o``
+    and ``do`` contiguous (B,Sq,H,d) f32, ``lse`` (B,H,Sq) f32, as the
+    forward returns them."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (B, H, Sq))):
@@ -98,15 +117,20 @@ def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
             raise TypeError(f"{name} must be a contiguous float32 "
                             f"{tuple(shape)} tensor on {q.device}, got "
                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     f32 = dict(dtype=torch.float32, device=q.device)
     D = torch.empty((B, H, Sq), **f32)
     dq = torch.empty((B, Sq, H, d), **f32)
     dk = torch.empty((B, Sk, KV, d), **f32)
     dv = torch.empty((B, Sk, KV, d), **f32)
+    split, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    ws = torch.empty(_plan.flash_parts_floats(B, H, KV, Sq, Sk, d), **f32)
     _lib_call("flash_attention_bwd_f32", q.data_ptr(), k.data_ptr(),
               v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
               D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-              H, KV, Sq, Sk, d, *_strides(q, k, v), int(causal), _stream(q))
+              H, KV, Sq, Sk, d, *_strides(q, k, v), int(causal), split,
+              _plan.flash_dq_plan(B, H, Sq, Sk, d), ws.data_ptr(),
+              _stream(q))
     cuda_flash_attention_bwd.launches += 1
     return dq, dk, dv
 

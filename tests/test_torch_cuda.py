@@ -223,6 +223,7 @@ def test_cuda_kernels_refuse_outside_envelope():
 # flash attention (B.6): the forward kernel and the backward kernels
 # ---------------------------------------------------------------------------
 
+from repro_torch.kernels import _plan  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 
@@ -299,6 +300,93 @@ def test_cuda_flash_attention_refuses_outside_envelope():
     q48, k48, v48, _ = _flash_inputs(1, 128, 4, 2, 48, 128)
     with pytest.raises(ValueError):
         fa.flash_attention(q48, k48, v48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d", [(1, 200, 136, 4, 1, 256),
+                                          (1, 136, 200, 4, 1, 256),
+                                          (2, 72, 104, 4, 2, 128)])
+def test_cuda_flash_dkdv_split_plan_matches_plain_bitwise(no_tf32, B, Sq, Sk,
+                                                          H, KV, d):
+    """GQA shapes where the dK/dV plan splits each k tile's q tiles into
+    ranges and sums (H / KV) split partials (d 256 in two column chunks,
+    ragged Sq != Sk): within phase 3c's f32 bounds of the plain backward,
+    and two calls bitwise equal."""
+    _need_cuda()
+    split, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    assert split > 1 and parts == (H // KV) * split
+    cs = load_chip_smoke()
+    q, k, v, do = _flash_inputs(B, Sq, H, KV, d, Sk, seed=2)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, True)
+    got = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, True)
+    again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, True)
+    _, tols, _ = cs.flash_tolerances(q, k, v, o_p, lse_p, do, True)
+    torch.cuda.synchronize()
+    for name, g, a, w, t in zip(("dq", "dk", "dv"), got, again, want, tols):
+        assert torch.equal(g, a), f"{name} not bitwise reproducible"
+        cs._gate(f"flash bwd {name}", g, w, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_cuda_flash_strided_views_bitwise_equal_to_copies(no_tf32, d):
+    """q, k, v as strided views of one (B,S,3,H,d) buffer (k, v: the first
+    KV heads), as contiguous copies and as views at a start that is not
+    16 bytes aligned (which the wrapper copies): the same bits forward and
+    backward."""
+    _need_cuda()
+    B, S, H, KV = 2, 200, 4, 2
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, d)).astype(
+        np.float32)).cuda()
+    views = [qkv[:, :, 0], qkv[:, :, 1, :KV], qkv[:, :, 2, :KV]]
+    flat = torch.empty(sum(t.numel() for t in views) + 1, device="cuda")
+    odd, at = [], 1
+    for t in views:
+        odd.append(flat[at:at + t.numel()].view(t.shape))
+        odd[-1].copy_(t)
+        at += t.numel()
+    do = torch.from_numpy(rng.standard_normal((B, S, H, d)).astype(
+        np.float32)).cuda()
+    outs = []
+    for q, k, v in (views, [t.contiguous() for t in views], odd):
+        o, lse = fa.cuda_flash_attention_fwd(q, k, v, True)
+        outs.append((o, lse) + fa.cuda_flash_attention_bwd(q, k, v, o, lse,
+                                                           do, True))
+    torch.cuda.synchronize()
+    for layout, out in zip(("copy", "odd start"), outs[1:]):
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), outs[0], out):
+            assert torch.equal(a, b), f"{name}: view vs {layout}"
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_what_it_refused_before():
+    """dtypes other than float32, a strided last dim, KV not dividing H,
+    a head dim outside (32, 64, 128, 256), B H over 65535, empty
+    sequences, and o / do / lse not as the forward returns them."""
+    _need_cuda()
+    q, k, v, do = _flash_inputs(1, 64, 4, 2, 64, 64)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[:, :, :3], k, v)
+    q16, k16, v16, _ = _flash_inputs(1, 64, 4, 2, 16, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q16, k16, v16)
+    wide = torch.zeros((1, 1, 65536, 32), device="cuda")
+    with pytest.raises(ValueError):
+        fa.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[:, :0], k, v)
+    o, lse = fa.cuda_flash_attention_fwd(q, k, v, True)
+    with pytest.raises(TypeError):
+        fa.cuda_flash_attention_bwd(q, k, v, o, lse, do.transpose(1, 2),
+                                    True)
+    with pytest.raises(TypeError):
+        fa.cuda_flash_attention_bwd(q, k, v, o, lse[:, :, :32], do, True)
 
 
 # ---------------------------------------------------------------------------
