@@ -10,7 +10,11 @@ continues:
   3. kernel vs plain: each kernel against its plain PyTorch version at the
      shapes its path gives it, with its time, the plain version's, a
      library yardstick's and the least time the card could take:
-     a. paged attention at the served models' shapes;
+     a. paged attention at the served models' shapes: each case within
+        the JAX gate, two calls bit for bit equal, and slot 0 run alone
+        bit for bit its row of the batch; each case's plan (pages per
+        chunk, chunks, blocks) and, at the full-size cases, each kernel's
+        time (``kernel_profile``);
      b. the compressor's five kernels (int4 pack/unpack, project,
         project-transpose + pack, reconstruct) at every leaf shape of the
         training configuration, r = 64 and r_t in {64, 40}, held to the
@@ -260,7 +264,7 @@ def kernel_vs_plain():
     for name, kw, window in cases:
         q, cache, table, lengths = paged_case(gen, dev=dev, **kw)
         worst = max(worst, _compare(ap, name, q, cache, table, lengths,
-                                    window, rows, flush))
+                                    window, rows, flush, profile=True))
     for S, P, ps, KV, G, dh in [(3, 4, 4, 2, 2, 8), (2, 3, 8, 1, 4, 16)]:
         for window in (0, 5):
             q, cache, table, lengths = jax_fixture_case(
@@ -271,8 +275,15 @@ def kernel_vs_plain():
     return rows, worst
 
 
-def _compare(ap, name, q, cache, table, lengths, window, rows, flush):
+def _compare(ap, name, q, cache, table, lengths, window, rows, flush,
+             profile=False):
+    from repro_torch.kernels import _plan
+
     got = ap.cuda_paged_attention(q, cache, table, lengths, window=window)
+    again = ap.cuda_paged_attention(q, cache, table, lengths, window=window)
+    alone = ap.cuda_paged_attention(q[:1].contiguous(), cache,
+                                    table[:1].contiguous(),
+                                    lengths[:1].contiguous(), window=window)
     want = ap.ref_paged_attention(q, cache, table, lengths, window=window)
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -283,6 +294,15 @@ def _compare(ap, name, q, cache, table, lengths, window, rows, flush):
                          f"version (max abs err {max_err:.3e}, "
                          f"{int(bad.sum())} elements outside "
                          f"atol {ATOL} + rtol {RTOL})")
+    if not torch.equal(got, again):
+        raise SystemExit(f"FAIL {name}: two calls differ bit for bit")
+    if not torch.equal(alone[0], got[0]):
+        raise SystemExit(f"FAIL {name}: slot 0 alone differs bit for bit "
+                         f"from slot 0 among the other slots")
+    S, P = table.shape
+    ps, KV, dh = cache["k"].shape[1:]
+    pages, n_chunks = _plan.paged_plan(P, ps, dh)
+    blocks = n_chunks * KV * S
     ms = time_ms(lambda: ap.cuda_paged_attention(q, cache, table, lengths,
                                                  window=window), flush=flush)
     plain_ms = time_ms(lambda: ap.ref_paged_attention(
@@ -292,11 +312,19 @@ def _compare(ap, name, q, cache, table, lengths, window, rows, flush):
     bound_ms, bound_by = paged_bound(q, cache, table, lengths, window=window)
     row = {"case": name, "max_abs_err": max_err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "plan": [pages, n_chunks], "blocks": blocks}
     rows.append(row)
     print(f"{name}: max_abs_err {max_err:.3e} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}); plan {pages} pages x "
+          f"{n_chunks} chunks, {blocks} blocks; two calls and slot 0 alone "
+          f"bitwise equal", flush=True)
+    if profile:
+        prof = kernel_profile(lambda: ap.cuda_paged_attention(
+            q, cache, table, lengths, window=window))
+        print(f"{name} per kernel (torch.profiler, L2 warm): "
+              + ", ".join(f"{k} {us:.1f} us" for k, us in prof.items()),
+              flush=True)
     return max_err
 
 
@@ -1617,7 +1645,8 @@ def main():
         "launches": launches, "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"], "plan": main_row["plan"],
+        "blocks": main_row["blocks"]}]
     for row in comp_rows:
         row = dict(row)
         row.pop("wrapper")

@@ -3,13 +3,16 @@ run from a checkout of another commit and from this tree, in the order
 parent, change, change, parent, each in its own process. The phases, by
 ``--phases`` (default ``3b,3d``):
 
+- 3a: paged decode attention at phase 3a's cases (the served models'
+  shapes and the JAX tests'), with its time beside the plain version's,
+  the library call's (page gather + SDPA) and the bound;
 - 3b: every compressor kernel against its plain version at every leaf
   shape of the training configuration, with its time;
 - 3c: the flash attention forward and backward kernels at the ten
   ``FLASH_CASES``, with their times beside the plain versions and SDPA;
 - 3d: lowrank_mm at every product of the mesh driver's outer step.
 
-    python3 scripts/compressor_ab.py --parent DIR [--phases 3b,3c,3d]
+    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d]
         [--out build/ab]
 
 DIR holds the other commit's files (``git archive <commit> | tar -x -C
@@ -18,10 +21,12 @@ DIR``, in a directory that .gitignore lists). Each turn's output goes to
 power limit, each turn's per-leaf project and t_pack times (kernel /
 plain / torch.matmul ms), per-product lowrank_mm times (kernel /
 torch.matmul ms) and per-case flash times (forward and backward, kernel
-/ plain / SDPA ms), then, median of two turns per tree: each product's
-and each flash case's time, and each kernel's (the compressor's summed
-over one cluster's call, lowrank_mm over one cluster's outer step, flash
-at the training shape). Needs one NVIDIA GPU.
+/ plain / SDPA ms) and per-case paged attention times (kernel / plain /
+library ms), then, median of two turns per tree: each product's, each
+flash case's and each paged case's time, and each kernel's (the
+compressor's summed over one cluster's call, lowrank_mm over one
+cluster's outer step, flash at the training shape). Needs one NVIDIA
+GPU.
 """
 import argparse
 import json
@@ -39,6 +44,8 @@ SETUP = ("import json, sys, torch\n"
          "torch.backends.cudnn.allow_tf32 = False\n"
          "cs.build()\n")
 PHASES = {
+    "3a": ("rows, _ = cs.kernel_vs_plain()\n"
+           "print('AB-PAGED ' + json.dumps(rows))\n"),
     "3b": "print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n",
     "3c": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels()"
            ".values())))\n"),
@@ -64,9 +71,11 @@ def turn(tree, log, script):
     if out.returncode != 0:
         raise SystemExit(f"FAIL {tree}: exit {out.returncode}, see {log}\n"
                          + out.stderr[-2000:])
-    got = dict(rows={}, leaves=[], products={}, cases={})
+    got = dict(rows={}, leaves=[], products={}, cases={}, paged={})
     for line in out.stdout.splitlines():
-        if line.startswith("AB-ROWS "):
+        if line.startswith("AB-PAGED "):
+            got["paged"].update({r["case"]: r for r in json.loads(line[9:])})
+        elif line.startswith("AB-ROWS "):
             got["rows"].update({r["name"]: r for r in json.loads(line[8:])})
         elif LEAF.match(line):
             got["leaves"].append(LEAF.match(line).groups())
@@ -116,7 +125,22 @@ def main():
             print(f"  flash {name} ms kernel/plain/sdpa: fwd "
                   f"{t[0]:.4f}/{t[1]:.4f}/{t[2]:.4f} bwd "
                   f"{t[3]:.4f}/{t[4]:.4f}/{t[5]:.4f}", flush=True)
+        for name, r in got["paged"].items():
+            print(f"  paged {name} ms kernel/plain/library: {r['ms']:.4f}/"
+                  f"{r['plain_ms']:.4f}/{r['library_ms']:.4f}", flush=True)
     first = runs["change"][0]
+    if first["paged"]:
+        print(f"paged attention per case, ms (median of two turns each; "
+              f"{smi}):")
+    for name in first["paged"]:
+        med = {(tag, key): statistics.median(r["paged"][name][key]
+                                             for r in runs[tag])
+               for tag in runs for key in ("ms", "plain_ms", "library_ms")}
+        row = first["paged"][name]
+        print(f"  {name}: parent {med['parent', 'ms']:.4f} change "
+              f"{med['change', 'ms']:.4f} plain {med['change', 'plain_ms']:.4f}"
+              f" library {med['change', 'library_ms']:.4f} bound "
+              f"{row['bound_ms']:.4f} plan {row.get('plan')}", flush=True)
     if first["products"]:
         print(f"lowrank_mm per product, ms (median of two turns each; "
               f"{smi}):")
@@ -135,9 +159,10 @@ def main():
               f"{med['change', 2]:.4f}; bwd parent {med['parent', 3]:.4f} "
               f"change {med['change', 3]:.4f} plain {med['change', 4]:.4f} "
               f"sdpa {med['change', 5]:.4f}", flush=True)
-    print(f"per kernel (compressor: one cluster's call; lowrank_mm: its "
-          f"outer step; flash: the training shape), ms (median of two turns "
-          f"each; {smi}):")
+    if first["rows"]:
+        print(f"per kernel (compressor: one cluster's call; lowrank_mm: its "
+              f"outer step; flash: the training shape), ms (median of two "
+              f"turns each; {smi}):")
     for name in first["rows"]:
         vals = {tag: [r["rows"][name]["ms"] for r in runs[tag]]
                 for tag in runs}

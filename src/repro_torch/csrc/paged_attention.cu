@@ -1,174 +1,370 @@
 // Paged decode attention for Hopper (sm_90a), float32.
 //
 // Replaces the TPU kernel src/repro/serve/attention_paged.py::_paged_kernel
-// (wrapper pallas_paged_attention). Computes, for every slot s and query
-// head h, one decode step of attention over the slot's paged KV cache:
+// (pallas_call at :158, wrapper pallas_paged_attention). Computes, for every
+// slot s and query head h, one decode step of attention over the slot's
+// paged KV cache:
 //
 //   o[s, h] = softmax_k(q[s, h] . K[k] / sqrt(dh) + mask) @ V
 //
 // where key position k = page * ps + row is read from physical page
 // table[s, page], query head h reads KV head h / G, and the mask keeps
-// k <= lengths[s] and, with a window, k > lengths[s] - window (masked lanes
-// get -1e30, whose exp underflows to exactly 0).
+// k <= lengths[s] and, with a window, k > lengths[s] - window. Positions
+// come from the table column index, never from page contents, so whatever
+// scratch page 0 or a page's unwritten rows hold never reaches a live slot.
 //
-// Bound on this card: decode attention is memory-bound. It reads each live
-// K/V row once (2 * KV * dh * 4 bytes per live token per slot) and does 4
-// flops per loaded float, so the least time is live K/V bytes / 3.35 TB/s.
+// Bound on this card: decode attention is bytes-bound. It reads each live
+// K/V row once (2 * KV * dh * 4 bytes per live key per slot) and does 4
+// flops per loaded float for each of the G query heads of a group (at most
+// 8 in the served models), so the least time is the live K/V bytes over
+// 3.35 TB/s. Tensor cores would buy nothing, so every product here is f32
+// SIMT.
 //
-// Design (simple and right first; split-K, bf16 and TMA are later work):
-//  * grid (KV, S): one block per (kv head, slot). The G query heads of a
-//    group share every K/V page the block stages in shared memory.
-//  * each block reads its own lengths[s] and table row (the TPU kernel got
-//    them by scalar prefetch) and visits only live pages: from the first
-//    page inside the window to page lengths[s] / ps. The TPU grid visits
-//    all pages and masks them; skipping dead pages changes only the order
-//    of the sums.
-//  * per page: stage the (ps, dh) K and V rows of head kv, one warp per
-//    (g, row) score with a shuffle reduction, an f32 online softmax per g,
-//    and acc = acc * alpha + p @ V, all in shared memory.
-//  * output acc / max(l, 1e-30), as the TPU kernel's flush.
+// Design. Two kernels, no atomics:
+//  * paged_partial_kernel, grid (n_chunks, KV, S), 128 threads: one block
+//    per (chunk of pages, KV head, slot). The plan (kernels/_plan.py::
+//    paged_plan, a function of P, ps and dh alone) cuts every slot's table
+//    into chunks of pages_per_chunk pages, so a long context spreads over
+//    many blocks and short ones over a few. A block reads its own
+//    lengths[s] and table entries (the TPU kernel got them by scalar
+//    prefetch), works out the live keys [lo, hi] (k <= len, and k > len -
+//    window), and returns at once if its chunk holds none. Otherwise it
+//    issues every 16-byte cp.async of its chunk before it waits on any: q
+//    and the K rows as one group, the V rows as a second, so V lands while
+//    the scores are computed (the plan bounds a chunk to 16 KB of K, so the
+//    whole chunk fits and a ring would only delay the later copies). A
+//    (key, kv) row is dh contiguous floats at a stride of KV * dh.
+//    Scores: LK lanes per key (key_lanes: as few as fill the block, so at
+//    most a few shuffles), each lane float4s of dh, four query heads at a
+//    time on each loaded K float4. The softmax of the chunk: one warp per
+//    query head, max and sum by warp shuffles. P.V: threads over (key
+//    part, dh/4), float4 accumulators in registers for four query heads
+//    at a time on each loaded V float4, the key parts then summed in order
+//    through shared memory. Out: the chunk's (m, l) and unnormalised acc.
+//  * paged_merge_kernel, grid (ceil(G * dh / 128), KV, S), one thread per
+//    output element: merges a slot's live chunks in increasing chunk
+//    order, m = max m_c, l = sum l_c exp(m_c - m), o = sum acc_c
+//    exp(m_c - m) / max(l, 1e-30), the TPU kernel's online recurrence and
+//    _flush (attention_paged.py:115-129) over chunks, with the loads of
+//    MERGE_BATCH chunks issued before any is used.
+// Every sum of slot s runs in an order fixed by the plan and s's own
+// length, so its bits do not depend on the other slots or on S, and two
+// calls give the same bits.
 //
-// Envelope (checked by the Python wrapper): float32, contiguous tensors,
-// dh <= 256, ps <= 64, int32 table and lengths, shared memory of
-// 4 * (2*G*dh + 2*ps*dh + G*ps + 3*G) bytes within 227 KB.
+// Envelope (checked by the Python wrapper, and again here): float32,
+// contiguous 16-byte aligned tensors, dh % 4 == 0, dh <= 256, ps <= 64,
+// int32 table and lengths, lengths[s] < P * ps (the engine writes the key
+// at lengths[s] before it attends), smem_floats() * 4 bytes within 227 KB.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 #define NEG_INF (-1e30f)
 #define N_THREADS 128
+#define N_WARPS (N_THREADS / 32)
+#define MERGE_BATCH 8
+
+// the live key positions [lo, hi] of a slot of length len
+__device__ __forceinline__ void live_keys(int len, int window, int n_keys,
+                                          int* lo, int* hi) {
+  *hi = min(len, n_keys - 1);
+  *lo = window > 0 ? min(max(0, len - window + 1), *hi) : 0;
+}
+
+// Lanes per key in the score loop: the largest power of two that is at
+// most dh / 4, at most 32, and keeps LK * C within the block, so a chunk's
+// keys take one pass over the block with the fewest shuffles.
+__host__ __device__ __forceinline__ int key_lanes(int C, int quads) {
+  int LK = 1;
+  while (2 * LK <= quads && 2 * LK <= 32 && 2 * LK * C <= N_THREADS) LK <<= 1;
+  return LK;
+}
+
+// The K rows' pitch in floats: dh, padded by whole float4s so that the 8
+// lanes of each 16-byte load phase (8 / LK keys x LK lanes) fall on
+// distinct banks.
+__host__ __device__ __forceinline__ int k_pitch(int dh, int LK) {
+  const int quads = dh >> 2;
+  return dh + 4 * (LK < 8 ? ((LK - quads) % 8 + 8) % 8 : 0);
+}
+
+// kernels/_plan.py::paged_smem_bytes / 4
+static size_t smem_floats(int chunk_pages, int ps, int G, int dh) {
+  const int C = chunk_pages * ps;
+  const size_t pitch = k_pitch(dh, key_lanes(C, dh >> 2));
+  return (size_t)C * pitch + (size_t)C * dh + (size_t)G * dh
+         + 16 * N_THREADS + (size_t)G * C + C;
+}
 
 __global__ void __launch_bounds__(N_THREADS)
-paged_attention_kernel(const float* __restrict__ q,        // (S, H, dh)
-                       const float* __restrict__ k,        // (NP, ps, KV, dh)
-                       const float* __restrict__ v,        // (NP, ps, KV, dh)
-                       const int* __restrict__ table,      // (S, P)
-                       const int* __restrict__ lengths,    // (S,)
-                       float* __restrict__ out,            // (S, H, dh)
-                       int P, int ps, int KV, int G, int dh, int window,
-                       float scale) {
-  extern __shared__ float smem[];
-  const int kv = blockIdx.x;
-  const int s = blockIdx.y;
-  const int H = KV * G;
+paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
+                     const float* __restrict__ k,      // (NP, ps, KV, dh)
+                     const float* __restrict__ v,      // (NP, ps, KV, dh)
+                     const int* __restrict__ table,    // (S, P)
+                     const int* __restrict__ lengths,  // (S,)
+                     float* __restrict__ acc_ws,  // (S, KV, n_chunks, G, dh)
+                     float* __restrict__ ml_ws,   // (S, KV, n_chunks, G, 2)
+                     int P, int ps, int KV, int G, int dh, int window,
+                     float scale, int chunk_pages, int n_chunks) {
+  extern __shared__ __align__(16) float smem[];
+  const int c = blockIdx.x;
+  const int kv = blockIdx.y;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
+  const int C = chunk_pages * ps;          // keys of a whole chunk
+  const int quads = dh >> 2;
+  const int LK = key_lanes(C, quads);
+  const int kp = k_pitch(dh, LK);
 
-  float* q_s = smem;               // (G, dh)
-  float* acc_s = q_s + G * dh;     // (G, dh)
-  float* k_s = acc_s + G * dh;     // (ps, dh)
-  float* v_s = k_s + ps * dh;      // (ps, dh)
-  float* p_s = v_s + ps * dh;      // (G, ps) scores, then probabilities
-  float* m_s = p_s + G * ps;       // (G,) running max
-  float* l_s = m_s + G;            // (G,) running denominator
-  float* a_s = l_s + G;            // (G,) this page's rescale factor
+  float* k_s = smem;                       // (C, kp)
+  float* v_s = k_s + (size_t)C * kp;       // (C, dh)
+  float* q_s = v_s + (size_t)C * dh;       // (G, dh)
+  float4* red_s = (float4*)(q_s + (size_t)G * dh);   // (4 * N_THREADS,)
+  float* p_s = (float*)(red_s + 4 * N_THREADS);      // (G, C)
+  int* rows_s = (int*)(p_s + (size_t)G * C);         // (C,)
 
+  // the length, and the cache row (physical page * ps + slot) of each key
+  // of the chunk, read together
   const int len = lengths[s];
-  // the G heads of group kv are rows kv*G .. kv*G+G-1 of q[s]: contiguous
-  const float* q_blk = q + ((size_t)s * H + (size_t)kv * G) * dh;
-  for (int i = tid; i < G * dh; i += blockDim.x) {
-    q_s[i] = q_blk[i];
-    acc_s[i] = 0.f;
+  const int key0 = c * C;
+  for (int jj = tid; jj < C; jj += N_THREADS) {
+    const int pg = (key0 + jj) / ps;
+    rows_s[jj] = pg < P ? table[(size_t)s * P + pg] * ps + (key0 + jj - pg * ps)
+                        : 0;
   }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
+  int lo, hi;
+  live_keys(len, window, P * ps, &lo, &hi);
+  const int k0 = max(lo, key0);
+  const int k1 = min(hi, key0 + C - 1);
+  if (k0 > k1) return;                     // no live key: the merge skips c
+  const int n = k1 - k0 + 1;
+  const int* rows = rows_s + (k0 - key0);
+
+  const float* q_blk = q + ((size_t)s * KV + kv) * G * dh;
+  for (int i = tid; i < G * quads; i += N_THREADS)
+    cp_async16(q_s + 4 * i, q_blk + 4 * i, true);
+  __syncthreads();                         // rows_s
+
+  // a thread copies float4 x of keys r0, r0 + per_pass, ... (K, then V)
+  const size_t row_stride = (size_t)KV * dh;
+  const int per_pass = N_THREADS / quads;
+  const int r0 = tid / quads;
+  const int x = tid - r0 * quads;
+  const bool copier = r0 < per_pass;
+  const float* k_head = k + (size_t)kv * dh + 4 * x;
+  const float* v_head = v + (size_t)kv * dh + 4 * x;
+  if (copier) {
+    for (int j = r0; j < n; j += per_pass)
+      cp_async16(k_s + (size_t)j * kp + 4 * x,
+                 k_head + (size_t)rows[j] * row_stride, true);
   }
-
-  int last = len / ps;
-  if (last > P - 1) last = P - 1;
-  int first = 0;
-  if (window > 0 && len - window + 1 > 0) first = (len - window + 1) / ps;
-  if (first > last) first = last;
-
-  const size_t row_stride = (size_t)KV * dh;        // token rows of a page
-  const size_t page_stride = (size_t)ps * row_stride;
+  cp_async_commit();                       // group 0: q and K
+  if (copier) {
+    for (int j = r0; j < n; j += per_pass)
+      cp_async16(v_s + (size_t)j * dh + 4 * x,
+                 v_head + (size_t)rows[j] * row_stride, true);
+  }
+  cp_async_commit();                       // group 1: V
+  cp_async_wait_prior();
   __syncthreads();
 
-  for (int pg = first; pg <= last; ++pg) {
-    const size_t base = (size_t)table[(size_t)s * P + pg] * page_stride
-                        + (size_t)kv * dh;
-    for (int i = tid; i < ps * dh; i += blockDim.x) {
-      const int r = i / dh;
-      const int d = i - r * dh;
-      k_s[i] = k[base + r * row_stride + d];
-      v_s[i] = v[base + r * row_stride + d];
-    }
-    __syncthreads();
-
-    // scores: one warp per (g, r), lanes stride over dh
-    for (int pair = warp; pair < G * ps; pair += n_warps) {
-      const int g = pair / ps;
-      const int r = pair - g * ps;
-      float dot = 0.f;
-      for (int d = lane; d < dh; d += 32) dot += q_s[g * dh + d] * k_s[r * dh + d];
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) {
-        const int k_pos = pg * ps + r;
-        bool ok = k_pos <= len;
-        if (window > 0) ok = ok && (k_pos > len - window);
-        p_s[pair] = ok ? dot * scale : NEG_INF;
+  // scores: LK lanes per key, float4 over dh, four query heads at a time
+  // on each loaded K float4
+  const int ql = tid & (LK - 1);
+  for (int j0 = 0; j0 < n; j0 += N_THREADS / LK) {
+    const int j = j0 + tid / LK;
+    const bool ok = j < n;
+    const float* krow = k_s + (size_t)(ok ? j : 0) * kp;
+    for (int g0 = 0; g0 < G; g0 += 4) {
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int x4 = ql; x4 < quads; x4 += LK) {
+        const float4 b = *(const float4*)(krow + 4 * x4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (g0 + u < G) {
+            const float4 a = *(const float4*)(q_s + (size_t)(g0 + u) * dh
+                                              + 4 * x4);
+            dot[u] = fmaf(a.x, b.x, dot[u]);
+            dot[u] = fmaf(a.y, b.y, dot[u]);
+            dot[u] = fmaf(a.z, b.z, dot[u]);
+            dot[u] = fmaf(a.w, b.w, dot[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (g0 + u < G) {
+          for (int off = LK >> 1; off > 0; off >>= 1)
+            dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+          if (ok && ql == 0) p_s[(size_t)(g0 + u) * C + j] = dot[u] * scale;
+        }
       }
     }
-    __syncthreads();
-
-    // online softmax across pages, per query head of the group
-    for (int g = tid; g < G; g += blockDim.x) {
-      float* row = p_s + g * ps;
-      const float m_prev = m_s[g];
-      float m_cur = NEG_INF;
-      for (int r = 0; r < ps; ++r) m_cur = fmaxf(m_cur, row[r]);
-      const float m_new = fmaxf(m_prev, m_cur);
-      float sum = 0.f;
-      for (int r = 0; r < ps; ++r) {
-        const float e = expf(row[r] - m_new);
-        row[r] = e;
-        sum += e;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[g] = l_s[g] * alpha + sum;
-      m_s[g] = m_new;
-      a_s[g] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ V
-    for (int i = tid; i < G * dh; i += blockDim.x) {
-      const int g = i / dh;
-      const int d = i - g * dh;
-      float a = acc_s[i] * a_s[g];
-      for (int r = 0; r < ps; ++r) a += p_s[g * ps + r] * v_s[r * dh + d];
-      acc_s[i] = a;
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
-  float* o_blk = out + ((size_t)s * H + (size_t)kv * G) * dh;
-  for (int i = tid; i < G * dh; i += blockDim.x) {
-    o_blk[i] = acc_s[i] / fmaxf(l_s[i / dh], 1e-30f);
+  // the chunk's softmax: one warp per query head
+  const int lane = tid & 31;
+  const size_t part = ((size_t)s * KV + kv) * n_chunks + c;
+  for (int g = tid >> 5; g < G; g += N_WARPS) {
+    float* prow = p_s + (size_t)g * C;
+    float m = NEG_INF;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, prow[j]);
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float l = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(prow[j] - m);
+      prow[j] = e;
+      l += e;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      ml_ws[(part * G + g) * 2] = m;
+      ml_ws[(part * G + g) * 2 + 1] = l;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // P.V: threads over (key part, dh / 4), each V float4 feeding four
+  // query heads at a time; then the key parts are summed in order
+  float* acc_out = acc_ws + part * G * dh;
+  const int parts = N_THREADS / quads;
+  for (int g0 = 0; g0 < G; g0 += 4) {
+    if (copier) {
+      float4 a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = r0; j < n; j += parts) {
+        const float4 b = *(const float4*)(v_s + (size_t)j * dh + 4 * x);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (g0 + u < G) {
+            const float p = p_s[(size_t)(g0 + u) * C + j];
+            a[u].x = fmaf(p, b.x, a[u].x);
+            a[u].y = fmaf(p, b.y, a[u].y);
+            a[u].z = fmaf(p, b.z, a[u].z);
+            a[u].w = fmaf(p, b.w, a[u].w);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) red_s[(u * parts + r0) * quads + x] = a[u];
+    }
+    __syncthreads();
+    for (int it = tid; it < 4 * quads; it += N_THREADS) {
+      const int u = it / quads;
+      const int xx = it - u * quads;
+      if (g0 + u < G) {
+        float4 a = red_s[u * parts * quads + xx];
+        for (int r = 1; r < parts; ++r) {
+          const float4 b = red_s[(u * parts + r) * quads + xx];
+          a.x += b.x;
+          a.y += b.y;
+          a.z += b.z;
+          a.w += b.w;
+        }
+        *(float4*)(acc_out + (size_t)(g0 + u) * dh + 4 * xx) = a;
+      }
+    }
+    __syncthreads();                       // red_s, for the next g0
   }
 }
 
+// grid (ceil(G * dh / N_THREADS), KV, S): one thread per output element
+__global__ void __launch_bounds__(N_THREADS)
+paged_merge_kernel(const float* __restrict__ acc_ws,
+                   const float* __restrict__ ml_ws,
+                   const int* __restrict__ lengths,
+                   float* __restrict__ out,            // (S, KV * G, dh)
+                   int P, int ps, int KV, int G, int dh, int window,
+                   int chunk_pages, int n_chunks) {
+  const int i = blockIdx.x * N_THREADS + threadIdx.x;     // g * dh + d
+  const int kv = blockIdx.y;
+  const int s = blockIdx.z;
+  if (i >= G * dh) return;
+  int lo, hi;
+  live_keys(lengths[s], window, P * ps, &lo, &hi);
+  const int C = chunk_pages * ps;
+  const int c0 = lo / C;
+  const int c1 = hi / C;
+  const size_t first = ((size_t)s * KV + kv) * n_chunks;   // chunk 0's part
+  const float* ml = ml_ws + (first * G + i / dh) * 2;      // + c * G * 2
+  const float* acc = acc_ws + first * G * dh + i;          // + c * G * dh
+  // MERGE_BATCH chunks' loads at a time, all issued before any is used
+  float m = NEG_INF;
+  for (int cb = c0; cb <= c1; cb += MERGE_BATCH) {
+    float mb[MERGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u)
+      mb[u] = cb + u <= c1 ? ml[(size_t)(cb + u) * G * 2] : NEG_INF;
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) m = fmaxf(m, mb[u]);
+  }
+  float l = 0.f;
+  float o = 0.f;
+  for (int cb = c0; cb <= c1; cb += MERGE_BATCH) {
+    float mb[MERGE_BATCH], lb[MERGE_BATCH], ab[MERGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      const bool live = cb + u <= c1;
+      mb[u] = live ? ml[(size_t)(cb + u) * G * 2] : NEG_INF;
+      lb[u] = live ? ml[(size_t)(cb + u) * G * 2 + 1] : 0.f;
+      ab[u] = live ? acc[(size_t)(cb + u) * G * dh] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      if (cb + u <= c1) {                  // in increasing chunk order
+        const float w = expf(mb[u] - m);
+        l += lb[u] * w;
+        o += ab[u] * w;
+      }
+    }
+  }
+  out[((size_t)s * KV + kv) * G * dh + i] = o / fmaxf(l, 1e-30f);
+}
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// ws holds S * KV * n_chunks * G * (dh + 2) floats: the partial
+// accumulators (dh per head), then (m, l) per head.
 extern "C" int paged_attention_f32(const void* q, const void* k, const void* v,
                                    const void* table, const void* lengths,
-                                   void* out, int S, int P, int ps, int KV,
-                                   int G, int dh, int window, float scale,
+                                   void* out, void* ws, int S, int P, int ps,
+                                   int KV, int G, int dh, int window,
+                                   float scale, int chunk_pages, int n_chunks,
                                    void* stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)G * dh + 2 * (size_t)ps * dh
-                                       + (size_t)G * ps + 3 * (size_t)G);
+  if (dh % 4 || dh > 256 || ps > 64 || chunk_pages < 1
+      || (long long)chunk_pages * n_chunks < P || S > 65535 || KV > 65535
+      || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(ws))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * smem_floats(chunk_pages, ps, G, dh);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(KV, S);
-  paged_attention_kernel<<<grid, N_THREADS, smem, (cudaStream_t)stream>>>(
+  float* acc_ws = (float*)ws;
+  float* ml_ws = acc_ws + (size_t)S * KV * n_chunks * G * dh;
+  cudaStream_t st = (cudaStream_t)stream;
+  paged_partial_kernel<<<dim3(n_chunks, KV, S), N_THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)table,
-      (const int*)lengths, (float*)out, P, ps, KV, G, dh, window, scale);
+      (const int*)lengths, acc_ws, ml_ws, P, ps, KV, G, dh, window, scale,
+      chunk_pages, n_chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_merge_kernel<<<dim3((G * dh + N_THREADS - 1) / N_THREADS, KV, S),
+                       N_THREADS, 0, st>>>(
+      acc_ws, ml_ws, (const int*)lengths, (float*)out, P, ps, KV, G, dh,
+      window, chunk_pages, n_chunks);
   return (int)cudaGetLastError();
 }
 

@@ -31,8 +31,8 @@ _ERR = {"repro_cuda_error_string": ([_I], ctypes.c_char_p)}
 # exported C functions of each kernel library: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
-        "paged_attention_f32": ([_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
-                                _I),
+        "paged_attention_f32": ([_P] * 7 + [_I] * 7 + [ctypes.c_float]
+                                + [_I] * 2 + [_P], _I),
         **_ERR,
     },
     "quant4": {

@@ -4,7 +4,9 @@
   by its two users: the compressor's projections (``fused_compress``) and
   ``lowrank_mm``'s split route;
 - the dK/dV and dQ plans of the flash backward
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu``);
+- the page chunks of paged decode attention
+  (``csrc/paged_attention.cu``).
 
 Each plan depends on the shape alone, never on a batch or on the
 operands' strides, so every output bit is the same function of the inputs
@@ -132,3 +134,54 @@ def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int,
     dq_split = flash_dq_plan(B, H, Sq, Sk, d)
     return ((parts > 1) * 2 * parts * B * Sk * KV * d
             + (dq_split > 1) * dq_split * B * Sq * H * d)
+
+
+PAGED_CHUNK_FLOATS = 4096   # most K floats of one (slot, KV head) chunk: 16 KB
+PAGED_CHUNK_KEYS = 256      # most keys of a chunk (its scores stay in shared)
+PAGED_THREADS = 128         # threads of a paged-attention block
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(P: int, ps: int, dh: int) -> Tuple[int, int]:
+    """``(pages_per_chunk, n_chunks)`` of paged decode attention with a page
+    table of P pages of ``ps`` keys and head dim ``dh``.
+
+    Chunk c holds table columns [c * pages_per_chunk, (c + 1) *
+    pages_per_chunk) of every slot; one block reduces one (chunk, KV head,
+    slot) to a partial (m, l, acc), and a second kernel merges a slot's
+    partials in increasing chunk order. The rule: the most pages whose K
+    rows of one KV head fit in PAGED_CHUNK_FLOATS floats and whose keys
+    number at most PAGED_CHUNK_KEYS, at least one page and at most P;
+    n_chunks = ceil(P / pages_per_chunk). A block stages its whole chunk
+    (K and V) in shared memory, so the rule bounds a block's bytes and
+    gives a long context many blocks per slot. It reads neither the
+    slots' count S nor their lengths, so each slot's sums run in the same
+    order in every batch. The KV heads only multiply the blocks, and the G
+    query heads of a group share each staged row (they enter
+    ``paged_smem_bytes``), so neither sizes the chunk."""
+    pages = min(PAGED_CHUNK_FLOATS // (ps * dh), PAGED_CHUNK_KEYS // ps)
+    pages = max(1, min(P, pages))
+    return pages, -(-P // pages)
+
+
+def paged_key_lanes(C: int, quads: int) -> int:
+    """Lanes per key of the score loop (``csrc/paged_attention.cu::
+    key_lanes``): the largest power of two at most ``quads`` (dh / 4) and
+    32 with LK * C within the block's PAGED_THREADS."""
+    LK = 1
+    while 2 * LK <= min(quads, 32) and 2 * LK * C <= PAGED_THREADS:
+        LK *= 2
+    return LK
+
+
+def paged_smem_bytes(pages_per_chunk: int, ps: int, G: int, dh: int) -> int:
+    """Shared memory of one paged-attention block
+    (``csrc/paged_attention.cu::smem_floats``): the K rows of a chunk of C =
+    pages_per_chunk * ps keys at a padded pitch (``k_pitch``), its V rows
+    (C, dh), q (G, dh), the P.V partial sums (4 PAGED_THREADS float4), the
+    scores (G, C) and the keys' cache rows (C int32)."""
+    C = pages_per_chunk * ps
+    quads = dh // 4
+    LK = paged_key_lanes(C, quads)
+    pitch = dh + 4 * ((LK - quads) % 8 if LK < 8 else 0)
+    return 4 * (C * pitch + C * dh + G * dh + 16 * PAGED_THREADS + G * C + C)

@@ -1,6 +1,8 @@
 """Paged-gather decode attention (port of ``repro.serve.attention_paged``):
-the plain PyTorch version and the hand-written CUDA kernel that replaces
-the TPU kernel ``_paged_kernel``.
+the plain PyTorch version and the hand-written CUDA kernels that replace
+the TPU kernel ``_paged_kernel`` (``csrc/paged_attention.cu``: partials
+over fixed chunks of each slot's pages, ``_plan.paged_plan``, then their
+merge in chunk order).
 
 Shapes (per segment unit):
   q            (S, 1, H, dh)      one query token per slot
@@ -27,6 +29,7 @@ import math
 import torch
 
 from repro_torch.device import on_device
+from repro_torch.kernels import _plan
 from repro_torch.models import attention as attn
 
 NEG_INF = attn.NEG_INF
@@ -35,6 +38,7 @@ NEG_INF = attn.NEG_INF
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
 MAX_SMEM_BYTES = 227 * 1024
+MAX_GRID_DIM = 65535               # slots and KV heads: grid y and z
 
 
 # ---------------------------------------------------------------------------
@@ -82,10 +86,9 @@ def ref_paged_attention(q, cache, page_tables, lengths, *, window: int = 0):
 # CUDA kernel (csrc/paged_attention.cu)
 # ---------------------------------------------------------------------------
 
-def smem_bytes(G: int, ps: int, dh: int) -> int:
-    """Shared memory of one block: q and acc (G, dh), K and V pages
-    (ps, dh), probabilities (G, ps), and m, l, alpha (G,)."""
-    return 4 * (2 * G * dh + 2 * ps * dh + G * ps + 3 * G)
+def smem_bytes(P: int, ps: int, G: int, dh: int) -> int:
+    """Shared memory of one block of the partial kernel at this shape."""
+    return _plan.paged_smem_bytes(_plan.paged_plan(P, ps, dh)[0], ps, G, dh)
 
 
 def _check_envelope(q, cache, page_tables, lengths, window):
@@ -102,6 +105,9 @@ def _check_envelope(q, cache, page_tables, lengths, window):
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(the kernel's 16-byte copies)")
     if v.shape != k.shape or k.dim() != 4 or k.shape[3] != dh:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -116,35 +122,49 @@ def _check_envelope(q, cache, page_tables, lengths, window):
                          f"{tuple(lengths.shape)} do not match S={S}")
     if H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if dh > MAX_HEAD_DIM or ps > MAX_PAGE_SIZE:
-        raise ValueError(f"dh={dh} (max {MAX_HEAD_DIM}) or page size {ps} "
-                         f"(max {MAX_PAGE_SIZE}) outside the kernel envelope")
-    if smem_bytes(H // KV, ps, dh) > MAX_SMEM_BYTES:
+    if dh > MAX_HEAD_DIM or dh % 4 or ps > MAX_PAGE_SIZE:
+        raise ValueError(f"dh={dh} (a multiple of 4, max {MAX_HEAD_DIM}) or "
+                         f"page size {ps} (max {MAX_PAGE_SIZE}) outside the "
+                         f"kernel envelope")
+    if not 0 < S <= MAX_GRID_DIM or KV > MAX_GRID_DIM:
+        raise ValueError(f"S={S}, KV={KV} outside the kernel's grid")
+    P = page_tables.shape[1]
+    if smem_bytes(P, ps, H // KV, dh) > MAX_SMEM_BYTES:
         raise ValueError(f"G={H // KV}, ps={ps}, dh={dh} need "
-                         f"{smem_bytes(H // KV, ps, dh)} B of shared memory")
+                         f"{smem_bytes(P, ps, H // KV, dh)} B of shared "
+                         f"memory")
     if window < 0:
         raise ValueError(f"window={window}")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def cuda_paged_attention(q, cache, page_tables, lengths, *, window: int = 0):
-    """Launches the CUDA kernel on the current stream. Same contract as
-    ``ref_paged_attention`` (ulp-level differences: online softmax over
-    live pages reassociates the sums). ``cuda_paged_attention.launches``
-    counts launches."""
+    """Launches the CUDA kernels on the current stream: the partials of
+    every (chunk of pages, KV head, slot), then their merge in chunk order
+    (``_plan.paged_plan``). Same contract as ``ref_paged_attention``
+    (ulp-level differences: the chunks and the merge reassociate the
+    sums). It reads no tensor on the host, so it never waits for the
+    device. ``cuda_paged_attention.launches`` counts calls."""
     from repro_torch.kernels import _build
 
     _check_envelope(q, cache, page_tables, lengths, window)
     S, _, H, dh = q.shape
     P = page_tables.shape[1]
     ps, KV = cache["k"].shape[1], cache["k"].shape[2]
+    G = H // KV
+    pages, n_chunks = _plan.paged_plan(P, ps, dh)
     lib = _build.load("paged_attention")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = torch.empty(S * KV * n_chunks * G * (dh + 2), dtype=torch.float32,
+                     device=q.device)
     err = lib.paged_attention_f32(
         q.data_ptr(), cache["k"].data_ptr(), cache["v"].data_ptr(),
         page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        S, P, ps, KV, H // KV, dh, int(window),
-        ctypes.c_float(1.0 / math.sqrt(dh)), stream)
+        ws.data_ptr(), S, P, ps, KV, G, dh, int(window),
+        ctypes.c_float(1.0 / math.sqrt(dh)), pages, n_chunks, _stream(q))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"{_build.cuda_error_string(lib, err)}")

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _paged_fixture import paged_fixture, to_torch
+from _paged_fixture import paged_case, paged_fixture, to_torch
 from repro_torch.serve import attention_paged as ap
 
 TOL = dict(rtol=1e-3, atol=1e-5)        # the JAX package's gate, test_kernels.py
@@ -47,6 +47,71 @@ def test_cuda_paged_attention_refuses_outside_envelope():
         ap.paged_attention(q.double(), cache, table, lengths)
     with pytest.raises(TypeError):
         ap.paged_attention(q, cache, table.cpu(), lengths)
+
+
+def _chunk_edge_case(dh, G, KV=2, ps=16, seed=0):
+    """Three and a bit chunks of the plan; lengths on chunk edges, on page
+    edges and at the last position; two inactive slots."""
+    from repro_torch.kernels import _plan
+
+    pages = _plan.paged_plan(64, ps, dh)[0]
+    P = 3 * pages + 1
+    C = pages * ps
+    lengths = [0, C - 1, C, C + 1, 2 * C - 1, 2 * C + ps, P * ps - 1, 0]
+    return C, to_torch(*paged_case(seed, lengths, P=P, ps=ps, KV=KV, G=G,
+                                   dh=dh, inactive=(0, 7)), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_cuda_paged_chunks_match_plain_and_are_batch_free(dh, G):
+    """Page chunks and their merge at each head dim: within the gate with
+    no window, a window of 5 and one that straddles a chunk edge; one
+    launch a call; two calls bitwise equal; each slot alone, and slot 3
+    among other slots, bitwise equal to its row of the batch."""
+    _need_cuda()
+    C, (q, cache, table, lengths) = _chunk_edge_case(dh, G)
+    for window in (0, 5, C + C // 2 + 1):
+        before = ap.cuda_paged_attention.launches
+        got = ap.paged_attention(q, cache, table, lengths, window=window)
+        again = ap.paged_attention(q, cache, table, lengths, window=window)
+        want = ap.ref_paged_attention(q, cache, table, lengths, window=window)
+        torch.cuda.synchronize()
+        assert ap.cuda_paged_attention.launches == before + 2
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
+        assert torch.equal(got, again)
+        for s in range(q.shape[0]):
+            alone = ap.paged_attention(
+                q[s:s + 1].contiguous(), cache, table[s:s + 1].contiguous(),
+                lengths[s:s + 1].contiguous(), window=window)
+            assert torch.equal(alone[0], got[s]), s
+        q2, table2, lengths2 = q.flip(0).contiguous(), table.flip(0), \
+            lengths.flip(0)
+        q2[3], table2[3], lengths2[3] = q[3], table[3], lengths[3]
+        lengths2[0] = 0
+        table2[0] = 0
+        other = ap.paged_attention(q2, cache, table2.contiguous(),
+                                   lengths2.contiguous(), window=window)
+        assert torch.equal(other[3], got[3])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_refuses_what_the_kernels_cannot_read():
+    _need_cuda()
+    q, cache, table, lengths = to_torch(*paged_fixture(
+        0, S=2, P=3, ps=4, KV=2, G=2, dh=8), device="cuda")
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError):                    # not 16-byte aligned
+        ap.paged_attention(shifted, cache, table, lengths)
+    odd = {"k": cache["k"][..., :6].contiguous(),
+           "v": cache["v"][..., :6].contiguous()}
+    with pytest.raises(ValueError):                    # dh % 4 != 0
+        ap.paged_attention(q[..., :6].contiguous(), odd, table, lengths)
+    with pytest.raises(ValueError):                    # window < 0
+        ap.paged_attention(q, cache, table, lengths, window=-1)
 
 
 # ---------------------------------------------------------------------------
