@@ -31,14 +31,17 @@ continues:
      c. flash attention, the forward and the backward kernels, at the
         training shape (opt-1.3b, B 4 x S 512), opt-1.3b at 2,048 tokens,
         the GQA shapes of granite-3-8b, hundred-m and gemma3-1b's global
-        layers (d 256), S = 384 and 200, non-causal, Sq != Sk: the forward
+        layers (d 256), S = 384 and 200, non-causal, Sq != Sk, and one
+        layer of the paper's qwen1.5-107b at 4,096 keys: the forward
         within the JAX gate rtol/atol 2e-3 and an elementwise f32 bound
         (``flash_tolerances``), the backward (fed the plain forward's o
         and lse) within the same kind of bound and bitwise equal over two
-        calls; each case's dK/dV and dQ plans; times beside the plain
-        versions and SDPA, and the least time at the 3xTF32 tensor-core
-        rate beside the f32 SIMT one (``flash_bound``); at the training
-        shape, each kernel's time (``kernel_profile``);
+        calls, the worst ratio to the bound printed; each case's forward,
+        dK/dV and dQ plans and resident warps an SM; times beside the
+        plain versions and SDPA, and the least time at the 3xTF32
+        tensor-core rate beside the f32 SIMT one (``flash_bound``); at the
+        training shape, granite-3-8b, gemma3-1b global and qwen1.5-107b,
+        each kernel's time (``kernel_profile``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
@@ -702,7 +705,12 @@ FLASH_CASES = [
     ("non-causal", 1, 512, 512, 32, 32, 64, False),
     ("Sq384 < Sk512", 1, 384, 512, 16, 4, 64, True),
     ("Sq320 > Sk192", 1, 320, 192, 16, 4, 128, True),
+    # one layer of the paper's model (section 4.1.1, configs/qwen1_5_107b):
+    # G = 8, d 128, 4,096 keys
+    ("qwen1.5-107b", 1, 4096, 4096, 64, 8, 128, True),
 ]
+FLASH_PROFILED = ("opt-1.3b train", "granite-3-8b", "gemma3-1b global",
+                  "qwen1.5-107b")
 
 
 def flash_pairs(Sq, Sk, causal):
@@ -829,6 +837,7 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     worst = {"fwd": 0.0, "bwd": 0.0}
+    worst_ratio = {"fwd": (0.0, ""), "bwd": (0.0, "")}
     rows = {}
     for name, B, Sq, Sk, H, KV, d, causal in cases:
         q = torch.randn((B, Sq, H, d), generator=gen, device=dev)
@@ -862,6 +871,10 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
         del tol_o, tol_g, again
         worst["fwd"] = max(worst["fwd"], err_o)
         worst["bwd"] = max(worst["bwd"], *errs)
+        worst_ratio["fwd"] = max(worst_ratio["fwd"], (ratio_o, f"{name} o"))
+        worst_ratio["bwd"] = max(worst_ratio["bwd"], *(
+            (r, f"{name} {g_name}")
+            for r, g_name in zip(ratios, ("dq", "dk", "dv"))))
 
         ms_f = time_ms(lambda: fa.cuda_flash_attention_fwd(q, k, v, causal),
                        flush=flush)
@@ -887,13 +900,18 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
                                             bwd=False)
         bound_b, by_b, simt_b = flash_bound(B, Sq, Sk, H, KV, d, causal,
                                             bwd=True)
-        split, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
-        blocks = _plan.flash_dkdv_blocks(B, H, Sk, d, split)
-        dq_split = _plan.flash_dq_plan(B, H, Sq, Sk, d)
+        f_split, f_chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d)
+        split, chunk, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+        blocks = _plan.flash_dkdv_blocks(B, H, Sk, split)
+        dq_split, dq_chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d)
+        q_blocks = B * H * -(-Sq // _plan.FLASH_ROWS)
         print(f"{name} (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} causal "
-              f"{causal}): dK/dV plan split {split} parts {parts} blocks "
-              f"{blocks}, dQ plan split {dq_split} blocks "
-              f"{B * H * -(-Sq // _plan.FLASH_ROWS) * dq_split}; bound ms "
+              f"{causal}): fwd plan split {f_split} chunk {f_chunk} blocks "
+              f"{q_blocks * f_split}, dK/dV plan split {split} chunk {chunk}"
+              f" parts {parts} blocks {blocks}, dQ plan split {dq_split} "
+              f"chunk {dq_chunk} blocks {q_blocks * dq_split}; warps an SM "
+              f"fwd/dkdv/dq {'/'.join(map(str, _plan.flash_warps_per_sm(d)))}"
+              f"; bound ms "
               f"3xTF32/f32 SIMT fwd {bound_f:.4f}/"
               f"{simt_f:.4f} bwd {bound_b:.4f}/{simt_b:.4f}; fwd max abs "
               f"err o {err_o:.3e} ({ratio_o:.4f}x "
@@ -905,13 +923,14 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
               f"{plain_b:.4f}/{lib_b:.4f}/{bound_b:.4f} ({by_b}); sdpa "
               f"fwd+bwd {lib_fb:.4f}, kernels fwd+bwd {ms_f + ms_b:.4f}",
               flush=True)
-        if not rows:
+        if name in FLASH_PROFILED:
             prof = kernel_profile(lambda: (
                 fa.cuda_flash_attention_fwd(q, k, v, causal),
                 fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)))
             print(f"{name}: us per call by kernel (torch.profiler, L2 warm): "
                   + ", ".join(f"{k_} {us:.1f}" for k_, us in prof.items()),
                   flush=True)
+        if not rows:
             src = "src/repro_torch/csrc/flash_attention.cu"
             tpu = "src/repro/kernels/flash_attention.py:24"
             rows = {
@@ -927,6 +946,10 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
         torch.cuda.empty_cache()
     rows["flash_attention"]["max_abs_err"] = worst["fwd"]
     rows["flash_attention_bwd"]["max_abs_err"] = worst["bwd"]
+    for kind in ("fwd", "bwd"):
+        r, at = worst_ratio[kind]
+        print(f"flash {kind}: worst error {r:.4f} of the f32 bound "
+              f"(flash_tolerances), at {at}", flush=True)
     return rows
 
 

@@ -8,11 +8,14 @@ parent, change, change, parent, each in its own process. The phases, by
   the library call's (page gather + SDPA) and the bound;
 - 3b: every compressor kernel against its plain version at every leaf
   shape of the training configuration, with its time;
-- 3c: the flash attention forward and backward kernels at the ten
-  ``FLASH_CASES``, with their times beside the plain versions and SDPA;
-- 3d: lowrank_mm at every product of the mesh driver's outer step.
+- 3c: the flash attention forward and backward kernels at this tree's
+  ``FLASH_CASES`` (the other tree runs the same cases, also those its own
+  list lacks), with their times beside the plain versions and SDPA;
+- 3d: lowrank_mm at every product of the mesh driver's outer step;
+- 4b: one inner step (loss and gradients) of the training configuration,
+  einsum and flash attention in turns (``step_ab``).
 
-    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d]
+    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d,4b]
         [--out build/ab]
 
 DIR holds the other commit's files (``git archive <commit> | tar -x -C
@@ -47,9 +50,10 @@ PHASES = {
     "3a": ("rows, _ = cs.kernel_vs_plain()\n"
            "print('AB-PAGED ' + json.dumps(rows))\n"),
     "3b": "print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n",
-    "3c": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels()"
-           ".values())))\n"),
+    "3c": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels("
+           "cases=[tuple(c) for c in json.loads({cases!r})]).values())))\n"),
     "3d": "print('AB-ROWS ' + json.dumps([cs.lowrank_mm_kernel()]))\n",
+    "4b": "cs.step_ab()\n",
 }
 LEAF = re.compile(r"^m=(\d+) n=(\d+) x(\d+) ms kernel/plain/matmul: project "
                   r"([\d.]+)/([\d.]+)/([\d.]+) t_pack ([\d.]+)/([\d.]+)/"
@@ -57,6 +61,8 @@ LEAF = re.compile(r"^m=(\d+) n=(\d+) x(\d+) ms kernel/plain/matmul: project "
 PRODUCT = re.compile(r"^(batch \d+ \(\d+ x \d+\) @ \(\d+ x \d+\) transposed \S "
                      r"x\d+): .*ms kernel/plain/torch\.matmul/bound ([\d.]+)/"
                      r"([\d.]+)/([\d.]+)/([\d.]+)")
+STEP = re.compile(r"^ms per step \(loss \+ grads, median of \d+\): einsum "
+                  r"([\d.]+) flash ([\d.]+)")
 CASE = re.compile(r"^(.+?) \(B \d+ Sq .*ms kernel/plain/sdpa/bound: fwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/[\d.]+ \(\w+\), bwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/")
@@ -71,7 +77,8 @@ def turn(tree, log, script):
     if out.returncode != 0:
         raise SystemExit(f"FAIL {tree}: exit {out.returncode}, see {log}\n"
                          + out.stderr[-2000:])
-    got = dict(rows={}, leaves=[], products={}, cases={}, paged={})
+    got = dict(rows={}, leaves=[], products={}, cases={}, paged={},
+               step=None)
     for line in out.stdout.splitlines():
         if line.startswith("AB-PAGED "):
             got["paged"].update({r["case"]: r for r in json.loads(line[9:])})
@@ -82,6 +89,8 @@ def turn(tree, log, script):
         elif PRODUCT.match(line):
             tag, ms, _, lib, _ = PRODUCT.match(line).groups()
             got["products"][tag] = (float(ms), float(lib))
+        elif STEP.match(line):
+            got["step"] = tuple(float(x) for x in STEP.match(line).groups())
         elif CASE.match(line):
             name, *t = CASE.match(line).groups()
             got["cases"][name] = tuple(float(x) for x in t)
@@ -102,7 +111,11 @@ def main():
     phases = args.phases.split(",")
     if not phases or set(phases) - set(PHASES):
         ap.error(f"--phases {args.phases}: choose from {', '.join(PHASES)}")
-    script = SETUP + "".join(PHASES[p] for p in phases)
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    cases = json.dumps(chip_smoke.FLASH_CASES)
+    script = SETUP + "".join(PHASES[p].format(cases=cases) if p == "3c"
+                             else PHASES[p] for p in phases)
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -128,6 +141,9 @@ def main():
         for name, r in got["paged"].items():
             print(f"  paged {name} ms kernel/plain/library: {r['ms']:.4f}/"
                   f"{r['plain_ms']:.4f}/{r['library_ms']:.4f}", flush=True)
+        if got["step"]:
+            print(f"  inner step ms einsum/flash: {got['step'][0]:.1f}/"
+                  f"{got['step'][1]:.1f}", flush=True)
     first = runs["change"][0]
     if first["paged"]:
         print(f"paged attention per case, ms (median of two turns each; "
@@ -159,6 +175,13 @@ def main():
               f"{med['change', 2]:.4f}; bwd parent {med['parent', 3]:.4f} "
               f"change {med['change', 3]:.4f} plain {med['change', 4]:.4f} "
               f"sdpa {med['change', 5]:.4f}", flush=True)
+    if first["step"]:
+        med = {tag: [statistics.median(r["step"][i] for r in runs[tag])
+                     for i in (0, 1)] for tag in runs}
+        print(f"inner step (step_ab), ms, median of two turns each ({smi}): "
+              f"flash parent {med['parent'][1]:.1f} change "
+              f"{med['change'][1]:.1f}; einsum parent {med['parent'][0]:.1f}"
+              f" change {med['change'][0]:.1f}", flush=True)
     if first["rows"]:
         print(f"per kernel (compressor: one cluster's call; lowrank_mm: its "
               f"outer step; flash: the training shape), ms (median of two "

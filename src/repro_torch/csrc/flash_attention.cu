@@ -39,46 +39,74 @@
 //
 // Design. 128 threads, 4 warps, two blocks an SM where shared memory
 // allows; a block keeps 64 rows resident (16 per warp: queries in the
-// forward and dQ, keys in dK/dV) and streams the other side in tiles of
-// 64, 64, 32, 16 rows at d = 32, 64, 128, 256 (dK/dV's q tiles: 32 at
-// d <= 64) through a two-stage ring filled by 16-byte cp.async, so the
-// next tile is in flight while this one is multiplied. At d <= 64 the
-// dK/dV kernel splits each Q and dO tile into its TF32 parts once, into
-// tiles of their own, sparing its warps 3 of every 4 splits of a B
-// element; elsewhere each warp splits the fragments it reads. At d = 256
-// (two accumulators a warp) the two score products S and dP run in one
-// loop. Rows have a pitch of d + 4
+// forward and dQ, keys in dK/dV) and streams the other side in tiles
+// through a two-stage ring filled by 16-byte cp.async, so the next tile is
+// in flight while this one is multiplied. Streamed rows (tile_rows,
+// q_tile_rows, dq_tile_rows): the forward 64, 64, 32, 16 at d = 32, 64,
+// 128, 256; dK/dV's q tiles 32 at d <= 64, else 16; dQ's k tiles 64 at
+// d <= 64, else 16. At d <= 64 the dK/dV kernel splits each Q and dO tile
+// into its TF32 parts once, into tiles of their own, sparing its warps 3
+// of every 4 splits of a B element; elsewhere each warp splits the
+// fragments it reads. At NT <= 2 (16-row tiles) the two score products S
+// and dP run in one loop. Rows have a pitch of d + 4
 // floats: 16-byte aligned, and every fragment read (ldmatrix for the
 // k-contiguous operands, two 32-bit loads at rows 2t, 2t + 1 for the
 // products over S's columns) falls on 32 distinct banks. S (and dP) stay
 // in registers in the mma's C layout; the online softmax (m, l, the O
 // accumulator) too, with row max and sum over the 4 lanes of a quad. P and
-// dS never go through shared memory: their C fragments are the A fragments
-// of P V, dS K, P^T dO and dS^T Q (tf32_mma.cuh). Under the causal mask a
-// block visits only the tiles at or below (dK/dV: at or above) its
-// diagonal; ragged tails of Sq and Sk are masked, so every S works, 384
-// included (the Pallas kernel asserts S % 256 == 0 there). The forward and
-// dQ grids run the longest causal q tiles first.
+// dS pass through shared memory only between the two warp groups at d =
+// 256 (below): their C fragments are the A fragments of P V, dS K, P^T dO
+// and dS^T Q (tf32_mma.cuh). Under the causal mask a block visits only the
+// tiles at or below (dK/dV: at or above) its diagonal; ragged tails of Sq
+// and Sk are masked, so every S works, 384 included (the Pallas kernel
+// asserts S % 256 == 0 there). The forward and dQ grids run the longest
+// causal q tiles first.
+//
+// The backward keeps 8 warps on each SM at every d. At d <= 128 its
+// kernels take at most 104,960 B of shared memory (d = 128: 16-row
+// streamed tiles, 101,632 B dK/dV and 101,376 B dQ), so two 4-warp blocks
+// share an SM. At d = 256 the resident K, V (or Q, dO) tiles alone take
+// 133,120 B, so a block is 8 warps in two groups over the same 64
+// resident rows: group 0 computes S, group 1 dP, each for its warp's 16
+// rows; they trade P and dP through shared memory (8 KB), both form dS,
+// and each group accumulates half of the dK/dV (dQ) columns, so S and dP
+// are computed once per (k tile, q tile) for all d columns.
+//
+// The forward's grid: one block per (q tile, b * H + h, range of k
+// tiles). Where B H ceil(Sq / 64) blocks cannot fill the card (gemma3-1b's
+// global layers: 32), the plan (kernels/_plan.py::flash_fwd_plan, a
+// function of the shape) cuts each q tile's k tiles into ranges of
+// `chunk` tiles, range r holding tiles [r chunk, (r + 1) chunk); a range
+// past its q tile's causal tiles returns at once. Each range writes its
+// partial (m, l, unnormalised O) to a workspace, and flash_fwd_merge_kernel
+// merges a row's ranges in increasing order (online_merge.cuh, the
+// recurrence of the paged merge). With one range the kernel writes o and
+// lse itself. The d = 256 forward keeps one block an SM (133,120 B: the
+// Q tile and two stages of 16-row K and V tiles): two would need 113 KB
+// each, so 8-row tiles (one n-tile a warp, twice the syncs per key) or
+// one stage (no copy in flight); the plan sizes its ranges to the 132
+// blocks the card holds instead.
 //
 // Grids that fill the card, with no atomics. dK/dV: one block per (k tile,
-// b * H + h, range * NC + column chunk). A block per query head gives
-// B H ceil(Sk / 64) blocks (the KV head's G-fold sum moves to the
-// partials); where that is under the card's 132 SMs the plan
-// (kernels/_plan.py::flash_dkdv_plan, a function of the shape alone) also
-// cuts each k tile's q tiles into `split` ranges. With G split > 1
-// partials, flash_sum_parts_kernel adds them in order. At d = 256 the
-// dK/dV columns come in two chunks of 128 (NC = 2), each block recomputing
-// S and dP, so that its accumulators fit in registers. dQ: one block per
-// (q tile, b * H + h, range); where B H ceil(Sq / 64) is under 132 SMs
-// (gemma3-1b's global layers: 32 blocks) the plan (flash_dq_plan) cuts
-// each q tile's k tiles into ranges too, and their partials are summed in
-// order.
+// b * H + h, range). A block per query head gives B H ceil(Sk / 64)
+// blocks (the KV head's G-fold sum moves to the partials). Causal k tiles
+// differ in length (k tile 0 sees every q tile, the last few), so where
+// those blocks come to less than two waves of the card the plan
+// (kernels/_plan.py::flash_dkdv_plan, a function of the shape alone) cuts
+// each k tile's q tiles into ranges of `chunk` tiles, `split` ranges.
+// With G split > 1 partials, flash_sum_parts_kernel adds them in order
+// (query head of the group, then range); a range past its k tile's q
+// tiles returns at once and the sum skips it. dQ: one block per (q tile,
+// b * H + h, range); the plan (flash_dq_plan) cuts each q tile's k tiles
+// into ranges of `chunk` tiles the same way, and their partials are
+// summed in range order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "online_merge.cuh"
 #include "tf32_mma.cuh"
 
 #define N_THREADS 128           // 4 warps; two blocks an SM, so up to 255
@@ -86,14 +114,16 @@
 #define ROWS 64                 // resident rows of a block, 16 per warp
 #define DOT_THREADS 256
 #define SUM_THREADS 256
+#define MERGE_THREADS 256
+#define MERGE_BATCH 8
 #define NEG_BIG (-1e30f)
 
 struct Strides {        // elements between consecutive b, s and head indices
   long long b, s, h;
 };
 
-// rows of a k tile the forward and dQ stream at head dim D (the shared
-// memory budget)
+// rows of a k tile the forward streams at head dim D (the shared memory
+// budget)
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
   return D <= 64 ? 64 : (D == 128 ? 32 : 16);
@@ -109,16 +139,32 @@ __host__ __device__ constexpr bool presplit() {
   return D <= 64;
 }
 
-// rows of a q tile the dK/dV kernel streams at head dim D
+// rows of a q tile the dK/dV kernel streams at head dim D: 16 at d >= 128,
+// so that two blocks share an SM at d = 128
 template <int D>
 __host__ __device__ constexpr int q_tile_rows() {
-  return presplit<D>() ? 32 : tile_rows<D>();
+  return presplit<D>() ? 32 : 16;
 }
 
-// dK/dV columns a block accumulates
+// rows of a k tile the dQ kernel streams at head dim D (16 at d >= 128,
+// as dK/dV's q tiles)
 template <int D>
-__host__ __device__ constexpr int col_chunk() {
-  return D <= 128 ? D : 128;
+__host__ __device__ constexpr int dq_tile_rows() {
+  return D <= 64 ? 64 : 16;
+}
+
+// warp groups of a backward block: two at d = 256, where the resident
+// tiles leave room for one block an SM, else one
+template <int D>
+__host__ __device__ constexpr int groups() {
+  return D == 256 ? 2 : 1;
+}
+
+// floats of the P / dP exchange of a two-group block (NT n-tiles of 16 x 8
+// per warp, 4 warps a group): each warp's C fragments, lane-minor
+template <int D, int NT>
+__host__ __device__ constexpr int xchg_floats() {
+  return groups<D>() == 2 ? 2 * 4 * NT * 4 * 32 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -128,13 +174,13 @@ __host__ __device__ constexpr int col_chunk() {
 // rows r0 .. r0 + R - 1 of one head of a (B, S, heads, D) tensor into an
 // (R, D + 4) tile by 16-byte cp.async; `base` points at (b, 0, head, 0);
 // rows >= S are zeros
-template <int D, int R>
+template <int D, int R, int NTH = N_THREADS>
 __device__ __forceinline__ void load_tile(float* __restrict__ tile,
                                           const float* __restrict__ base,
                                           long long row_stride, int r0,
                                           int S) {
   constexpr int C = D / 4;
-  for (int idx = threadIdx.x; idx < R * C; idx += N_THREADS) {
+  for (int idx = threadIdx.x; idx < R * C; idx += NTH) {
     const int r = idx / C, c = (idx % C) * 4, row = r0 + r;
     const bool ok = row < S;
     cp_async16(tile + r * (D + 4) + c, ok ? base + row * row_stride + c : base,
@@ -143,11 +189,11 @@ __device__ __forceinline__ void load_tile(float* __restrict__ tile,
 }
 
 // R entries v[r0 ..] of a row vector into shared memory; past S, zeros
-template <int R>
+template <int R, int NTH = N_THREADS>
 __device__ __forceinline__ void load_vec(float* __restrict__ dst,
                                          const float* __restrict__ v, int r0,
                                          int S) {
-  for (int r = threadIdx.x; r < R; r += N_THREADS) {
+  for (int r = threadIdx.x; r < R; r += NTH) {
     const bool ok = r0 + r < S;
     cp_async4(dst + r, ok ? v + r0 + r : v, ok);
   }
@@ -245,29 +291,62 @@ __device__ __forceinline__ FragA frag_a(const float* __restrict__ rows16,
 
 // C[16 x 8 n] += A[16 rows, D] B[8 n rows, D]^T for n-tiles n = 0 .. NT - 1
 // of `Bt` (rows 8 n ..): both operands k-contiguous, read by ldmatrix; two
-// k steps per round, the B tile of one n-tile over both in one ldmatrix
+// k steps per round, the B tile of one n-tile over both in one ldmatrix.
+// At NT <= 2 (16-row tiles) the k range's two halves accumulate apart, so
+// that each warp has 2 NT chains of D / 16 products in flight instead of
+// NT of D / 8, and C = (the lower half's sum) + (the upper half's)
 template <int D, int NT, typename BT>
 __device__ __forceinline__ void dot_rows(const float* __restrict__ A16,
                                          BT Bt, int lane, float (&c)[NT][4]) {
   constexpr int LD = D + 4;
   const auto brow = at(Bt, (lane & 7) * LD + 4 * (lane >> 3));
+  if constexpr (NT > 2) {
 #pragma unroll 2
-  for (int kk = 0; kk < D; kk += 16) {
-    const FragA a0 = frag_a<LD>(A16, kk, lane);
-    const FragA a1 = frag_a<LD>(A16, kk + 8, lane);
+    for (int kk = 0; kk < D; kk += 16) {
+      const FragA a0 = frag_a<LD>(A16, kk, lane);
+      const FragA a1 = frag_a<LD>(A16, kk + 8, lane);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      FragB b0, b1;
-      frag_b2(at(brow, 8 * n * LD + kk), b0, b1);
-      mma_3xtf32(c[n], a0, b0);
-      mma_3xtf32(c[n], a1, b1);
+      for (int n = 0; n < NT; ++n) {
+        FragB b0, b1;
+        frag_b2(at(brow, 8 * n * LD + kk), b0, b1);
+        mma_3xtf32(c[n], a0, b0);
+        mma_3xtf32(c[n], a1, b1);
+      }
     }
+  } else {
+    constexpr int H = D / 2;
+    float u[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[n][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < H; kk += 16) {
+      const FragA a0 = frag_a<LD>(A16, kk, lane);
+      const FragA a1 = frag_a<LD>(A16, kk + 8, lane);
+      const FragA e0 = frag_a<LD>(A16, kk + H, lane);
+      const FragA e1 = frag_a<LD>(A16, kk + H + 8, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragB b0, b1, f0, f1;
+        frag_b2(at(brow, 8 * n * LD + kk), b0, b1);
+        frag_b2(at(brow, 8 * n * LD + kk + H), f0, f1);
+        mma_3xtf32(c[n], a0, b0);
+        mma_3xtf32(u[n], e0, f0);
+        mma_3xtf32(c[n], a1, b1);
+        mma_3xtf32(u[n], e1, f1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += u[n][e];
   }
 }
 
 // c1 += A1 B1^T and c2 += A2 B2^T (dot_rows): one after the other, or, at
-// NT <= 2 (d = 256: two accumulators a warp), in one loop, so that four
-// accumulator chains are in flight; the same sums either way
+// NT <= 2, in one loop with each k range's halves apart as in dot_rows, so
+// that eight accumulator chains are in flight; the same sums either way
 template <int D, int NT, typename BT>
 __device__ __forceinline__ void dot_pair(const float* __restrict__ A1, BT B1,
                                          const float* __restrict__ A2, BT B2,
@@ -277,25 +356,43 @@ __device__ __forceinline__ void dot_pair(const float* __restrict__ A1, BT B1,
     dot_rows<D, NT>(A1, B1, lane, c1);
     dot_rows<D, NT>(A2, B2, lane, c2);
   } else {
-    constexpr int LD = D + 4;
+    constexpr int LD = D + 4, H = D / 2;
     const int boff = (lane & 7) * LD + 4 * (lane >> 3);
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 16) {
-      const FragA a0 = frag_a<LD>(A1, kk, lane);
-      const FragA a1 = frag_a<LD>(A1, kk + 8, lane);
-      const FragA e0 = frag_a<LD>(A2, kk, lane);
-      const FragA e1 = frag_a<LD>(A2, kk + 8, lane);
+    float u1[NT][4], u2[NT][4];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        FragB b0, b1, f0, f1;
-        frag_b2(at(B1, boff + 8 * n * LD + kk), b0, b1);
-        frag_b2(at(B2, boff + 8 * n * LD + kk), f0, f1);
-        mma_3xtf32(c1[n], a0, b0);
-        mma_3xtf32(c2[n], e0, f0);
-        mma_3xtf32(c1[n], a1, b1);
-        mma_3xtf32(c2[n], e1, f1);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u1[n][e] = u2[n][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < H; kk += 16) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k0 = kk + half * H;
+        const FragA a0 = frag_a<LD>(A1, k0, lane);
+        const FragA a1 = frag_a<LD>(A1, k0 + 8, lane);
+        const FragA e0 = frag_a<LD>(A2, k0, lane);
+        const FragA e1 = frag_a<LD>(A2, k0 + 8, lane);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          FragB b0, b1, f0, f1;
+          frag_b2(at(B1, boff + 8 * n * LD + k0), b0, b1);
+          frag_b2(at(B2, boff + 8 * n * LD + k0), f0, f1);
+          float (&x1)[4] = half ? u1[n] : c1[n];
+          float (&x2)[4] = half ? u2[n] : c2[n];
+          mma_3xtf32(x1, a0, b0);
+          mma_3xtf32(x2, e0, f0);
+          mma_3xtf32(x1, a1, b1);
+          mma_3xtf32(x2, e1, f1);
+        }
       }
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c1[n][e] += u1[n][e];
+        c2[n][e] += u2[n][e];
+      }
   }
 }
 
@@ -341,15 +438,20 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (q tile, b * H + h)
+// forward: one block per (q tile, b * H + h, range of k tiles)
 // ---------------------------------------------------------------------------
 
+// Range blockIdx.z holds k tiles [z chunk, (z + 1) chunk) of the q tile's
+// causal ones. One range (gridDim.z == 1): o and lse. Else the range's
+// partial: its unnormalised O in ws[z] (o's layout, B Sq H D floats each),
+// then (m, l) per (z, b, h, row) after the gridDim.z accumulators.
 template <int D>
 __global__ void __launch_bounds__(N_THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int G, int Sq, int Sk,
-                 Strides sq, Strides sk, Strides sv, int causal, float scale) {
+                 float* __restrict__ lse, float* __restrict__ ws, int H,
+                 int G, int Sq, int Sk, Strides sq, Strides sk, Strides sv,
+                 int causal, float scale, int chunk) {
   constexpr int BK = tile_rows<D>(), LD = D + 4, NT = BK / 8, DT = D / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // (ROWS, LD)
@@ -357,13 +459,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
+  const int kt_lo = blockIdx.z * chunk;
+  if (kt_lo >= n_kt) return;      // past this q tile's tiles: no partial
+  const int kt_hi = min(n_kt, kt_lo + chunk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
   load_tile<D, ROWS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
-  load_tile<D, BK>(Ks, kb, sk.s, 0, Sk);
-  load_tile<D, BK>(Vs, vb, sv.s, 0, Sk);
+  load_tile<D, BK>(Ks, kb, sk.s, kt_lo * BK, Sk);
+  load_tile<D, BK>(Vs, vb, sv.s, kt_lo * BK, Sk);
   cp_async_commit();
 
   float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, acc[DT][4];
@@ -373,10 +479,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   const float* Qw = Qs + 16 * warp * LD;
   const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
-  const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1, k0 = kt * BK;
-    if (kt + 1 < n_kt) {
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1, k0 = kt * BK;
+    if (kt + 1 < kt_hi) {
       load_tile<D, BK>(Ks + (st ^ 1) * BK * LD, kb, sk.s, k0 + BK, Sk);
       load_tile<D, BK>(Vs + (st ^ 1) * BK * LD, vb, sv.s, k0 + BK, Sk);
       cp_async_commit();
@@ -428,19 +533,66 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mul_rows<D, NT, DT>(s, Vs + st * BK * LD, 0, lane, acc);   // O += P V
     __syncthreads();              // this stage's readers are done
   }
+  // a row whose keys in this range are all masked keeps m = -1e30 (its
+  // l and O are then sums of e^0 terms): the merge weighs it by
+  // e^(-1e30 - m) = 0, as range 0, which holds key 0, is live for every row
+  const long long n_o = (long long)gridDim.y * Sq * D;     // o's size
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     const float sum = quad_sum(l[r]);
     if (row >= Sq) continue;
-    const float denom = fmaxf(sum, 1e-30f);
-    float* orow = o + (((long long)b * Sq + row) * H + h) * D + 2 * t;
+    const long long at = (((long long)b * Sq + row) * H + h) * D + 2 * t;
+    if (gridDim.z == 1) {
+      const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<float2*>(orow + 8 * i) =
-          make_float2(acc[i][2 * r] / denom, acc[i][2 * r + 1] / denom);
-    if (t == 0) lse[((long long)b * H + h) * Sq + row] = m[r] + logf(sum);
+      for (int i = 0; i < DT; ++i)
+        *reinterpret_cast<float2*>(o + at + 8 * i) =
+            make_float2(acc[i][2 * r] / denom, acc[i][2 * r + 1] / denom);
+      if (t == 0) lse[((long long)b * H + h) * Sq + row] = m[r] + logf(sum);
+    } else {
+      float* part = ws + blockIdx.z * n_o + at;
+#pragma unroll
+      for (int i = 0; i < DT; ++i)
+        *reinterpret_cast<float2*>(part + 8 * i) =
+            make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(
+            ws + gridDim.z * n_o
+            + 2 * ((((long long)blockIdx.z * gridDim.y + blockIdx.y) * Sq)
+                   + row)) = make_float2(m[r], sum);
+    }
   }
+}
+
+// o and lse from the forward's partials: block (b * Sq + row, y), one
+// thread per four elements of the row's H D, merging the row's live
+// ranges in increasing order (online_merge.cuh); the thread of column 0
+// writes lse = m + log l
+template <int D>
+__global__ void __launch_bounds__(MERGE_THREADS)
+flash_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
+                       float* __restrict__ lse, int B, int H, int Sq, int Sk,
+                       int causal, int chunk, int split) {
+  const int e = 4 * (blockIdx.y * MERGE_THREADS + threadIdx.x);  // h D + c
+  if (e >= H * D) return;
+  const int h = e / D, row = blockIdx.x % Sq, b = blockIdx.x / Sq;
+  const int n_kt = k_tiles(row / ROWS * ROWS, Sq, Sk, tile_rows<D>(), causal);
+  const long long n_o = (long long)B * Sq * H * D;          // o's size
+  const long long i = (long long)blockIdx.x * H * D + e;    // in o
+  const long long bhr = ((long long)b * H + h) * Sq + row;
+  const float* ml = ws + split * n_o + 2 * bhr;             // + z step
+  const long long step = 2LL * B * H * Sq;
+  const MergedState<float4> r = ordered_merge<MERGE_BATCH, float4>(
+      0, (n_kt - 1) / chunk, [&](int z) { return ml[z * step]; },
+      [&](int z) { return ml[z * step + 1]; },
+      [&](int z) {
+        return *reinterpret_cast<const float4*>(ws + z * n_o + i);
+      });
+  const float denom = fmaxf(r.l, 1e-30f);
+  *reinterpret_cast<float4*>(o + i) = make_float4(
+      r.o.x / denom, r.o.y / denom, r.o.z / denom, r.o.w / denom);
+  if (e % D == 0) lse[bhr] = r.m + logf(r.l);
 }
 
 // ---------------------------------------------------------------------------
@@ -472,19 +624,39 @@ flash_bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dO,
 }
 
 // ---------------------------------------------------------------------------
-// backward 2: dK, dV of one (k tile, b * H + h, range * NC + column chunk)
+// backward 2: dK, dV of one (k tile, b * H + h, range)
 // ---------------------------------------------------------------------------
 
+// A C fragment set p[NT][4] of one warp to the exchange slot x (lane-minor,
+// so a warp's 32 lanes store and load 32 consecutive floats), and back
+template <int NT>
+__device__ __forceinline__ void xchg_put(float* x, const float (&p)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = p[n][e];
+}
+
+template <int NT>
+__device__ __forceinline__ void xchg_get(const float* x, float (&p)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[n][e] = x[(4 * n + e) * 32];
+}
+
 template <int D>
-__global__ void __launch_bounds__(N_THREADS, 2)
+__global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dO,
                       const float* __restrict__ lse,
                       const float* __restrict__ Dd, float* __restrict__ dk,
                       float* __restrict__ dv, float* __restrict__ parts,
                       int H, int G, int Sq, int Sk, Strides sq, Strides sk,
-                      Strides sv, int causal, float scale, int split) {
-  constexpr int BQ = q_tile_rows<D>(), DC = col_chunk<D>(), NC = D / DC;
+                      Strides sv, int causal, float scale, int split,
+                      int chunk) {
+  constexpr int WG = groups<D>(), NTH = 128 * WG;
+  constexpr int BQ = q_tile_rows<D>(), DC = D / WG;
   constexpr int LD = D + 4, NT = BQ / 8, CT = DC / 8;
   constexpr int STAGE = 2 * BQ * LD + 2 * BQ;
   constexpr bool PS = presplit<D>();
@@ -495,31 +667,34 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                   //             lse (BQ), D (BQ)]
   float* Qp = ring + 2 * STAGE;   // PS: this Q tile's hi, lo (BQ, LD) each
   float* dOp = Qp + 2 * BQ * LD;  // PS: dO's
+  float* X = ring + 2 * STAGE;    // WG = 2: P^T (group 0), dP^T (group 1)
   const int KV = H / G;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int range = blockIdx.z / NC, c0 = (blockIdx.z % NC) * DC;
+  const int range = blockIdx.z;
   const int k0 = blockIdx.x * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = warp % 4, grp = warp / 4, c0 = grp * DC;
   const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dO + (long long)b * Sq * do_s + h * D;
   const float* lse_h = lse + ((long long)b * H + h) * Sq;
   const float* D_h = Dd + ((long long)b * H + h) * Sq;
-  // this block's q tiles: range `range` of the split of those at or above
-  // the diagonal
+  // this block's q tiles: range `range`, of `chunk` tiles, of those at or
+  // above the diagonal; past them, none (with partials, no work at all)
   const int nq = (Sq + BQ - 1) / BQ;
   const int first = causal ? min(k0 / BQ, nq) : 0;
-  const int qt_lo = first + (nq - first) * range / split;
-  const int qt_hi = first + (nq - first) * (range + 1) / split;
+  const int qt_lo = min(nq, first + range * chunk);
+  const int qt_hi = min(nq, qt_lo + chunk);
+  if (G * split > 1 && qt_lo >= qt_hi) return;   // the sum skips it
 
-  load_tile<D, ROWS>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
-  load_tile<D, ROWS>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
+  load_tile<D, ROWS, NTH>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
+  load_tile<D, ROWS, NTH>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
   auto load_q = [&](float* st, int qt) {
-    load_tile<D, BQ>(st, qb, sq.s, qt * BQ, Sq);
-    load_tile<D, BQ>(st + BQ * LD, dob, do_s, qt * BQ, Sq);
-    load_vec<BQ>(st + 2 * BQ * LD, lse_h, qt * BQ, Sq);
-    load_vec<BQ>(st + 2 * BQ * LD + BQ, D_h, qt * BQ, Sq);
+    load_tile<D, BQ, NTH>(st, qb, sq.s, qt * BQ, Sq);
+    load_tile<D, BQ, NTH>(st + BQ * LD, dob, do_s, qt * BQ, Sq);
+    load_vec<BQ, NTH>(st + 2 * BQ * LD, lse_h, qt * BQ, Sq);
+    load_vec<BQ, NTH>(st + 2 * BQ * LD + BQ, D_h, qt * BQ, Sq);
   };
   if (qt_lo < qt_hi) load_q(ring, qt_lo);
   cp_async_commit();
@@ -529,9 +704,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < CT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  const float* Kw = Ks + 16 * warp * LD;
-  const float* Vw = Vs + 16 * warp * LD;
-  const int key0 = k0 + 16 * warp + g;      // this thread's keys: +0, +8
+  const float* Kw = Ks + 16 * kw * LD;
+  const float* Vw = Vs + 16 * kw * LD;
+  const int key0 = k0 + 16 * kw + g;        // this thread's keys: +0, +8
+  float* Xw = X + (grp * 4 + kw) * NT * 4 * 32 + lane;        // mine
+  const float* Xo = X + ((1 - grp) * 4 + kw) * NT * 4 * 32 + lane;
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
     float* st = ring + ((qt - qt_lo) & 1) * STAGE;
     if (qt + 1 < qt_hi) {
@@ -559,23 +736,51 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
-    dot_pair<D, NT>(Kw, Qb, Vw, dOb, lane, sT, dpT);   // S^T, dP^T (k, q)
+    if constexpr (WG == 1)
+      dot_pair<D, NT>(Kw, Qb, Vw, dOb, lane, sT, dpT);   // S^T, dP^T (k, q)
+    else if (grp == 0)
+      dot_rows<D, NT>(Kw, Qb, lane, sT);                 // S^T
+    else
+      dot_rows<D, NT>(Vw, dOb, lane, dpT);               // dP^T
     const bool edge = q0 + BQ > Sq || k0 + ROWS > Sk
                       || (causal && k0 + ROWS - 1 > q0);
+    // P^T = exp(S^T - lse), masked; dS^T = P^T (dP^T - D)
+    auto p_of = [&](int n, int e) {
+      const int c = 8 * n + 2 * t + (e & 1);
+      const float p = expf(sT[n][e] * scale - lse_s[c]);
+      return edge && masked(q0 + c, key0 + 8 * (e >> 1), Sq, Sk, causal)
+                 ? 0.f : p;
+    };
+    if constexpr (WG == 1) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);
-        float p = expf(sT[n][e] * scale - lse_s[c]);
-        if (edge && masked(q0 + c, key0 + 8 * (e >> 1), Sq, Sk, causal))
-          p = 0.f;
-        sT[n][e] = p;                        // P^T
-        dpT[n][e] = p * (dpT[n][e] - D_s[c]);  // dS^T
+        for (int e = 0; e < 4; ++e) {
+          const float p = p_of(n, e);
+          sT[n][e] = p;
+          dpT[n][e] = p * (dpT[n][e] - D_s[8 * n + 2 * t + (e & 1)]);
+        }
+    } else {                     // trade P^T and dP^T between the groups
+      if (grp == 0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[n][e] = p_of(n, e);
+        xchg_put<NT>(Xw, sT);
+      } else {
+        xchg_put<NT>(Xw, dpT);
       }
+      __syncthreads();
+      if (grp == 0) xchg_get<NT>(Xo, dpT); else xchg_get<NT>(Xo, sT);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpT[n][e] = sT[n][e] * (dpT[n][e] - D_s[8 * n + 2 * t + (e & 1)]);
+    }
     mul_rows<D, NT, CT>(sT, dOb, c0, lane, dv_acc);    // dV += P^T dO
     mul_rows<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);    // dK += dS^T Q
-    __syncthreads();              // this stage's readers are done
+    __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves K, V in flight
 
@@ -602,19 +807,45 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// out[y] (n4 float4) = its n_parts partials, parts[y][p] (p = 0 ..
-// n_parts - 1, each n4 float4), summed in part order; y = blockIdx.y
+// Ranges with work among a row's partials: dK/dV rows are keys (their k
+// tile's q tiles of `tile` rows, from its diagonal), dQ rows queries
+// (their q tile's k tiles of `tile` keys), cut into ranges of `chunk`
+__device__ __forceinline__ int live_ranges(bool key_rows, int row, int Sq,
+                                           int Sk, int tile, int causal,
+                                           int chunk) {
+  if (key_rows) {
+    const int nq = (Sq + tile - 1) / tile;
+    const int first = causal ? min(row / ROWS * ROWS / tile, nq) : 0;
+    return (nq - first + chunk - 1) / chunk;
+  }
+  return (k_tiles(row / ROWS * ROWS, Sq, Sk, tile, causal) + chunk - 1)
+         / chunk;
+}
+
+// out[y] (n4 float4) = the partials of its row with work, parts[y][g split
+// + r] for g < G, r < the row's live ranges (each n4 float4), summed in
+// that order; y = blockIdx.y. A row of `row4` float4, S_rows rows a batch.
 __global__ void __launch_bounds__(SUM_THREADS)
 flash_sum_parts_kernel(const float4* __restrict__ parts, float4* out0,
-                       float4* out1, int n_parts, long long n4) {
+                       float4* out1, int G, int split, long long n4,
+                       int row4, int S_rows, int key_rows, int Sq, int Sk,
+                       int tile, int causal, int chunk) {
   const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
   if (i >= n4) return;
-  const float4* src = parts + blockIdx.y * n_parts * n4 + i;
-  float4 acc = src[0];
-  for (int p = 1; p < n_parts; ++p) {
-    const float4 x = src[p * n4];
-    acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
-  }
+  const int row = (int)((i / row4) % S_rows);
+  const int live = live_ranges(key_rows, row, Sq, Sk, tile, causal, chunk);
+  const float4* src = parts + blockIdx.y * G * split * n4 + i;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int g = 0; g < G; ++g)
+    for (int r = 0; r < live; ++r) {
+      const float4 x = src[(g * split + r) * n4];
+      if (g == 0 && r == 0) {
+        acc = x;
+      } else {
+        acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z,
+                          acc.w + x.w);
+      }
+    }
   (blockIdx.y ? out1 : out0)[i] = acc;
 }
 
@@ -623,43 +854,48 @@ flash_sum_parts_kernel(const float4* __restrict__ parts, float4* out0,
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(N_THREADS, 2)
+__global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
                     const float* __restrict__ Dd, float* __restrict__ dq,
                     float* __restrict__ parts, int H, int G, int Sq, int Sk,
                     Strides sq, Strides sk, Strides sv, int causal,
-                    float scale, int split) {
-  constexpr int BK = tile_rows<D>(), LD = D + 4, NT = BK / 8, DT = D / 8;
+                    float scale, int split, int chunk) {
+  constexpr int WG = groups<D>(), NTH = 128 * WG;
+  constexpr int BK = dq_tile_rows<D>(), LD = D + 4, NT = BK / 8;
+  constexpr int DC = D / WG, CT = DC / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // (ROWS, LD)
   float* dOs = Qs + ROWS * LD;    // (ROWS, LD)
   float* Ks = dOs + ROWS * LD;    // 2 stages x (BK, LD)
   float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
+  float* X = Vs + 2 * BK * LD;    // WG = 2: P (group 0), dP (group 1)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qw = warp % 4, grp = warp / 4, c0 = grp * DC;
   const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  load_tile<D, ROWS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
-  load_tile<D, ROWS>(dOs, dO + (long long)b * Sq * do_s + h * D, do_s, q0,
-                     Sq);
-  // this block's k tiles: range blockIdx.z of the split of those at or
-  // below the diagonal
+  // this block's k tiles: range blockIdx.z, of `chunk` tiles, of those at
+  // or below the diagonal; past them, none (with partials, no work at all)
   const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
-  const int kt_lo = n_kt * blockIdx.z / split;
-  const int kt_hi = n_kt * (blockIdx.z + 1) / split;
+  const int kt_lo = min(n_kt, (int)blockIdx.z * chunk);
+  const int kt_hi = min(n_kt, kt_lo + chunk);
+  if (split > 1 && kt_lo >= kt_hi) return;       // the sum skips it
+  load_tile<D, ROWS, NTH>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<D, ROWS, NTH>(dOs, dO + (long long)b * Sq * do_s + h * D, do_s,
+                          q0, Sq);
   if (kt_lo < kt_hi) {
-    load_tile<D, BK>(Ks, kb, sk.s, kt_lo * BK, Sk);
-    load_tile<D, BK>(Vs, vb, sv.s, kt_lo * BK, Sk);
+    load_tile<D, BK, NTH>(Ks, kb, sk.s, kt_lo * BK, Sk);
+    load_tile<D, BK, NTH>(Vs, vb, sv.s, kt_lo * BK, Sk);
   }
   cp_async_commit();
 
-  const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
-  float lse_r[2], D_r[2], acc[DT][4];
+  const int row0 = q0 + 16 * qw + g;        // this thread's rows: +0, +8
+  float lse_r[2], D_r[2], acc[CT][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -668,16 +904,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     D_r[r] = row < Sq ? Dd[at] : 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < DT; ++i)
+  for (int i = 0; i < CT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  const float* Qw = Qs + 16 * warp * LD;
-  const float* dOw = dOs + 16 * warp * LD;
+  const float* Qw = Qs + 16 * qw * LD;
+  const float* dOw = dOs + 16 * qw * LD;
+  float* Xw = X + (grp * 4 + qw) * NT * 4 * 32 + lane;        // mine
+  const float* Xo = X + ((1 - grp) * 4 + qw) * NT * 4 * 32 + lane;
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int st = (kt - kt_lo) & 1, k0 = kt * BK;
     if (kt + 1 < kt_hi) {
-      load_tile<D, BK>(Ks + (st ^ 1) * BK * LD, kb, sk.s, k0 + BK, Sk);
-      load_tile<D, BK>(Vs + (st ^ 1) * BK * LD, vb, sv.s, k0 + BK, Sk);
+      load_tile<D, BK, NTH>(Ks + (st ^ 1) * BK * LD, kb, sk.s, k0 + BK, Sk);
+      load_tile<D, BK, NTH>(Vs + (st ^ 1) * BK * LD, vb, sv.s, k0 + BK, Sk);
       cp_async_commit();
       cp_async_wait_prior();
     } else {
@@ -691,22 +929,48 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    dot_pair<D, NT>(Qw, Kt, dOw, Vt, lane, s, dp);      // S, dP (q, k)
+    if constexpr (WG == 1)
+      dot_pair<D, NT>(Qw, Kt, dOw, Vt, lane, s, dp);    // S, dP (q, k)
+    else if (grp == 0)
+      dot_rows<D, NT>(Qw, Kt, lane, s);                  // S
+    else
+      dot_rows<D, NT>(dOw, Vt, lane, dp);                // dP
     const bool edge = q0 + ROWS > Sq || k0 + BK > Sk
                       || (causal && k0 + BK - 1 > q0);
+    // P = exp(S - lse), masked; dS = P (dP - D), into s
+    auto p_of = [&](int n, int e) {
+      const int r = e >> 1;
+      const float p = expf(s[n][e] * scale - lse_r[r]);
+      return edge && masked(row0 + 8 * r, k0 + 8 * n + 2 * t + (e & 1), Sq,
+                            Sk, causal)
+                 ? 0.f : p;
+    };
+    if constexpr (WG == 1) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = expf(s[n][e] * scale - lse_r[r]);
-        if (edge && masked(row0 + 8 * r, k0 + 8 * n + 2 * t + (e & 1), Sq, Sk,
-                           causal))
-          p = 0.f;
-        s[n][e] = p * (dp[n][e] - D_r[r]);           // dS
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = p_of(n, e) * (dp[n][e] - D_r[e >> 1]);
+    } else {                     // trade P and dP between the groups
+      if (grp == 0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = p_of(n, e);
+        xchg_put<NT>(Xw, s);
+      } else {
+        xchg_put<NT>(Xw, dp);
       }
-    mul_rows<D, NT, DT>(s, Kt, 0, lane, acc);         // dQ += dS K
-    __syncthreads();              // this stage's readers are done
+      __syncthreads();
+      if (grp == 0) xchg_get<NT>(Xo, dp); else xchg_get<NT>(Xo, s);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = s[n][e] * (dp[n][e] - D_r[e >> 1]);
+    }
+    mul_rows<D, NT, CT>(s, Kt, c0, lane, acc);        // dQ += dS K
+    __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves Q, dO in flight
 
@@ -717,9 +981,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    float* dqrow = out + (((long long)b * Sq + row) * H + h) * D + 2 * t;
+    float* dqrow = out + (((long long)b * Sq + row) * H + h) * D + c0 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < DT; ++i)
+    for (int i = 0; i < CT; ++i)
       *reinterpret_cast<float2*>(dqrow + 8 * i) =
           make_float2(acc[i][2 * r] * scale, acc[i][2 * r + 1] * scale);
   }
@@ -740,29 +1004,47 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 struct Args {
   const float *q, *k, *v, *o, *dO, *lse;
   float *out, *lse_out, *Dd, *dq, *dk, *dv, *parts;
-  int B, H, KV, Sq, Sk, causal, split, dq_split;
+  int B, H, KV, Sq, Sk, causal, split, dq_split, chunk, dq_chunk;
   Strides sq, sk, sv;
   float scale;
   cudaStream_t stream;
 };
 
+// `split` ranges of `chunk` k tiles each (kernels/_plan.py::
+// flash_fwd_plan); with split > 1, a.parts holds split B Sq H D partial
+// accumulators, then split B H Sq (m, l) pairs
 template <int D>
 static int launch_fwd(const Args& a) {
   constexpr int BK = tile_rows<D>(), LD = D + 4;
+  if ((long long)a.split * a.chunk < (a.Sk + BK - 1) / BK)
+    return (int)cudaErrorInvalidValue;       // the ranges miss k tiles
   const size_t smem = sizeof(float) * (ROWS * LD + 4 * BK * LD);
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H));
+  dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
+            (unsigned)a.split);
   flash_fwd_kernel<D><<<grid, N_THREADS, smem, a.stream>>>(
-      a.q, a.k, a.v, a.out, a.lse_out, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq,
-      a.sk, a.sv, a.causal, a.scale);
+      a.q, a.k, a.v, a.out, a.lse_out, a.parts, a.H, a.H / a.KV, a.Sq, a.Sk,
+      a.sq, a.sk, a.sv, a.causal, a.scale, a.chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.split == 1) return (int)err;
+  dim3 grid_m((unsigned)(a.B * a.Sq),
+              (unsigned)((a.H * D / 4 + MERGE_THREADS - 1) / MERGE_THREADS));
+  flash_fwd_merge_kernel<D><<<grid_m, MERGE_THREADS, 0, a.stream>>>(
+      a.parts, a.out, a.lse_out, a.B, a.H, a.Sq, a.Sk, a.causal, a.chunk,
+      a.split);
   return (int)cudaGetLastError();
 }
 
+// `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
+// of `dq_chunk` k tiles per dQ block (kernels/_plan.py)
 template <int D>
 static int launch_bwd(const Args& a) {
-  constexpr int BT = tile_rows<D>(), BQ = q_tile_rows<D>(), LD = D + 4;
-  constexpr int NC = D / col_chunk<D>(), PS = presplit<D>();
+  constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>(), LD = D + 4;
+  constexpr int PS = presplit<D>(), NTH = 128 * groups<D>();
+  if ((long long)a.split * a.chunk < (a.Sq + BQ - 1) / BQ
+      || (long long)a.dq_split * a.dq_chunk < (a.Sk + BT - 1) / BT)
+    return (int)cudaErrorInvalidValue;       // the ranges miss tiles
   const int G = a.H / a.KV;
   const long long rows = (long long)a.B * a.Sq * a.H;
   flash_bwd_dot_kernel<D><<<(unsigned)((rows * 32 + DOT_THREADS - 1)
@@ -772,16 +1054,18 @@ static int launch_bwd(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  // kernels/_plan.py::flash_dkdv_smem, flash_dq_smem
   const size_t smem_kv = sizeof(float) * (2 * ROWS * LD
                                           + 2 * (2 * BQ * LD + 2 * BQ)
-                                          + 4 * PS * BQ * LD);
+                                          + 4 * PS * BQ * LD
+                                          + xchg_floats<D, BQ / 8>());
   err = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
-               (unsigned)(a.split * NC));
-  flash_bwd_dkdv_kernel<D><<<grid_kv, N_THREADS, smem_kv, a.stream>>>(
+               (unsigned)a.split);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, NTH, smem_kv, a.stream>>>(
       a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dk, a.dv, a.parts, a.H, G, a.Sq,
-      a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split);
+      a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split, a.chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the partials: 2 G split of dk's size, then dq_split of dq's
@@ -791,27 +1075,29 @@ static int launch_bwd(const Args& a) {
   if (n_parts > 1) {
     dim3 grid_sum((unsigned)((n_kv4 + SUM_THREADS - 1) / SUM_THREADS), 2);
     flash_sum_parts_kernel<<<grid_sum, SUM_THREADS, 0, a.stream>>>(
-        (const float4*)a.parts, (float4*)a.dk, (float4*)a.dv, n_parts,
-        n_kv4);
+        (const float4*)a.parts, (float4*)a.dk, (float4*)a.dv, G, a.split,
+        n_kv4, a.KV * D / 4, a.Sk, 1, a.Sq, a.Sk, BQ, a.causal, a.chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
-  const size_t smem_q = sizeof(float) * (2 * ROWS * LD + 4 * BT * LD);
+  const size_t smem_q = sizeof(float) * (2 * ROWS * LD + 4 * BT * LD
+                                         + xchg_floats<D, BT / 8>());
   err = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
               (unsigned)a.dq_split);
-  flash_bwd_dq_kernel<D><<<grid_q, N_THREADS, smem_q, a.stream>>>(
+  flash_bwd_dq_kernel<D><<<grid_q, NTH, smem_q, a.stream>>>(
       a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dq, parts_q, a.H, G, a.Sq, a.Sk,
-      a.sq, a.sk, a.sv, a.causal, a.scale, a.dq_split);
+      a.sq, a.sk, a.sv, a.causal, a.scale, a.dq_split, a.dq_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.dq_split == 1) return (int)err;
   const long long n_q4 = (long long)a.B * a.Sq * a.H * D / 4;
   flash_sum_parts_kernel<<<(unsigned)((n_q4 + SUM_THREADS - 1)
                                       / SUM_THREADS),
                            SUM_THREADS, 0, a.stream>>>(
-      (const float4*)parts_q, (float4*)a.dq, nullptr, a.dq_split, n_q4);
+      (const float4*)parts_q, (float4*)a.dq, nullptr, 1, a.dq_split, n_q4,
+      a.H * D / 4, a.Sq, 0, a.Sq, a.Sk, BT, a.causal, a.dq_chunk);
   return (int)cudaGetLastError();
 }
 
@@ -852,7 +1138,7 @@ static Args make_args(const void* q, const void* k, const void* v, int B,
   a.k = (const float*)k;
   a.v = (const float*)v;
   a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.causal = causal;
-  a.split = a.dq_split = 1;
+  a.split = a.dq_split = a.chunk = a.dq_chunk = 1;
   a.sq = {qsb, qss, qsh};
   a.sk = {ksb, kss, ksh};
   a.sv = {vsb, vss, vsh};
@@ -861,33 +1147,44 @@ static Args make_args(const void* q, const void* k, const void* v, int B,
   return a;
 }
 
+// `split` ranges of `chunk` k tiles per q tile (kernels/_plan.py::
+// flash_fwd_plan); `ws` holds split (B Sq H d + 2 B H Sq) floats when
+// split > 1
 extern "C" int flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KV, int Sq, int Sk, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, void* stream) {
+    long long vsb, long long vss, long long vsh, int causal, int split,
+    int chunk, void* ws, void* stream) {
   Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
                      ksh, vsb, vss, vsh, causal, stream);
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  if (!valid(a) || split < 1 || chunk < 1 || split > 65535
+      || (split > 1 && !aligned16(ws)))
+    return (int)cudaErrorInvalidValue;
   a.out = (float*)o;
   a.lse_out = (float*)lse;
+  a.parts = (float*)ws;
+  a.split = split;
+  a.chunk = chunk;
   return dispatch<true>(d, a);
 }
 
-// `split` ranges of q tiles per dK/dV block and `dq_split` ranges of k
-// tiles per dQ block (kernels/_plan.py); `parts` holds 2 (H / KV) split
-// partials of dk's size when (H / KV) split > 1, then dq_split of dq's
-// when dq_split > 1
+// `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
+// of `dq_chunk` k tiles per dQ block (kernels/_plan.py); `parts` holds 2
+// (H / KV) split partials of dk's size when (H / KV) split > 1, then
+// dq_split of dq's when dq_split > 1
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* Dd, void* dq, void* dk, void* dv,
     int B, int H, int KV, int Sq, int Sk, int d, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
-    int split, int dq_split, void* parts, void* stream) {
+    int split, int chunk, int dq_split, int dq_chunk, void* parts,
+    void* stream) {
   Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
                      ksh, vsb, vss, vsh, causal, stream);
-  if (!valid(a) || split < 1 || dq_split < 1 || !aligned16(dO)
+  if (!valid(a) || split < 1 || dq_split < 1 || chunk < 1 || dq_chunk < 1
+      || split > 65535 || dq_split > 65535 || !aligned16(dO)
       || (((H / KV) * split > 1 || dq_split > 1) && !aligned16(parts)))
     return (int)cudaErrorInvalidValue;
   a.o = (const float*)o;
@@ -899,7 +1196,9 @@ extern "C" int flash_attention_bwd_f32(
   a.dv = (float*)dv;
   a.parts = (float*)parts;
   a.split = split;
+  a.chunk = chunk;
   a.dq_split = dq_split;
+  a.dq_chunk = dq_chunk;
   return dispatch<false>(d, a);
 }
 

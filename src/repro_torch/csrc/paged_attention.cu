@@ -46,7 +46,8 @@
 //    order, m = max m_c, l = sum l_c exp(m_c - m), o = sum acc_c
 //    exp(m_c - m) / max(l, 1e-30), the TPU kernel's online recurrence and
 //    _flush (attention_paged.py:115-129) over chunks, with the loads of
-//    MERGE_BATCH chunks issued before any is used.
+//    MERGE_BATCH chunks issued before any is used (online_merge.cuh, the
+//    recurrence the flash forward's merge shares).
 // Every sum of slot s runs in an order fixed by the plan and s's own
 // length, so its bits do not depend on the other slots or on S, and two
 // calls give the same bits.
@@ -62,6 +63,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "online_merge.cuh"
 
 #define NEG_INF (-1e30f)
 #define N_THREADS 128
@@ -297,37 +299,11 @@ paged_merge_kernel(const float* __restrict__ acc_ws,
   const size_t first = ((size_t)s * KV + kv) * n_chunks;   // chunk 0's part
   const float* ml = ml_ws + (first * G + i / dh) * 2;      // + c * G * 2
   const float* acc = acc_ws + first * G * dh + i;          // + c * G * dh
-  // MERGE_BATCH chunks' loads at a time, all issued before any is used
-  float m = NEG_INF;
-  for (int cb = c0; cb <= c1; cb += MERGE_BATCH) {
-    float mb[MERGE_BATCH];
-#pragma unroll
-    for (int u = 0; u < MERGE_BATCH; ++u)
-      mb[u] = cb + u <= c1 ? ml[(size_t)(cb + u) * G * 2] : NEG_INF;
-#pragma unroll
-    for (int u = 0; u < MERGE_BATCH; ++u) m = fmaxf(m, mb[u]);
-  }
-  float l = 0.f;
-  float o = 0.f;
-  for (int cb = c0; cb <= c1; cb += MERGE_BATCH) {
-    float mb[MERGE_BATCH], lb[MERGE_BATCH], ab[MERGE_BATCH];
-#pragma unroll
-    for (int u = 0; u < MERGE_BATCH; ++u) {
-      const bool live = cb + u <= c1;
-      mb[u] = live ? ml[(size_t)(cb + u) * G * 2] : NEG_INF;
-      lb[u] = live ? ml[(size_t)(cb + u) * G * 2 + 1] : 0.f;
-      ab[u] = live ? acc[(size_t)(cb + u) * G * dh] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < MERGE_BATCH; ++u) {
-      if (cb + u <= c1) {                  // in increasing chunk order
-        const float w = expf(mb[u] - m);
-        l += lb[u] * w;
-        o += ab[u] * w;
-      }
-    }
-  }
-  out[((size_t)s * KV + kv) * G * dh + i] = o / fmaxf(l, 1e-30f);
+  const MergedState<float> r = ordered_merge<MERGE_BATCH, float>(
+      c0, c1, [&](int c) { return ml[(size_t)c * G * 2]; },
+      [&](int c) { return ml[(size_t)c * G * 2 + 1]; },
+      [&](int c) { return acc[(size_t)c * G * dh]; });
+  out[((size_t)s * KV + kv) * G * dh + i] = r.o / fmaxf(r.l, 1e-30f);
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

@@ -3,8 +3,8 @@
 - the split-K plan of the projection GEMM (``csrc/proj_gemm.cuh``), shared
   by its two users: the compressor's projections (``fused_compress``) and
   ``lowrank_mm``'s split route;
-- the dK/dV and dQ plans of the flash backward
-  (``csrc/flash_attention.cu``);
+- the forward's k-range plan and the dK/dV and dQ plans of flash
+  attention (``csrc/flash_attention.cu``);
 - the page chunks of paged decode attention
   (``csrc/paged_attention.cu``).
 
@@ -16,6 +16,7 @@ launch, and a transposed view the bits of its contiguous copy.
 from __future__ import annotations
 
 import functools
+import heapq
 from typing import Tuple
 
 BM = 128           # rows of the GEMM's output tile (its columns: r <= 64)
@@ -68,61 +69,234 @@ def workspace_floats(S: int, elems: int) -> int:
 
 
 FLASH_ROWS = 64    # resident rows of a flash block (4 warps x 16)
+SM_SMEM = 233_472  # shared memory of an H100 SM (228 KB) ...
+BLOCK_SMEM = 1_024  # ... of which each resident block reserves 1 KB
+FLASH_BLOCK_TILES = 2   # a block's set-up and write-out, in its streamed tiles
+FLASH_MERGE_TILES = 2   # the merge or sum pass of the partials, likewise
 
 
 def flash_tile(d: int) -> int:
-    """Rows of the k tiles the forward and dQ kernels stream at head dim
-    ``d`` (the kernels' ``tile_rows``)."""
+    """Rows of the k tiles the forward kernel streams at head dim ``d``
+    (the kernels' ``tile_rows``)."""
     return 64 if d <= 64 else 32 if d == 128 else 16
+
+
+def flash_dq_tile(d: int) -> int:
+    """Rows of the k tiles the dQ kernel streams at head dim ``d`` (the
+    kernels' ``dq_tile_rows``: 16 at d >= 128, so that two blocks share an
+    SM at d = 128)."""
+    return 64 if d <= 64 else 16
 
 
 def flash_q_tile(d: int) -> int:
     """Rows of the q tiles the dK/dV kernel streams at head dim ``d`` (the
     kernels' ``q_tile_rows``: 32 where it splits them to TF32 once, d <=
-    64)."""
-    return 32 if d <= 64 else flash_tile(d)
+    64, else 16)."""
+    return 32 if d <= 64 else 16
 
 
-def flash_col_chunks(d: int) -> int:
-    """dK/dV column chunks of 128 a block accumulates at head dim ``d``
-    (the kernels' D / ``col_chunk``)."""
-    return d // 128 if d > 128 else 1
+def flash_groups(d: int) -> int:
+    """Warp groups of 4 warps in a backward block (the kernels'
+    ``groups``): two at d = 256, which split S and dP and each own half of
+    the dK/dV (dQ) columns, else one."""
+    return 2 if d == 256 else 1
 
 
-def flash_dkdv_blocks(B: int, H: int, Sk: int, d: int, split: int) -> int:
-    """Blocks of the dK/dV kernel's grid: (k tile, b * H + h, range *
-    column chunks + chunk)."""
-    return B * H * -(-Sk // FLASH_ROWS) * flash_col_chunks(d) * split
+def _xchg_floats(d: int, rows: int) -> int:
+    # the P / dP exchange of a two-group block: 2 groups x 4 warps x the
+    # warp's C fragments (rows / 8 n-tiles of 4 floats a lane)
+    return 2 * 4 * (rows // 8) * 4 * 32 if flash_groups(d) == 2 else 0
+
+
+def flash_fwd_smem(d: int) -> int:
+    """Shared memory bytes of a forward block (``launch_fwd``): the
+    resident Q tile and two stages of K and V tiles, at a pitch of d + 4."""
+    return 4 * (FLASH_ROWS + 4 * flash_tile(d)) * (d + 4)
+
+
+def flash_dkdv_smem(d: int) -> int:
+    """Shared memory bytes of a dK/dV block (``launch_bwd``): resident K
+    and V, two stages of (Q, dO, lse, D) tiles, the TF32 parts of a Q and
+    a dO tile at d <= 64, the P / dP exchange at d = 256."""
+    bq, ld = flash_q_tile(d), d + 4
+    return 4 * (2 * FLASH_ROWS * ld + 2 * (2 * bq * ld + 2 * bq)
+                + (d <= 64) * 4 * bq * ld + _xchg_floats(d, bq))
+
+
+def flash_dq_smem(d: int) -> int:
+    """Shared memory bytes of a dQ block (``launch_bwd``): resident Q and
+    dO, two stages of K and V tiles, the P / dP exchange at d = 256."""
+    bt, ld = flash_dq_tile(d), d + 4
+    return 4 * (2 * FLASH_ROWS * ld + 4 * bt * ld + _xchg_floats(d, bt))
+
+
+def flash_blocks_per_sm(smem: int) -> int:
+    """Blocks of one flash kernel an SM holds at once: as many as its
+    shared memory fits, at most the 2 the kernels' launch bounds promise
+    (more would need fewer registers than they may use)."""
+    return max(1, min(2, SM_SMEM // (smem + BLOCK_SMEM)))
+
+
+def flash_warps_per_sm(d: int) -> Tuple[int, int, int]:
+    """Resident warps per SM of the forward, dK/dV and dQ kernels at head
+    dim ``d``."""
+    bwd = 4 * flash_groups(d)
+    return (4 * flash_blocks_per_sm(flash_fwd_smem(d)),
+            bwd * flash_blocks_per_sm(flash_dkdv_smem(d)),
+            bwd * flash_blocks_per_sm(flash_dq_smem(d)))
+
+
+def _makespan(costs, cap: int) -> float:
+    """When the last of ``costs`` (one per block, in launch order) ends on
+    a card that holds ``cap`` blocks at once, each block starting on the
+    first slot to free up, as the card's block scheduler starts them."""
+    if len(costs) <= cap:
+        return max(costs)
+    slots = [0.0] * cap
+    for c in costs:
+        heapq.heappush(slots, heapq.heappop(slots) + c)
+    return max(slots)
+
+
+def _range_plan(counts, n_all: int, copies: int, cap: int,
+                enough: int) -> Tuple[int, int]:
+    """``(split, chunk)``: ranges of ``chunk`` tiles that cut the
+    ``counts[i]`` causal tiles of the blocks i of one (b, head), in launch
+    order, repeated for ``copies`` = B H. Range r holds tiles [r chunk,
+    (r + 1) chunk) of its block's, and ``split`` = ceil(n_all / chunk)
+    ranges cover ``n_all``, the most tiles a block may have (with the
+    causal mask or without); a range past its block's tiles has no work.
+
+    With ``enough`` unsplit blocks or more, no split. Else each chunk is
+    timed on the card's ``cap`` slots by ``_makespan`` (a block costs its
+    tiles plus FLASH_BLOCK_TILES for its set-up and write-out, one with no
+    work nothing; the pass that merges or sums the partials
+    FLASH_MERGE_TILES), under the causal mask and without it, each
+    against the unsplit blocks under the same mask. The chunk that is
+    fastest under the causal mask (the port's training path) wins among
+    those whose two ratios sum to less than 2; a tie keeps the longer
+    chunk (fewer partials). The mask is the caller's, not the plan's: a
+    chunk that gains a little under the causal mask but loses more
+    without it (a grid of one wave without the mask) is not taken."""
+    if copies * len(counts) >= enough:
+        return 1, n_all
+
+    def time(work_of, chunk):
+        blocks = []
+        for z in range(-(-n_all // chunk)):
+            work = [max(0, min(c, (z + 1) * chunk) - z * chunk)
+                    for c in work_of]
+            blocks += [w + FLASH_BLOCK_TILES if w > 0 else 0
+                       for w in work] * copies
+        return _makespan(blocks, cap)
+
+    full = [n_all] * len(counts)
+    causal, plain = time(counts, n_all), time(full, n_all)
+    best, best_chunk = 1.0, n_all
+    for chunk in range(n_all - 1, 0, -1):
+        t = (time(counts, chunk) + FLASH_MERGE_TILES) / causal
+        t_plain = (time(full, chunk) + FLASH_MERGE_TILES) / plain
+        if t + t_plain < 2 and t < best:
+            best, best_chunk = t, chunk
+    return -(-n_all // best_chunk), best_chunk
+
+
+def _causal_k_tiles(Sq: int, Sk: int, tile: int):
+    """k tiles of ``tile`` keys each q tile of FLASH_ROWS queries visits
+    under the causal mask (the kernels' ``k_tiles``), longest first, as
+    the forward and dQ grids launch them."""
+    nk = -(-Sk // tile)
+    return [min(nk, (min(q0 + FLASH_ROWS, Sq) - 1) // tile + 1)
+            for q0 in range(0, Sq, FLASH_ROWS)][::-1]
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int,
+                   d: int) -> Tuple[int, int]:
+    """``(split, chunk)`` of the flash forward: each q tile's k tiles (of
+    ``flash_tile(d)`` keys) are cut into ranges of ``chunk`` tiles, range
+    r holding tiles [r chunk, (r + 1) chunk), and the grid has ``split`` =
+    ceil(k tiles of Sk / chunk) ranges per q tile, so the ranges cover
+    every key with or without the causal mask; a range past its q tile's
+    causal tiles returns at once. More than one range means partial
+    (m, l, O) per range and a merge of each row's ranges in order.
+
+    Why. A block holds one q tile of FLASH_ROWS queries and walks its k
+    tiles one after the other. Where the B H ceil(Sq / FLASH_ROWS) blocks
+    reach the card's SMS, there is no split: the merge would re-read
+    every partial O, while the forward does only two products a tile (on
+    the card, every split of hundred-m's 384 blocks or the non-causal
+    case's 256 was slower). Where they do not (gemma3-1b's global layers,
+    B 1 H 4 Sq 512 d 256: 32 blocks for 132 SMs, the last q tile 32 tiles
+    of 16 keys), SMs sit idle and the forward takes as long as its longest
+    q tile; splitting shortens it. The causal work is uneven (q tile 0
+    has 4 tiles there, q tile 7 has 32), so ranges of a fixed length, not
+    a fixed count per q tile, balance it: a short q tile gets few ranges.
+    The card holds SMS x ``flash_blocks_per_sm`` blocks at once: two an SM
+    at d <= 128, one at d = 256 (133,120 B of shared memory).
+    ``_range_plan`` times each chunk on that many slots. At gemma3-1b
+    global: chunk 5, 7 ranges, 128 live blocks, the longest 5 tiles
+    instead of 32.
+
+    The plan is a function of (B, H, Sq, Sk, d) alone: a shape gets the
+    same ranges, and the same bits, with either mask."""
+    tile = flash_tile(d)
+    cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d))
+    return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
+                       B * H, cap, SMS)
+
+
+def flash_fwd_ws_floats(B: int, H: int, Sq: int, Sk: int, d: int) -> int:
+    """Floats of the forward's partials: per range, an accumulator of o's
+    size and an (m, l) pair per row (0 with one range)."""
+    split, _ = flash_fwd_plan(B, H, Sq, Sk, d)
+    return 0 if split == 1 else split * B * H * Sq * (d + 2)
+
+
+def flash_dkdv_blocks(B: int, H: int, Sk: int, split: int) -> int:
+    """Blocks of the dK/dV kernel's grid: (k tile, b * H + h, range)."""
+    return B * H * -(-Sk // FLASH_ROWS) * split
 
 
 @functools.lru_cache(maxsize=None)
 def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int,
-                    d: int) -> Tuple[int, int]:
-    """``(split, parts)`` of the flash backward's dK/dV kernel. A block owns
-    one (b, query head, k tile of FLASH_ROWS keys, column chunk); where
-    those blocks are fewer than the card's SMS, each k tile's q tiles are
-    also cut into ``split`` ranges (at most one q tile of
-    ``flash_q_tile(d)`` rows each), enough for SMS blocks. ``parts`` =
-    (H / KV) split partial dK/dV the sum pass adds in order (query head of
-    the group, then range); at 1 the blocks write dK/dV themselves."""
-    blocks = flash_dkdv_blocks(B, H, Sk, d, 1)
-    split = 1
-    if blocks < SMS:
-        split = min(-(-SMS // blocks), -(-Sq // flash_q_tile(d)))
-    return split, (H // KV) * split
+                    d: int) -> Tuple[int, int, int]:
+    """``(split, chunk, parts)`` of the flash backward's dK/dV kernel. A
+    block owns one (b, query head, k tile of FLASH_ROWS keys), all d
+    columns, and walks the q tiles (of ``flash_q_tile(d)`` rows) at or
+    above its diagonal: k tile 0 has them all, the last one few. Where
+    those blocks come to less than two waves of the card (SMS x
+    ``flash_blocks_per_sm``: two 4-warp blocks an SM at d <= 128, one
+    8-warp block at d = 256), so that the scheduler cannot even out their
+    causal lengths, each k tile's q tiles are cut into ranges of
+    ``chunk`` tiles (``_range_plan``, which times the blocks on the
+    card's slots), ``split`` ranges a k tile. granite-3-8b (B 1 H 32 S 512
+    d 128): 256 blocks for 264 slots, the longest 32 q tiles against 18
+    on average; chunk 23. ``parts`` = (H / KV) split partial dK/dV the sum
+    pass adds in order (query head of the group, then range; a range with
+    no q tile is skipped); at 1 the blocks write dK/dV themselves."""
+    bq = flash_q_tile(d)
+    nq = -(-Sq // bq)
+    counts = [nq - min(k0 // bq, nq) for k0 in range(0, Sk, FLASH_ROWS)]
+    cap = SMS * flash_blocks_per_sm(flash_dkdv_smem(d))
+    split, chunk = _range_plan(counts, nq, B * H, cap, 2 * cap)
+    return split, chunk, (H // KV) * split
 
 
 @functools.lru_cache(maxsize=None)
-def flash_dq_plan(B: int, H: int, Sq: int, Sk: int, d: int) -> int:
-    """Ranges of k tiles (of ``flash_tile(d)`` keys) a dQ block's q tile is
-    cut into: 1 where the B H ceil(Sq / FLASH_ROWS) blocks of one q tile
-    each fill the card's SMS, else enough for SMS blocks, at most the k
-    tiles of Sk. More than one range means as many partial dQ, summed in
-    order."""
-    blocks = B * H * -(-Sq // FLASH_ROWS)
-    if blocks >= SMS:
-        return 1
-    return min(-(-SMS // blocks), -(-Sk // flash_tile(d)))
+def flash_dq_plan(B: int, H: int, Sq: int, Sk: int,
+                  d: int) -> Tuple[int, int]:
+    """``(split, chunk)`` of the dQ kernel: a block owns one (b, h, q tile
+    of FLASH_ROWS queries) and walks its causal k tiles (of
+    ``flash_dq_tile(d)`` keys); where those blocks come to less than two
+    waves of the card, each q tile's k tiles are cut into ranges of
+    ``chunk`` tiles (``_range_plan``), ``split`` ranges a q tile. More
+    than one range means as many partial dQ, summed in range order (a
+    range with no k tile is skipped)."""
+    tile = flash_dq_tile(d)
+    cap = SMS * flash_blocks_per_sm(flash_dq_smem(d))
+    return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
+                       B * H, cap, 2 * cap)
 
 
 def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int,
@@ -130,8 +304,8 @@ def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int,
     """Floats of the backward's partials at this shape: 2 parts of dk's
     size (dk's and dv's) where the dK/dV plan has more than one part, then
     the dQ plan's ranges of dq's size where it has more than one."""
-    _, parts = flash_dkdv_plan(B, H, KV, Sq, Sk, d)
-    dq_split = flash_dq_plan(B, H, Sq, Sk, d)
+    _, _, parts = flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    dq_split, _ = flash_dq_plan(B, H, Sq, Sk, d)
     return ((parts > 1) * 2 * parts * B * Sk * KV * d
             + (dq_split > 1) * dq_split * B * Sq * H * d)
 

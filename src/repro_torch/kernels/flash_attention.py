@@ -8,10 +8,11 @@ hand-written kernels of ``csrc/flash_attention.cu``, whose products run on
 the tensor cores as 3xTF32 (three TF32 products per f32 product, which
 keep the f32 gates): the forward replaces the TPU kernel
 ``_flash_kernel``, and the backward (D = rowsum(dO * O), dK/dV, dQ, no
-atomics) is new, since the TPU kernel has none. Where the dK/dV or dQ
-plan (``_plan.flash_dkdv_plan``, ``_plan.flash_dq_plan``, functions of
-the shape) splits the work into partials, the wrapper allocates them and
-the kernels add them in a fixed order. For CPU tensors they run the plain
+atomics) is new, since the TPU kernel has none. Where the forward's
+k-range plan, the dK/dV plan or the dQ plan (``_plan.flash_fwd_plan``,
+``_plan.flash_dkdv_plan``, ``_plan.flash_dq_plan``, functions of the
+shape) splits the work into partials, the wrapper allocates them and the
+kernels merge or add them in a fixed order. For CPU tensors they run the plain
 versions ``ref.flash_attention_fwd_ref`` / ``ref.flash_attention_bwd_ref``.
 There is no other switch and no fallback: a failed build or launch
 raises.
@@ -89,14 +90,20 @@ def _stream(t):
 
 
 def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
-    """(o (B,Sq,H,d), lse (B,H,Sq)) from the forward kernel."""
+    """(o (B,Sq,H,d), lse (B,H,Sq)) from the forward kernel; where its
+    plan cuts the k tiles into ranges, their partials go to a workspace
+    and a merge kernel writes o and lse."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    o = torch.empty((B, Sq, H, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Sq, H, d), **f32)
+    lse = torch.empty((B, H, Sq), **f32)
+    split, chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d)
+    ws = torch.empty(_plan.flash_fwd_ws_floats(B, H, Sq, Sk, d), **f32)
     _lib_call("flash_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
               v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, KV, Sq, Sk,
-              d, *_strides(q, k, v), int(causal), _stream(q))
+              d, *_strides(q, k, v), int(causal), split, chunk,
+              ws.data_ptr(), _stream(q))
     cuda_flash_attention_fwd.launches += 1
     return o, lse
 
@@ -123,14 +130,14 @@ def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     dq = torch.empty((B, Sq, H, d), **f32)
     dk = torch.empty((B, Sk, KV, d), **f32)
     dv = torch.empty((B, Sk, KV, d), **f32)
-    split, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    split, chunk, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    dq_split, dq_chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d)
     ws = torch.empty(_plan.flash_parts_floats(B, H, KV, Sq, Sk, d), **f32)
     _lib_call("flash_attention_bwd_f32", q.data_ptr(), k.data_ptr(),
               v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
               D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
               H, KV, Sq, Sk, d, *_strides(q, k, v), int(causal), split,
-              _plan.flash_dq_plan(B, H, Sq, Sk, d), ws.data_ptr(),
-              _stream(q))
+              chunk, dq_split, dq_chunk, ws.data_ptr(), _stream(q))
     cuda_flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -374,11 +374,11 @@ def test_cuda_flash_attention_refuses_outside_envelope():
 def test_cuda_flash_dkdv_split_plan_matches_plain_bitwise(no_tf32, B, Sq, Sk,
                                                           H, KV, d):
     """GQA shapes where the dK/dV plan splits each k tile's q tiles into
-    ranges and sums (H / KV) split partials (d 256 in two column chunks,
+    ranges and sums (H / KV) split partials (d 256 in two warp groups,
     ragged Sq != Sk): within phase 3c's f32 bounds of the plain backward,
     and two calls bitwise equal."""
     _need_cuda()
-    split, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    split, _, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
     assert split > 1 and parts == (H // KV) * split
     cs = load_chip_smoke()
     q, k, v, do = _flash_inputs(B, Sq, H, KV, d, Sk, seed=2)
@@ -391,6 +391,61 @@ def test_cuda_flash_dkdv_split_plan_matches_plain_bitwise(no_tf32, B, Sq, Sk,
     for name, g, a, w, t in zip(("dq", "dk", "dv"), got, again, want, tols):
         assert torch.equal(g, a), f"{name} not bitwise reproducible"
         cs._gate(f"flash bwd {name}", g, w, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d", [(1, 512, 512, 4, 1, 256),
+                                          (1, 200, 328, 4, 2, 128),
+                                          (1, 328, 200, 4, 1, 256)])
+def test_cuda_flash_split_forward_matches_plain_bitwise(no_tf32, B, Sq, Sk,
+                                                        H, KV, d):
+    """Shapes where the forward plan cuts each q tile's k tiles into
+    ranges (gemma3-1b's global layer; ragged Sq != Sk both ways): the
+    ranges' partials merged in order within phase 3c's f32 bound of the
+    plain forward (lse within its own), two calls bitwise equal, one
+    launch a call."""
+    _need_cuda()
+    split, _ = _plan.flash_fwd_plan(B, H, Sq, Sk, d)
+    assert split > 1
+    cs = load_chip_smoke()
+    q, k, v, do = _flash_inputs(B, Sq, H, KV, d, Sk, seed=4)
+    before = fa.cuda_flash_attention_fwd.launches
+    o, lse = fa.cuda_flash_attention_fwd(q, k, v, True)
+    o2, lse2 = fa.cuda_flash_attention_fwd(q, k, v, True)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, True)
+    tol_o, _, a = cs.flash_tolerances(q, k, v, o_p, lse_p, do, True)
+    torch.cuda.synchronize()
+    assert fa.cuda_flash_attention_fwd.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    cs._gate("flash fwd o", o, o_p, tol_o)
+    eps = torch.finfo(torch.float32).eps
+    assert float((lse - lse_p).abs().max()) <= 16 * eps * (
+        float(lse_p.abs().max()) + d ** 0.5 * (1 + a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,d", [(1, 512, 32, 8, 128),
+                                        (1, 512, 4, 1, 256),
+                                        (2, 264, 8, 2, 128)])
+def test_cuda_flash_wide_backward_matches_plain_bitwise(no_tf32, B, S, H, KV,
+                                                        d):
+    """The backward at d = 128 (two 4-warp blocks an SM, 16-row streamed
+    tiles) and d = 256 (8-warp blocks, S and dP traded between two warp
+    groups), at granite-3-8b's and gemma3-1b global's shapes and a ragged
+    one: within phase 3c's f32 bounds of the plain backward, two calls
+    bitwise equal."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    q, k, v, do = _flash_inputs(B, S, H, KV, d, S, seed=5)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, True)
+    got = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, True)
+    again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, True)
+    _, tols, _ = cs.flash_tolerances(q, k, v, o_p, lse_p, do, True)
+    torch.cuda.synchronize()
+    for name, g, a_, w, t in zip(("dq", "dk", "dv"), got, again, want, tols):
+        assert torch.equal(g, a_), f"{name} not bitwise reproducible"
+        cs._gate(f"flash bwd d{d} {name}", g, w, t)
 
 
 @pytest.mark.cuda
