@@ -822,6 +822,34 @@ def library_attention(q, k, v, causal):
         is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
+def flash_occupancy_check():
+    """The plans' model of each kernel (``_plan``: shared memory bytes, and
+    blocks an SM as many as those fit, at most 2) against what the library
+    launches and the CUDA runtime reports, at every head dim; prints the
+    resident warps an SM."""
+    from repro_torch.kernels import _plan
+    from repro_torch.kernels import flash_attention as fa
+
+    model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
+             "dq": _plan.flash_dq_smem}
+    for d in fa.HEAD_DIMS:
+        occ = fa.cuda_flash_occupancy(d)
+        warps = []
+        for kind, (threads, smem, blocks) in occ.items():
+            want = (128 * (1 if kind == "fwd" else _plan.flash_groups(d)),
+                    model[kind](d),
+                    _plan.flash_blocks_per_sm(model[kind](d)))
+            if (threads, smem, min(blocks, 2)) != want:
+                _fail(f"flash {kind} d {d}: the library launches {threads} "
+                      f"threads with {smem} B of shared memory, {blocks} "
+                      f"blocks an SM; _plan models {want[0]} threads, "
+                      f"{want[1]} B, {want[2]} blocks")
+            warps.append(f"{kind} {blocks} x {threads // 32}")
+        print(f"flash d {d}: blocks x warps an SM (CUDA occupancy) "
+              + ", ".join(warps) + "; _plan's warps an SM fwd/dkdv/dq "
+              + "/".join(map(str, _plan.flash_warps_per_sm(d))), flush=True)
+
+
 def flash_kernels(dev=None, cases=FLASH_CASES):
     """Forward and backward kernels against their plain versions at each
     case, the backward fed the plain forward's (o, lse) so that it is
@@ -833,6 +861,7 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
 
     _phase("kernel vs plain: flash attention, forward and backward")
     dev = dev or torch.device("cuda")
+    flash_occupancy_check()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -845,6 +874,7 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
         v = torch.randn((B, Sk, KV, d), generator=gen, device=dev)
         do = torch.randn((B, Sq, H, d), generator=gen, device=dev)
         o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal)
+        o2, lse2 = fa.cuda_flash_attention_fwd(q, k, v, causal)
         o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
         grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
         again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
@@ -854,6 +884,9 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
         if bool((gap > FLASH_GATE + FLASH_GATE * o_p.abs()).any()):
             _fail(f"flash fwd {name}: outside the JAX gate rtol/atol "
                   f"{FLASH_GATE} (max abs err {float(gap.max()):.3e})")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            _fail(f"flash fwd {name}: o or lse differs between two calls")
+        del o2, lse2
         tol_o, tol_g, a = flash_tolerances(q, k, v, o_p, lse_p, do, causal)
         err_o, ratio_o = _gate(f"flash fwd {name} o", o, o_p, tol_o)
         err_lse = float((lse - lse_p).abs().max())
@@ -917,7 +950,8 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
               f"err o {err_o:.3e} ({ratio_o:.4f}x "
               f"its f32 bound) lse {err_lse:.3e}; bwd dq/dk/dv "
               f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} ({ratios[0]:.4f}/"
-              f"{ratios[1]:.4f}/{ratios[2]:.4f}x), bitwise reproducible; "
+              f"{ratios[1]:.4f}/{ratios[2]:.4f}x), fwd and bwd bitwise "
+              f"reproducible; "
               f"ms kernel/plain/sdpa/bound: fwd {ms_f:.4f}/{plain_f:.4f}/"
               f"{lib_f:.4f}/{bound_f:.4f} ({by_f}), bwd {ms_b:.4f}/"
               f"{plain_b:.4f}/{lib_b:.4f}/{bound_b:.4f} ({by_b}); sdpa "

@@ -1001,6 +1001,29 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// shared memory bytes of each kernel's block, the one place the launchers
+// and flash_attention_occupancy read them (kernels/_plan.py::
+// flash_fwd_smem, flash_dkdv_smem, flash_dq_smem model them for the plans)
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (ROWS * (D + 4) + 4 * tile_rows<D>() * (D + 4));
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  constexpr int BQ = q_tile_rows<D>(), LD = D + 4;
+  return sizeof(float) * (2 * ROWS * LD + 2 * (2 * BQ * LD + 2 * BQ)
+                          + 4 * presplit<D>() * BQ * LD
+                          + xchg_floats<D, BQ / 8>());
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  constexpr int BT = dq_tile_rows<D>(), LD = D + 4;
+  return sizeof(float) * (2 * ROWS * LD + 4 * BT * LD
+                          + xchg_floats<D, BT / 8>());
+}
+
 struct Args {
   const float *q, *k, *v, *o, *dO, *lse;
   float *out, *lse_out, *Dd, *dq, *dk, *dv, *parts;
@@ -1015,10 +1038,10 @@ struct Args {
 // accumulators, then split B H Sq (m, l) pairs
 template <int D>
 static int launch_fwd(const Args& a) {
-  constexpr int BK = tile_rows<D>(), LD = D + 4;
+  constexpr int BK = tile_rows<D>();
   if ((long long)a.split * a.chunk < (a.Sk + BK - 1) / BK)
     return (int)cudaErrorInvalidValue;       // the ranges miss k tiles
-  const size_t smem = sizeof(float) * (ROWS * LD + 4 * BK * LD);
+  constexpr size_t smem = fwd_smem<D>();
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
@@ -1040,8 +1063,8 @@ static int launch_fwd(const Args& a) {
 // of `dq_chunk` k tiles per dQ block (kernels/_plan.py)
 template <int D>
 static int launch_bwd(const Args& a) {
-  constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>(), LD = D + 4;
-  constexpr int PS = presplit<D>(), NTH = 128 * groups<D>();
+  constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>();
+  constexpr int NTH = 128 * groups<D>();
   if ((long long)a.split * a.chunk < (a.Sq + BQ - 1) / BQ
       || (long long)a.dq_split * a.dq_chunk < (a.Sk + BT - 1) / BT)
     return (int)cudaErrorInvalidValue;       // the ranges miss tiles
@@ -1054,11 +1077,7 @@ static int launch_bwd(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // kernels/_plan.py::flash_dkdv_smem, flash_dq_smem
-  const size_t smem_kv = sizeof(float) * (2 * ROWS * LD
-                                          + 2 * (2 * BQ * LD + 2 * BQ)
-                                          + 4 * PS * BQ * LD
-                                          + xchg_floats<D, BQ / 8>());
+  constexpr size_t smem_kv = dkdv_smem<D>();
   err = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
@@ -1081,8 +1100,7 @@ static int launch_bwd(const Args& a) {
     if (err != cudaSuccess) return (int)err;
   }
 
-  const size_t smem_q = sizeof(float) * (2 * ROWS * LD + 4 * BT * LD
-                                         + xchg_floats<D, BT / 8>());
+  constexpr size_t smem_q = dq_smem<D>();
   err = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
@@ -1200,6 +1218,38 @@ extern "C" int flash_attention_bwd_f32(
   a.dq_split = dq_split;
   a.dq_chunk = dq_chunk;
   return dispatch<false>(d, a);
+}
+
+// kind 0, 1, 2: the forward, dK/dV or dQ kernel at head dim D; its
+// threads, shared memory bytes, and the blocks an SM holds at once as the
+// runtime reports them for that launch
+template <int D>
+static int occupancy(int kind, int* threads, int* smem, int* blocks) {
+  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D>
+                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D>
+                             : (const void*)flash_bwd_dq_kernel<D>;
+  const size_t bytes = kind == 0 ? fwd_smem<D>()
+                     : kind == 1 ? dkdv_smem<D>() : dq_smem<D>();
+  *threads = kind == 0 ? N_THREADS : 128 * groups<D>();
+  *smem = (int)bytes;
+  cudaError_t err = kind == 0 ? allow_smem(flash_fwd_kernel<D>, bytes)
+                  : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D>, bytes)
+                              : allow_smem(flash_bwd_dq_kernel<D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            *threads, bytes);
+}
+
+extern "C" int flash_attention_occupancy(int d, int kind, int* threads,
+                                         int* smem, int* blocks) {
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return occupancy<32>(kind, threads, smem, blocks);
+    case 64: return occupancy<64>(kind, threads, smem, blocks);
+    case 128: return occupancy<128>(kind, threads, smem, blocks);
+    case 256: return occupancy<256>(kind, threads, smem, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     + [_I] * 3 + [_P, _P], _I),
         "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 6 + [_L] * 9
                                     + [_I] * 5 + [_P, _P], _I),
+        "flash_attention_occupancy": ([_I, _I, _P, _P, _P], _I),
         **_ERR,
     },
     "lowrank_mm": {

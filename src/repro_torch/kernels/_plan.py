@@ -73,6 +73,7 @@ SM_SMEM = 233_472  # shared memory of an H100 SM (228 KB) ...
 BLOCK_SMEM = 1_024  # ... of which each resident block reserves 1 KB
 FLASH_BLOCK_TILES = 2   # a block's set-up and write-out, in its streamed tiles
 FLASH_MERGE_TILES = 2   # the merge or sum pass of the partials, likewise
+FLASH_CHUNK_STEPS = 32  # the range planner tries chunks at n / 32 steps
 
 
 def flash_tile(d: int) -> int:
@@ -108,6 +109,9 @@ def _xchg_floats(d: int, rows: int) -> int:
     return 2 * 4 * (rows // 8) * 4 * 32 if flash_groups(d) == 2 else 0
 
 
+# The three sizes below model csrc/flash_attention.cu's fwd_smem, dkdv_smem
+# and dq_smem; chip_smoke.py phase 3c and tests/test_torch_cuda.py hold
+# them, and flash_blocks_per_sm, to the library's flash_attention_occupancy.
 def flash_fwd_smem(d: int) -> int:
     """Shared memory bytes of a forward block (``launch_fwd``): the
     resident Q tile and two stages of K and V tiles, at a pitch of d + 4."""
@@ -167,8 +171,11 @@ def _range_plan(counts, n_all: int, copies: int, cap: int,
     ranges cover ``n_all``, the most tiles a block may have (with the
     causal mask or without); a range past its block's tiles has no work.
 
-    With ``enough`` unsplit blocks or more, no split. Else each chunk is
-    timed on the card's ``cap`` slots by ``_makespan`` (a block costs its
+    With ``enough`` unsplit blocks or more, no split. Else each candidate
+    chunk, ceil(n_all j / FLASH_CHUNK_STEPS) for j = 1 .. FLASH_CHUNK_STEPS
+    - 1 (every chunk below n_all while n_all <= FLASH_CHUNK_STEPS, as at
+    every split shape of phase 3c), is timed on the card's ``cap`` slots
+    by ``_makespan`` (a block costs its
     tiles plus FLASH_BLOCK_TILES for its set-up and write-out, one with no
     work nothing; the pass that merges or sums the partials
     FLASH_MERGE_TILES), under the causal mask and without it, each
@@ -177,7 +184,11 @@ def _range_plan(counts, n_all: int, copies: int, cap: int,
     those whose two ratios sum to less than 2; a tie keeps the longer
     chunk (fewer partials). The mask is the caller's, not the plan's: a
     chunk that gains a little under the causal mask but loses more
-    without it (a grid of one wave without the mask) is not taken."""
+    without it (a grid of one wave without the mask) is not taken.
+
+    Cost: at most 2 (FLASH_CHUNK_STEPS - 1) timings, each O(b log cap)
+    for the b < ``enough`` copies x len(counts) x split blocks it lays
+    out; the plans are cached per shape."""
     if copies * len(counts) >= enough:
         return 1, n_all
 
@@ -193,7 +204,9 @@ def _range_plan(counts, n_all: int, copies: int, cap: int,
     full = [n_all] * len(counts)
     causal, plain = time(counts, n_all), time(full, n_all)
     best, best_chunk = 1.0, n_all
-    for chunk in range(n_all - 1, 0, -1):
+    steps = range(1, FLASH_CHUNK_STEPS)
+    for chunk in sorted({-(-n_all * j // FLASH_CHUNK_STEPS) for j in steps}
+                        - {n_all}, reverse=True):
         t = (time(counts, chunk) + FLASH_MERGE_TILES) / causal
         t_plain = (time(full, chunk) + FLASH_MERGE_TILES) / plain
         if t + t_plain < 2 and t < best:

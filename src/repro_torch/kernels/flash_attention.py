@@ -145,6 +145,28 @@ def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
 cuda_flash_attention_bwd.launches = 0
 
 
+def cuda_flash_occupancy(d: int):
+    """{"fwd" | "dkdv" | "dq": (threads, shared memory bytes, blocks an SM
+    holds)} of the kernels at head dim ``d``, as the library launches them
+    and the CUDA runtime reports them (``_plan`` models the same numbers
+    for the plans). Launches nothing."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention")
+    out = {}
+    for kind, name in enumerate(("fwd", "dkdv", "dq")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = lib.flash_attention_occupancy(d, kind,
+                                            *map(ctypes.byref, vals))
+        if err != 0:
+            raise RuntimeError(f"flash_attention_occupancy({d}, {name}) "
+                               f"failed: {_build.cuda_error_string(lib, err)}")
+        out[name] = tuple(x.value for x in vals)
+    return out
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True):
     """(o, lse): the forward kernel for CUDA tensors, its plain version
     for CPU tensors."""

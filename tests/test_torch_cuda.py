@@ -481,6 +481,30 @@ def test_cuda_flash_strided_views_bitwise_equal_to_copies(no_tf32, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_cuda_flash_occupancy_is_the_plans_model(d):
+    """The threads and shared memory bytes the library launches each flash
+    kernel with, and the blocks an SM the CUDA runtime then reports (at
+    most the launch bounds' 2), are those ``_plan`` plans with: 8 warps an
+    SM for every backward kernel."""
+    _need_cuda()
+    from repro_torch.kernels import _plan
+
+    model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
+             "dq": _plan.flash_dq_smem}
+    occ = fa.cuda_flash_occupancy(d)
+    for kind, (threads, smem, blocks) in occ.items():
+        groups = 1 if kind == "fwd" else _plan.flash_groups(d)
+        assert (threads, smem, min(blocks, 2)) == (
+            128 * groups, model[kind](d),
+            _plan.flash_blocks_per_sm(model[kind](d))), kind
+    assert [occ[k][0] // 32 * min(occ[k][2], 2)
+            for k in ("fwd", "dkdv", "dq")] == list(
+        _plan.flash_warps_per_sm(d))
+    assert _plan.flash_warps_per_sm(d)[1:] == (8, 8)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_refuses_what_it_refused_before():
     """dtypes other than float32, a strided last dim, KV not dividing H,
     a head dim outside (32, 64, 128, 256), B H over 65535, empty

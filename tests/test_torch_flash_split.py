@@ -75,6 +75,8 @@ def test_fwd_plan_splits_gemma3_global_over_more_blocks():
     assert split > 1 and chunk < nk and split == -(-nk // chunk)
     assert _live_blocks(B, H, Sq, Sk, d, chunk) > B * H * -(-Sq // ROWS)
     assert B * H * -(-Sq // ROWS) * split > 32         # the launched grid
+    assert B * H * -(-Sq // ROWS) * split >= _plan.SMS
+    assert (split, chunk) == (7, 5)
     assert _plan.flash_fwd_ws_floats(B, H, Sq, Sk, d) == (
         split * B * H * Sq * (d + 2))
 

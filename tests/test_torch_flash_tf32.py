@@ -321,20 +321,38 @@ def _case(name):
     return next(c for c in cs.FLASH_CASES if c[0] == name)
 
 
+# the (split, chunk) of the forward, dK/dV and dQ plans the kernels were
+# timed at (PERF.md): a change to the planner or to a model's shape shows
+# up here
+PINNED = {"gemma3-1b global": ((7, 5), (7, 5), (7, 5)),
+          "granite-3-8b": ((1, 16), (2, 23), (2, 23))}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_plans_are_pinned_at_the_timed_shapes(name):
+    _, B, Sq, Sk, H, KV, d, _ = _case(name)
+    split, chunk, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
+    assert (_plan.flash_fwd_plan(B, H, Sq, Sk, d), (split, chunk),
+            _plan.flash_dq_plan(B, H, Sq, Sk, d)) == PINNED[name]
+
+
 @pytest.mark.parametrize("name", ["gemma3-1b global", "granite-3-8b"])
 def test_dkdv_plan_fills_the_card_at_the_gqa_shapes(name):
     """The unsplit blocks come to less than two waves of the card, so the
-    plan cuts the k tiles' q tiles into ranges: more live blocks than
-    without, and the longest block shorter than k tile 0's q tiles."""
+    plan cuts the k tiles' q tiles into ranges: a launched grid of at
+    least SMS blocks, more live blocks than without, and the longest block
+    shorter than k tile 0's q tiles."""
     _, B, Sq, Sk, H, KV, d, _ = _case(name)
     split, chunk, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
     nq = -(-Sq // _plan.flash_q_tile(d))
     counts = [nq - min(k0 // _plan.flash_q_tile(d), nq)
               for k0 in range(0, Sk, ROWS)]
     live = B * H * sum(-(-c // chunk) for c in counts)
+    assert _plan.flash_dkdv_blocks(B, H, Sk, split) >= _plan.SMS
     assert split > 1 and chunk < nq
     assert live > _plan.flash_dkdv_blocks(B, H, Sk, 1)
     assert parts == (H // KV) * split
+    assert (split, chunk) == PINNED[name][1]
 
 
 def test_plans_are_one_at_the_training_shape():
@@ -356,6 +374,8 @@ def test_dq_plan_fills_the_card_at_gemma3_global():
     _, B, Sq, Sk, H, KV, d, _ = _case("gemma3-1b global")
     split, chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d)
     nk = -(-Sk // _plan.flash_dq_tile(d))
+    assert B * H * -(-Sq // ROWS) * split >= _plan.SMS
+    assert (split, chunk) == (7, 5)
     counts = [min(nk, (min(q0 + ROWS, Sq) - 1) // _plan.flash_dq_tile(d) + 1)
               for q0 in range(0, Sq, ROWS)]
     assert (B * H * sum(-(-c // chunk) for c in counts)
@@ -368,8 +388,9 @@ def test_dq_plan_fills_the_card_at_gemma3_global():
 def test_plan_invariants_at_every_phase_3c_case(case):
     """Each plan's ranges cover its blocks' tiles (split x chunk at least
     the tiles a block can have, the last range not empty), split = 1 where
-    the unsplit blocks come to two waves of the card, and partials exist
-    iff a plan has more than one part."""
+    the unsplit blocks come to two waves of the card, a backward grid
+    under SMS blocks only where every tile already has its own range, and
+    partials exist iff a plan has more than one part."""
     _, B, Sq, Sk, H, KV, d, _ = _chip_smoke().FLASH_CASES[case]
     nq = -(-Sq // _plan.flash_q_tile(d))
     nk_q = -(-Sk // _plan.flash_dq_tile(d))
@@ -381,6 +402,10 @@ def test_plan_invariants_at_every_phase_3c_case(case):
                       (f_split, f_chunk, nk_f)):
         assert 1 <= c_ <= n and s_ == -(-n // c_), (s_, c_, n)
     assert parts == (H // KV) * split
+    assert (_plan.flash_dkdv_blocks(B, H, Sk, split) >= _plan.SMS
+            or split == nq)
+    assert (B * H * -(-Sq // ROWS) * dq_split >= _plan.SMS
+            or dq_split == nk_q)
     blocks_kv = _plan.flash_dkdv_blocks(B, H, Sk, 1)
     cap = _plan.SMS * _plan.flash_blocks_per_sm(_plan.flash_dkdv_smem(d))
     assert blocks_kv < 2 * cap or split == 1
