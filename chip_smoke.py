@@ -27,7 +27,12 @@ continues:
         equal, and the reconstruction bit for bit lowrank_mm(unpack P,
         unpack Q^T) (the mesh runtime's decompression of the same
         payload); each leaf's line names the projections' split-K plan
-        (tiles, splits S, blocks);
+        (tiles, splits S, blocks); then the int4 kernels' batched
+        launches of one mesh round (phase 4d's 24: each low-rank leaf's
+        P and Q, each quant-only leaf) byte for byte their plain version,
+        also when the rows are read from a gathered wire layout, timed
+        beside their bytes bound and beside the same rows launched one at
+        a time (``mesh_quant4``);
      c. flash attention, the forward and the backward kernels, at the
         training shape (opt-1.3b, B 4 x S 512), opt-1.3b at 2,048 tokens,
         the GQA shapes of granite-3-8b, hundred-m and gemma3-1b's global
@@ -69,8 +74,11 @@ continues:
         (24 layers, full width), one cluster on the card through a process
         group of size 1 (NCCL), 2 rounds of H = 4: finite losses, round 0
         leaves the params bit for bit, lowrank_mm (by route) and the int4
-        kernels launched as often as the tree's leaves say, the all-gather
-        handed the payload's bytes, peak memory;
+        kernels launched as often as the tree's leaves say
+        (``mesh_launches_expected``: one batched pack and one unpack per
+        leaf and factor), the all-gather handed the payload's bytes, peak
+        memory; then the outer step run again on the last state, plain
+        and split into its parts by CUDA events (``outer_split``);
   5. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
      paged engine; the kernel's launch count must equal device steps x 24;
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
@@ -686,6 +694,103 @@ def compressor_kernels():
               f"{t['library_ms']} ms, bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
     return rows
+
+
+def mesh_quant4_launches(cfg, rank=RANK):
+    """The batched quant4 launches of one mesh round with one cluster
+    (phase 4d): (what, rows, values a row) for each low-rank leaf's P and
+    Q (a row per stacked matrix) and each quant-only leaf (one row)."""
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.core.mesh_compression import _leaf_matrix_dims
+    from repro_torch.models import model as M
+
+    out = []
+    for path, shape in tree_shapes(M.init_params(cfg, device="meta")).items():
+        lead, m, n = _leaf_matrix_dims(shape)
+        if min(m, n) < 64:
+            out.append((f"{path} quant-only", 1, lead * m * n))
+            continue
+        r = min(rank, m, n)
+        out += [(f"{path} P", lead, m * r), (f"{path} Q", lead, n * r)]
+    return out
+
+
+def _wire_rows(t, gap, ranks=2):
+    """The rows of ``t`` as a gathered wire buffer holds one factor's
+    chunks: in each of ``ranks`` equal buffers, ``gap`` other elements
+    before each row (the other factor's codes; an odd ``gap`` of bytes
+    starts rows off any word boundary)."""
+    filler = torch.zeros(gap, dtype=t.dtype, device=t.device)
+    wire = torch.cat([x for row in t for x in (filler, row)]).repeat(ranks)
+    step, k = gap + t.shape[1], t.shape[1]
+    return [wire[j * step + gap:j * step + gap + k]
+            for j in range(ranks * t.shape[0])]
+
+
+def mesh_quant4(dev=None, cfg=None):
+    """quant4's batched kernels at the launches of one mesh round (phase
+    4d's shapes): each pack byte for byte its plain version row by row,
+    each unpack exact, and a low-rank leaf's unpack of its rows' chunks
+    as two ranks' gathered buffers hold them (``_wire_rows``) bitwise the
+    unpack of the pack's own rows. Times each batched launch
+    beside its bytes bound and beside the same rows launched one at a
+    time (the kernel at B = 1, back to back, so the host's launch gaps
+    count); returns the sums over the round."""
+    from repro_torch.kernels import quant4 as q4
+
+    _phase("kernel vs plain: quant4 batched, one mesh round's launches")
+    dev = dev or torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tot = {k: dict(ms=0.0, one_ms=0.0, bound_ms=0.0, nbytes=0)
+           for k in ("pack", "unpack")}
+    launches = mesh_quant4_launches(cfg or mesh_config())
+    for what, B, n in launches:
+        x = torch.randn((B, n), generator=gen, device=dev) * 0.05
+        p, s = q4.cuda_quant4_pack_batched(x)
+        p_ref, s_ref = q4.pack_batched_plain(x)
+        if not torch.equal(p, p_ref) or not torch.equal(s, s_ref):
+            _fail(f"quant4_pack batched {what} ({B} x {n}): bytes or scales "
+                  f"differ from the plain version")
+        out = q4.cuda_quant4_unpack_batched(p, s, n)
+        if not torch.equal(out, q4.unpack_batched_plain(p, s, n)):
+            _fail(f"quant4_unpack batched {what} ({B} x {n}): not exact")
+        if B > 1:
+            got = q4.cuda_quant4_unpack_batched(_wire_rows(p, 101),
+                                                _wire_rows(s, 3), n)
+            if not torch.equal(got, out.repeat(2, 1)):
+                _fail(f"quant4_unpack batched {what}: rows read from a "
+                      f"gathered wire layout differ from the pack's rows")
+            del got
+        nbytes = B * (4 * n + p.shape[1] + 4 * s.shape[1])
+        times = {
+            "pack": (time_ms(lambda: q4.cuda_quant4_pack_batched(x),
+                             flush=flush),
+                     time_ms(lambda: [q4.cuda_quant4_pack(row) for row in x],
+                             flush=flush)),
+            "unpack": (time_ms(lambda: q4.cuda_quant4_unpack_batched(
+                p, s, n, out=out), flush=flush),
+                time_ms(lambda: [q4.cuda_quant4_unpack(pr, sr, n)
+                                 for pr, sr in zip(p, s)], flush=flush))}
+        bound, _ = _bound(nbytes, 0)
+        for k, (ms, one) in times.items():
+            tot[k]["ms"] += ms
+            tot[k]["one_ms"] += one
+            tot[k]["bound_ms"] += bound
+            tot[k]["nbytes"] += nbytes
+        print(f"{what} ({B} x {n}): ms batched/one at a time/bound: pack "
+              f"{times['pack'][0]:.4f}/{times['pack'][1]:.4f}/{bound:.4f}, "
+              f"unpack {times['unpack'][0]:.4f}/{times['unpack'][1]:.4f}/"
+              f"{bound:.4f}; bitwise the plain version", flush=True)
+        del x, p, s, p_ref, s_ref, out
+    for k, t in tot.items():
+        print(f"quant4_{k}, one mesh round's {len(launches)} batched "
+              f"launches: {t['ms']:.4f} ms (one row at a time "
+              f"{t['one_ms']:.4f}), "
+              f"bytes bound {t['bound_ms']:.4f} ms ({t['nbytes']} B): "
+              f"{t['bound_ms'] / t['ms']:.3f} of the bound", flush=True)
+    return tot
 
 
 # ---------------------------------------------------------------------------
@@ -1418,27 +1523,28 @@ MESH_ARGS = ["--arch", "opt-1.3b", "--device", "cuda", "--devices", "1",
              "--rank", str(RANK)]
 
 
-def mesh_launches_expected(cfg, rounds, clusters):
+def mesh_launches_expected(cfg, rounds):
     """Launches of the mesh outer step: per round and low-rank leaf, one
     lowrank_mm each for P = M Q, Q = M^T P (batched over the leaf's
-    clusters x lead matrices) and P Q^T (over all clusters' matrices),
-    counted also by route;
-    per cluster, one quant4 pack of P and of Q per matrix and one per
-    quant-only leaf; the same count of unpacks for all clusters'
-    payloads. No other kernel runs in the driver."""
+    local clusters x lead matrices) and P Q^T (over all clusters'
+    matrices), counted also by route; one batched quant4 pack of the
+    leaf's P and one of its Q (all local matrices), and one per
+    quant-only leaf (all local clusters' rows); the same count of
+    unpacks, each over all clusters' payloads. The counts do not depend
+    on the number of clusters or of matrices in a leaf. No other kernel
+    runs in the driver."""
     from repro_torch.core.compression import tree_shapes
     from repro_torch.core.mesh_compression import _leaf_matrix_dims
     from repro_torch.models import model as M
 
-    n_low = mats = n_quant = 0
+    n_low = n_quant = 0
     for shape in tree_shapes(M.init_params(cfg, device="meta")).values():
         lead, m, n = _leaf_matrix_dims(shape)
         if min(m, n) < 64:
             n_quant += 1
         else:
             n_low += 1
-            mats += lead
-    packs = rounds * clusters * (2 * mats + n_quant)
+    packs = rounds * (2 * n_low + n_quant)
     # by route: P = M Q and Q = M^T P take the split route (f32, r <= 64
     # columns, a row-major factor), P Q^T the rank route (K = r <= 64);
     # nothing in the outer step takes the general route
@@ -1472,12 +1578,125 @@ def mesh_gather_bytes(cfg, rank=RANK, block=256):
     return total
 
 
+class OuterSplit:
+    """The mesh outer step's time, split into its parts by CUDA events
+    recorded around each call of the functions it is made of (no sync
+    inside the step; one after it). A part's time is its calls' spans
+    less the spans of the parts called inside them; the parts sum to the
+    step's own span. The events see the device's timeline, on which a
+    host-bound part lasts as long as the host takes to issue it."""
+
+    PARTS = ["P = M Q", "orthonormalize", "Q = M^T P", "packs",
+             "compress (rest: masks, orthonormalize's copies, guard)",
+             "all-gather", "unpacks", "P Q^T",
+             "decompress (rest: the mean, any row copies)",
+             "Nesterov", "outer step (rest: EF, pending delta, replicas)"]
+
+    def __init__(self):
+        self.spans = []              # [name, start event, end event, parent]
+        self.stack = []
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            label = name(*args) if callable(name) else name
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.spans.append([label, start, None,
+                               self.stack[-1] if self.stack else None])
+            self.stack.append(len(self.spans) - 1)
+            try:
+                return fn(*args, **kw)
+            finally:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.spans[self.stack.pop()][2] = end
+        return timed
+
+    def patch(self, outer_step):
+        """Patches the outer step's callees (quant4's entry points that
+        exist in this tree) and returns the step wrapped; ``restore``
+        undoes the patches."""
+        from repro_torch.core import mesh_compression as mc
+        from repro_torch.kernels import lowrank_mm as lm
+        from repro_torch.kernels import quant4 as q4
+        from repro_torch.launch import steps
+
+        def product(a, b):
+            if self.stack and self.spans[self.stack[-1]][0].startswith(
+                    "decompress"):
+                return "P Q^T"
+            return "P = M Q" if a.is_contiguous() else "Q = M^T P"
+
+        targets = [(mc, "_orthonormalize", "orthonormalize"),
+                   (lm, "matmul", product),
+                   (mc, "compress_local", self.PARTS[4]),
+                   (mc, "gather_payloads", "all-gather"),
+                   (mc, "decompress_mean_leaf", self.PARTS[8]),
+                   (steps.nesterov, "update_leaf", "Nesterov")]
+        targets += [(q4, f, "unpacks" if "unpack" in f else "packs")
+                    for f in ("quant4_pack", "quant4_pack_batched",
+                              "quant4_unpack", "quant4_unpack_batched")
+                    if hasattr(q4, f)]
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for mod, attr, _ in targets]
+        for mod, attr, name in targets:
+            setattr(mod, attr, self.wrap(name, getattr(mod, attr)))
+        return self.wrap(self.PARTS[-1], outer_step)
+
+    def restore(self):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def parts_ms(self):
+        torch.cuda.synchronize()
+        ms = [s[1].elapsed_time(s[2]) for s in self.spans]
+        own = list(ms)
+        for i, s in enumerate(self.spans):
+            if s[3] is not None:
+                own[s[3]] -= ms[i]
+        out = dict.fromkeys(self.PARTS, 0.0)
+        for s, t in zip(self.spans, own):
+            out[s[0]] += t
+        return out, {name: sum(s[0] == name for s in self.spans)
+                     for name in out}
+
+
+def outer_split(outer_step, params, outer, rank, reps=2):
+    """Runs ``outer_step`` again on the driver's last state, ``reps``
+    times plain (host clock, synchronized before and after) and ``reps``
+    times split (``OuterSplit``), in turns, and prints each split."""
+    plain, splits = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, outer = outer_step(params, outer, rank)
+        torch.cuda.synchronize()
+        plain.append(1e3 * (time.perf_counter() - t0))
+        split = OuterSplit()
+        step = split.patch(outer_step)
+        try:
+            params, outer = step(params, outer, rank)
+        finally:
+            split.restore()
+        splits.append(split.parts_ms())
+    print(f"outer step again on the last round's state: plain "
+          f"{', '.join(f'{t:.1f}' for t in plain)} ms; split (CUDA events "
+          f"around each part's calls) "
+          f"{', '.join(f'{sum(p.values()):.1f}' for p, _ in splits)} ms",
+          flush=True)
+    for name in OuterSplit.PARTS:
+        print(f"  {name}: " + ", ".join(f"{p[name]:.2f}" for p, _ in splits)
+              + f" ms ({splits[0][1][name]} calls)", flush=True)
+    return plain, splits
+
+
 def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
     import contextlib
     import io
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import steps
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as M
 
@@ -1499,9 +1718,23 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
             round0.append(all(
                 torch.equal(anchor[k], initial[k].to(dev))
                 and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
+        if r == args.rounds - 1:
+            torch.cuda.synchronize()
+            launches.update({name: w.launches for name, w in wrappers.items()})
+            launches.update({f"lowrank_mm_{route}": n
+                             for route, n in lm.cuda_matmul.routes.items()})
+            # after the driver's last timed round: its state is not read
+            # again, so the extra outer steps may move it
+            outer_split(made[0], params, outer, args.rank)
 
     args = train_lib._parse_args(argv)
-    want = mesh_launches_expected(cfg, args.rounds, args.clusters)
+    made, launches = [], {}
+    make_outer_step = steps.make_outer_step
+
+    def capture(*a, **kw):
+        made.append(make_outer_step(*a, **kw))
+        return made[-1]
+    want = mesh_launches_expected(cfg, args.rounds)
     wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
     wrappers.update(lowrank_mm=lm.cuda_matmul,
                     flash_attention=fa.cuda_flash_attention_fwd,
@@ -1515,12 +1748,13 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
         w.launches = 0
     lm.cuda_matmul.routes = dict.fromkeys(lm.ROUTES, 0)
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        summary = train_lib.main(argv, on_round=on_round)
+    steps.make_outer_step = capture
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = train_lib.main(argv, on_round=on_round)
+    finally:
+        steps.make_outer_step = make_outer_step
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    launches.update({f"lowrank_mm_{route}": n
-                     for route, n in lm.cuda_matmul.routes.items()})
     peak = torch.cuda.max_memory_allocated()
     print(out.getvalue(), end="")
     gather = mesh_gather_bytes(cfg, args.rank)
@@ -1674,6 +1908,7 @@ def main():
     build()
     rows, worst = kernel_vs_plain()
     comp_rows = compressor_kernels()
+    mesh_q4 = mesh_quant4()
     flash_rows = flash_kernels()
     torch.cuda.empty_cache()
     mm_row = lowrank_mm_kernel()
@@ -1708,6 +1943,13 @@ def main():
         row = dict(row)
         row.pop("wrapper")
         row["launches"] = einsum_run[0][row["name"]]
+        if row["name"].startswith("quant4_"):
+            # the mesh round's batched launches (phase 3b) and phase 4d's
+            mesh = mesh_q4[row["name"][len("quant4_"):]]
+            row["mesh_round"] = dict(
+                ms=mesh["ms"], one_row_at_a_time_ms=mesh["one_ms"],
+                bound_ms=mesh["bound_ms"],
+                launches=mesh_launches[row["name"]])
         kernels.append(row)
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name]))

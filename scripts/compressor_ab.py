@@ -7,15 +7,20 @@ parent, change, change, parent, each in its own process. The phases, by
   shapes and the JAX tests'), with its time beside the plain version's,
   the library call's (page gather + SDPA) and the bound;
 - 3b: every compressor kernel against its plain version at every leaf
-  shape of the training configuration, with its time;
+  shape of the training configuration, with its time; where the tree's
+  ``chip_smoke.py`` has it, quant4's batched launches of one mesh round
+  (``mesh_quant4``, in the turn's log);
 - 3c: the flash attention forward and backward kernels at this tree's
   ``FLASH_CASES`` (the other tree runs the same cases, also those its own
   list lacks), with their times beside the plain versions and SDPA;
 - 3d: lowrank_mm at every product of the mesh driver's outer step;
 - 4b: one inner step (loss and gradients) of the training configuration,
-  einsum and flash attention in turns (``step_ab``).
+  einsum and flash attention in turns (``step_ab``);
+- 4d: the mesh driver at full opt-1.3b (``mesh_driver``), each round's
+  round, inner and outer seconds; where the tree's ``chip_smoke.py`` has
+  it, the outer step's split (``outer_split``).
 
-    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d,4b]
+    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d,4b,4d]
         [--out build/ab]
 
 DIR holds the other commit's files (``git archive <commit> | tar -x -C
@@ -49,11 +54,14 @@ SETUP = ("import json, sys, torch\n"
 PHASES = {
     "3a": ("rows, _ = cs.kernel_vs_plain()\n"
            "print('AB-PAGED ' + json.dumps(rows))\n"),
-    "3b": "print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n",
+    "3b": ("print('AB-ROWS ' + json.dumps(cs.compressor_kernels()))\n"
+           "if hasattr(cs, 'mesh_quant4'):\n"
+           "    cs.mesh_quant4()\n"),
     "3c": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels("
            "cases=[tuple(c) for c in json.loads({cases!r})]).values())))\n"),
     "3d": "print('AB-ROWS ' + json.dumps([cs.lowrank_mm_kernel()]))\n",
     "4b": "cs.step_ab()\n",
+    "4d": "cs.mesh_driver()\n",
 }
 LEAF = re.compile(r"^m=(\d+) n=(\d+) x(\d+) ms kernel/plain/matmul: project "
                   r"([\d.]+)/([\d.]+)/([\d.]+) t_pack ([\d.]+)/([\d.]+)/"
@@ -63,6 +71,9 @@ PRODUCT = re.compile(r"^(batch \d+ \(\d+ x \d+\) @ \(\d+ x \d+\) transposed \S "
                      r"([\d.]+)/([\d.]+)/([\d.]+)")
 STEP = re.compile(r"^ms per step \(loss \+ grads, median of \d+\): einsum "
                   r"([\d.]+) flash ([\d.]+)")
+ROUND = re.compile(r"^round (\d+): mean loss [\d.]+, round ([\d.]+) s: inner "
+                   r"([\d.]+) s .*outer ([\d.]+) s;")
+PART = re.compile(r"^  (.+): ([\d.]+), ([\d.]+) ms \((\d+) calls\)$")
 CASE = re.compile(r"^(.+?) \(B \d+ Sq .*ms kernel/plain/sdpa/bound: fwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/[\d.]+ \(\w+\), bwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/")
@@ -78,7 +89,7 @@ def turn(tree, log, script):
         raise SystemExit(f"FAIL {tree}: exit {out.returncode}, see {log}\n"
                          + out.stderr[-2000:])
     got = dict(rows={}, leaves=[], products={}, cases={}, paged={},
-               step=None)
+               step=None, rounds={}, parts={})
     for line in out.stdout.splitlines():
         if line.startswith("AB-PAGED "):
             got["paged"].update({r["case"]: r for r in json.loads(line[9:])})
@@ -89,6 +100,12 @@ def turn(tree, log, script):
         elif PRODUCT.match(line):
             tag, ms, _, lib, _ = PRODUCT.match(line).groups()
             got["products"][tag] = (float(ms), float(lib))
+        elif ROUND.match(line):
+            r, *t = ROUND.match(line).groups()
+            got["rounds"][int(r)] = tuple(float(x) for x in t)
+        elif PART.match(line):
+            name, a, b, calls = PART.match(line).groups()
+            got["parts"][name] = (float(a), float(b), int(calls))
         elif STEP.match(line):
             got["step"] = tuple(float(x) for x in STEP.match(line).groups())
         elif CASE.match(line):
@@ -144,6 +161,12 @@ def main():
         if got["step"]:
             print(f"  inner step ms einsum/flash: {got['step'][0]:.1f}/"
                   f"{got['step'][1]:.1f}", flush=True)
+        for r, t in got["rounds"].items():
+            print(f"  mesh round {r} s round/inner/outer: "
+                  + "/".join(f"{x:.3f}" for x in t), flush=True)
+        for name, (a, b, calls) in got["parts"].items():
+            print(f"  outer step part {name}: {a:.2f}, {b:.2f} ms ({calls} "
+                  f"calls)", flush=True)
     first = runs["change"][0]
     if first["paged"]:
         print(f"paged attention per case, ms (median of two turns each; "
@@ -182,6 +205,16 @@ def main():
               f"flash parent {med['parent'][1]:.1f} change "
               f"{med['change'][1]:.1f}; einsum parent {med['parent'][0]:.1f}"
               f" change {med['change'][0]:.1f}", flush=True)
+    if first["rounds"]:
+        print(f"mesh driver, s, median of two turns each ({smi}):")
+    for r in first["rounds"]:
+        med = {tag: [statistics.median(x["rounds"][r][i] for x in runs[tag])
+                     for i in range(3)] for tag in runs}
+        print(f"  round {r}: outer parent {med['parent'][2]:.3f} change "
+              f"{med['change'][2]:.3f}; round parent {med['parent'][0]:.3f} "
+              f"change {med['change'][0]:.3f}; inner parent "
+              f"{med['parent'][1]:.3f} change {med['change'][1]:.3f}",
+              flush=True)
     if first["rows"]:
         print(f"per kernel (compressor: one cluster's call; lowrank_mm: its "
               f"outer step; flash: the training shape), ms (median of two "

@@ -12,7 +12,9 @@ Per 2-D parameter matrix (per stacked unit, per cluster):
 1-D and small leaves are quantized without low-rank. The three products
 go through ``kernels.lowrank_mm.matmul`` (the CUDA kernel on the card),
 one launch per leaf each, batched over the leaf's C * lead matrices; the
-packs and unpacks through ``kernels.quant4``.
+packs and unpacks through ``kernels.quant4``'s batched entry points, one
+launch per leaf and factor (P, Q, or a quant-only leaf's rows), as the
+JAX package ``vmap``s them.
 
 Across processes the clusters axis is a ``torch.distributed`` process
 group: each rank compresses its local clusters, then one all-gather per
@@ -23,8 +25,11 @@ local stack is the whole stack.
 
 What the JAX package's ``vmap`` keeps per matrix stays per matrix here:
 the zero-input guard on the warm start, the Cholesky-QR, and the int4
-padding (each matrix's P and Q, and each cluster's quant-only row, are
-packed on their own, so a quantization block never spans two matrices).
+padding (each matrix's P and Q, and each cluster's quant-only row, is a
+row of the batched pack, padded to whole blocks on its own, so a
+quantization block never spans two matrices). A payload's tensors are
+views of the batched pack's rows; the unpacks read them where they lie,
+in the pack's outputs or in the gathered buffer.
 
 The scales on the wire are the f32 scales the pack returns (4 bytes per
 256-value block), while ``wire_bytes_tree`` keeps the JAX package's
@@ -96,11 +101,10 @@ def _compress_matrices(dm, qm, rank_scalar, cfg: MeshCompressionConfig):
     for i in range(P.shape[0]):
         P[i] = _orthonormalize(P[i]) * cm
     Q = lowrank_mm.matmul(dm.transpose(1, 2), P)              # (B, n, r)
-    payloads = []
-    for i in range(P.shape[0]):
-        pP, sP = quant4.quant4_pack(P[i].reshape(-1), cfg.block)
-        pQ, sQ = quant4.quant4_pack(Q[i].reshape(-1), cfg.block)
-        payloads.append([pP, sP, pQ, sQ])
+    B = P.shape[0]
+    pP, sP = quant4.quant4_pack_batched(P.reshape(B, -1), cfg.block)
+    pQ, sQ = quant4.quant4_pack_batched(Q.reshape(B, -1), cfg.block)
+    payloads = [[pP[i], sP[i], pQ[i], sQ[i]] for i in range(B)]
     # zero-input guard (first delayed round): never zero the warm start
     live = (Q * Q).sum(dim=(1, 2)) > 0
     q_new = torch.where(live[:, None, None], Q, q_masked)
@@ -117,10 +121,9 @@ def compress_local(delta_stacked, q_state, rank_scalar,
     for d, q in zip(T.leaves(delta_stacked), T.leaves(q_state)):
         C = d.shape[0]
         if q.numel() == 0:
-            flat = d.reshape(C, -1).float()
-            payloads.append([list(quant4.quant4_pack(flat[c].contiguous(),
-                                                     cfg.block))
-                             for c in range(C)])
+            p, s = quant4.quant4_pack_batched(d.reshape(C, -1).float(),
+                                              cfg.block)
+            payloads.append([[p[c], s[c]] for c in range(C)])
             q_new.append(q)
             continue
         lead, m, n = _leaf_matrix_dims(tuple(d.shape[1:]))
@@ -162,11 +165,15 @@ def gather_payloads(payloads, group=None):
 
     order = _wire_order(payloads)
     buf = torch.cat([t.reshape(-1).view(torch.uint8) for *_, t in order])
-    bufs = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(bufs, buf, group=group)
+    # one storage for all ranks' buffers, so that a leaf's chunks lie at
+    # a row stride inside each rank's buffer and a buffer apart across
+    # ranks: the batched unpack reads them in place
+    recv = torch.empty((dist.get_world_size(group), buf.numel()),
+                       dtype=torch.uint8, device=buf.device)
+    dist.all_gather_into_tensor(recv.view(-1), buf, group=group)
     sizes = [t.numel() * t.element_size() for *_, t in order]
     out = [[] for _ in payloads]
-    for rb in bufs:
+    for rb in recv:
         rows = [[[None] * len(row) for row in leaf] for leaf in payloads]
         for (li, ci, ti, t), chunk in zip(order, torch.split(rb, sizes)):
             rows[li][ci][ti] = chunk.view(t.dtype)
@@ -183,21 +190,19 @@ def decompress_mean_leaf(rows: Sequence[List[torch.Tensor]], shape,
     shape = tuple(shape)
     C = len(rows)
     if r == 0:
-        n_el = math.prod(shape)
-        vals = torch.stack([quant4.quant4_unpack(p, s, n_el, cfg.block)
-                            for p, s in rows])
+        vals = quant4.quant4_unpack_batched(
+            [p for p, _ in rows], [s for _, s in rows], math.prod(shape),
+            cfg.block)
         return vals.mean(0).reshape(shape)
     lead, m, n = _leaf_matrix_dims(shape)
     dev = rows[0][0].device
     P = torch.empty((C * lead, m, r), dtype=torch.float32, device=dev)
     Q = torch.empty((C * lead, n, r), dtype=torch.float32, device=dev)
-    for c, row in enumerate(rows):
-        for i in range(lead):
-            pP, sP, pQ, sQ = row[4 * i:4 * i + 4]
-            P[c * lead + i] = quant4.quant4_unpack(
-                pP, sP, m * r, cfg.block).reshape(m, r)
-            Q[c * lead + i] = quant4.quant4_unpack(
-                pQ, sQ, n * r, cfg.block).reshape(n, r)
+    for slot, F in ((0, P), (2, Q)):
+        quant4.quant4_unpack_batched(
+            [row[4 * i + slot] for row in rows for i in range(lead)],
+            [row[4 * i + slot + 1] for row in rows for i in range(lead)],
+            F[0].numel(), cfg.block, out=F.view(C * lead, -1))
     dec = lowrank_mm.matmul(P, Q.transpose(1, 2))               # (C*lead,m,n)
     del P, Q
     return dec.reshape(C, lead, m, n).mean(0).reshape(shape)

@@ -36,8 +36,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **_ERR,
     },
     "quant4": {
-        "quant4_pack_f32": ([_P, _L, _I, _P, _P, _P], _I),
-        "quant4_unpack_f32": ([_P, _P, _L, _I, _P, _P], _I),
+        # (ptr, group stride, row stride) x 3 operands, B, R, n, block
+        "quant4_pack_f32": (([_P] + [_L] * 2) * 3 + [_L] * 3 + [_I, _P], _I),
+        "quant4_unpack_f32": (([_P] + [_L] * 2) * 3 + [_L] * 3 + [_I, _P],
+                              _I),
         **_ERR,
     },
     "fused_compress": {

@@ -156,6 +156,98 @@ def test_cuda_quant4_matches_plain(n):
                                                         n).numpy())
 
 
+def _q4_rows(B, n, layout, seed):
+    """(B, n) f32 rows on the card with ties (x.5 steps at scale 1) in row
+    0 and a zero row 1: contiguous, starting 4 bytes off a 16-byte
+    boundary, or at a row stride of n + 3."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, n)).astype(np.float32))
+    x[0, :min(n, 8)] = torch.tensor([7.0, 2.5, -2.5, 0.5, -0.5, 1.5, -1.5,
+                                     3.5])[:min(n, 8)]
+    if B > 1:
+        x[1] = 0
+    if layout == "rows":
+        return x.cuda()
+    if layout == "odd start":
+        buf = torch.zeros(B * n + 1, device="cuda")
+        buf[1:] = x.reshape(-1).cuda()
+        return buf[1:].view(B, n)
+    buf = torch.zeros((B, n + 3), device="cuda")
+    buf[:, :n] = x.cuda()
+    return buf[:, :n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "odd start", "stride n + 3"])
+@pytest.mark.parametrize("B,n,block", [(1, 1000, 256), (3, 255, 256),
+                                       (24, 8192, 256), (24, 5000, 256),
+                                       (3, 1000, 100), (3, 1500, 512)])
+def test_cuda_quant4_batched_matches_plain_per_row(B, n, block, layout):
+    """The batched kernels byte for byte the plain version row by row at
+    aligned, ragged (n % block != 0) and misaligned rows, at blocks that
+    are no multiple of 8 and wider than a warp's 256 values; one launch
+    each; two calls bitwise equal; the unpack into a strided output and
+    from a gathered wire layout (two ranks' buffers, rows off any word
+    boundary) bitwise the unpack of the pack's rows."""
+    _need_cuda()
+    x = _q4_rows(B, n, layout, seed=B * n + block)
+    before = (q4.cuda_quant4_pack.launches, q4.cuda_quant4_unpack.launches)
+    p, s = q4.quant4_pack_batched(x, block)
+    out = q4.quant4_unpack_batched(p, s, n, block)
+    torch.cuda.synchronize()
+    assert (q4.cuda_quant4_pack.launches,
+            q4.cuda_quant4_unpack.launches) == (before[0] + 1, before[1] + 1)
+    p_ref, s_ref = q4.pack_batched_plain(x.cpu(), block)
+    assert torch.equal(p.cpu(), p_ref) and torch.equal(s.cpu(), s_ref)
+    want = q4.unpack_batched_plain(p_ref, s_ref, n, block)
+    assert torch.equal(out.cpu(), want)
+    for a, b in zip((p, s), q4.quant4_pack_batched(x, block)):
+        assert torch.equal(a, b)
+    strided = torch.full((B, n + 5), 9.0, device="cuda")
+    q4.quant4_unpack_batched(p, s, n, block, out=strided[:, 1:n + 1])
+    assert torch.equal(strided[:, 1:n + 1].cpu(), want)
+    assert (strided[:, 0] == 9).all() and (strided[:, n + 1:] == 9).all()
+    cs = load_chip_smoke()
+    got = q4.quant4_unpack_batched(cs._wire_rows(p, 101), cs._wire_rows(s, 3),
+                                   n, block)
+    assert torch.equal(got.cpu(), want.repeat(2, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_quant4_row_bits_do_not_depend_on_the_batch():
+    """A row's codes and values at B = 1 equal the same row's inside a
+    batch of 24, and the single-row entry points launch the same kernel
+    once."""
+    _need_cuda()
+    x = _q4_rows(24, 3000, "rows", seed=7)
+    p, s = q4.quant4_pack_batched(x)
+    out = q4.quant4_unpack_batched(p, s, 3000)
+    before = (q4.cuda_quant4_pack.launches, q4.cuda_quant4_unpack.launches)
+    for i in (0, 1, 13, 23):
+        p1, s1 = q4.quant4_pack(x[i].contiguous())
+        assert torch.equal(p1, p[i]) and torch.equal(s1, s[i])
+        assert torch.equal(q4.quant4_unpack(p1, s1, 3000), out[i])
+        p1, s1 = q4.quant4_pack_batched(x[i:i + 1])
+        assert torch.equal(p1[0], p[i]) and torch.equal(s1[0], s[i])
+    assert (q4.cuda_quant4_pack.launches,
+            q4.cuda_quant4_unpack.launches) == (before[0] + 8, before[1] + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r", [(257, 129, 8), (300, 200, 64)])
+def test_cuda_t_pack_codes_equal_the_quant4_kernels(no_tf32, m, n, r):
+    """fused_compress's t_pack writes the codes and scales the quant4
+    kernels give its own Q (the shared rule of quant4_codes.cuh)."""
+    _need_cuda()
+    from repro_torch.core.compression import _orthonormalize
+
+    d, _, q = (torch.from_numpy(a).cuda() for a in fused_inputs(m, n, r))
+    P = _orthonormalize(fc.cuda_project(d, None, q)).contiguous()
+    Q, pq, sq = fc.cuda_project_t_pack(d, None, P)
+    p, s = q4.quant4_pack_batched(Q.reshape(1, -1))
+    assert torch.equal(pq, p[0]) and torch.equal(sq, s[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,r,rt", [(64, 48, 8, None), (257, 129, 8, 5),
                                       (128, 128, 64, 32), (33, 500, 12, 7),
@@ -609,13 +701,16 @@ def test_cuda_mesh_compression_matches_cpu(no_tf32):
     q = {k: v.unsqueeze(0).expand((2,) + tuple(v.shape)).clone()
          for k, v in mc.init_q_state({k: v[0] for k, v in tree.items()},
                                      cfg).items()}
-    before = (lm.cuda_matmul.launches, q4.cuda_quant4_pack.launches)
+    before = (lm.cuda_matmul.launches, q4.cuda_quant4_pack.launches,
+              q4.cuda_quant4_unpack.launches)
     D, qn = mc.compress_gather_mean({k: v.cuda() for k, v in tree.items()},
                                     {k: v.cuda() for k, v in q.items()},
                                     20, cfg)
     torch.cuda.synchronize()
     assert lm.cuda_matmul.launches == before[0] + 3
-    assert q4.cuda_quant4_pack.launches == before[1] + 2 * 2 * 3 + 2
+    # one batched launch per leaf and factor: w's P and Q, b's two rows
+    assert q4.cuda_quant4_pack.launches == before[1] + 3
+    assert q4.cuda_quant4_unpack.launches == before[2] + 3
     D_p, qn_p = mc.compress_gather_mean(tree, q, 20, cfg)
     payloads, _ = mc.compress_local(tree, q, 20, cfg)
     step = max(16 * float(row[i + 1].max()) * float(row[i + 3].max())

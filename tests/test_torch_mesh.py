@@ -249,6 +249,61 @@ def test_zero_input_keeps_warm_start_per_matrix():
     assert not torch.equal(q_new["w"][0, 0], q[0, 0] * cm)
 
 
+def test_payload_wire_equals_a_per_matrix_pack():
+    """The batched packs change no byte on the wire: ``compress_local``'s
+    payload equals a loop in this test that packs each matrix's P and Q
+    and each cluster's quant-only row on its own (the packing before the
+    batched entry points), tensor for tensor, in the same
+    ``_wire_order``, with the same ``gather_bytes`` and concatenated
+    bytes; and the mean decompressed from it equals the mean from the
+    loop's rows."""
+    from repro_torch.core.compression import _orthonormalize
+    from repro_torch.kernels import lowrank_mm
+    from repro_torch.kernels.ref import col_mask
+
+    cfg = MC.MeshCompressionConfig(rank=10, min_dim_for_lowrank=64)
+    tree, q = _tree(), _stacked_q(_tree(), JMC.MeshCompressionConfig(
+        rank=10, min_dim_for_lowrank=64))
+    d_t, q_t = _to_port(tree), _to_port(q)
+    payloads, _ = MC.compress_local(d_t, q_t, 7, cfg)
+    loop = []
+    for d, qq in zip(T.leaves(d_t), T.leaves(q_t)):
+        C = d.shape[0]
+        if qq.numel() == 0:
+            loop.append([list(quant4.quant4_pack(d[c].reshape(-1)))
+                         for c in range(C)])
+            continue
+        lead, m, n = MC._leaf_matrix_dims(tuple(d.shape[1:]))
+        dm, qm = d.reshape(C * lead, m, n), qq.reshape(C * lead, n, -1)
+        cm = col_mask(qm.shape[-1], 7, dm.device)
+        P = lowrank_mm.matmul(dm, qm * cm)
+        for i in range(C * lead):
+            P[i] = _orthonormalize(P[i]) * cm
+        Q = lowrank_mm.matmul(dm.transpose(1, 2), P)
+        rows = []
+        for c in range(C):
+            row = []
+            for i in range(c * lead, (c + 1) * lead):
+                row += [*quant4.quant4_pack(P[i].reshape(-1)),
+                        *quant4.quant4_pack(Q[i].reshape(-1))]
+            rows.append(row)
+        loop.append(rows)
+    got, want = MC._wire_order(payloads), MC._wire_order(loop)
+    assert [w[:3] for w in got] == [w[:3] for w in want]
+    for (*_, a), (*_, b) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert MC.gather_bytes(payloads) == MC.gather_bytes(loop)
+    wire = [torch.cat([t.reshape(-1).view(torch.uint8) for *_, t in o])
+            for o in (got, want)]
+    assert torch.equal(*wire)
+    for rows_b, rows_l, d in zip(payloads, loop, T.leaves(d_t)):
+        r = 0 if len(rows_b[0]) == 2 else 10
+        assert torch.equal(MC.decompress_mean_leaf(rows_b, d.shape[1:], r,
+                                                   cfg),
+                           MC.decompress_mean_leaf(rows_l, d.shape[1:], r,
+                                                   cfg))
+
+
 # ---------------------------------------------------------------------------
 # three rounds of make_train_step + make_outer_step against JAX
 # ---------------------------------------------------------------------------
