@@ -30,7 +30,8 @@ continues:
         (tiles, splits S, blocks); then the int4 kernels' batched
         launches of one mesh round (phase 4d's 24: each low-rank leaf's
         P and Q, each quant-only leaf) byte for byte their plain version,
-        also when the rows are read from a gathered wire layout, timed
+        also when the rows are read from a two-rank gathered wire layout
+        (2 groups of B rows, the kernel's grouped addressing), timed
         beside their bytes bound and beside the same rows launched one at
         a time (``mesh_quant4``);
      c. flash attention, the forward and the backward kernels, at the
@@ -715,27 +716,38 @@ def mesh_quant4_launches(cfg, rank=RANK):
     return out
 
 
-def _wire_rows(t, gap, ranks=2):
+def _wire_rows(t, gap, head, ranks=2):
     """The rows of ``t`` as a gathered wire buffer holds one factor's
-    chunks: in each of ``ranks`` equal buffers, ``gap`` other elements
-    before each row (the other factor's codes; an odd ``gap`` of bytes
-    starts rows off any word boundary)."""
-    filler = torch.zeros(gap, dtype=t.dtype, device=t.device)
-    wire = torch.cat([x for row in t for x in (filler, row)]).repeat(ranks)
-    step, k = gap + t.shape[1], t.shape[1]
-    return [wire[j * step + gap:j * step + gap + k]
-            for j in range(ranks * t.shape[0])]
+    chunks: ``ranks`` equal buffers, each ``head`` other elements first
+    (the scales region) and ``gap`` other elements before each row (the
+    other factor's codes; an odd ``gap`` of bytes starts rows off any word
+    boundary). A ``head`` > 0 puts the ranks a buffer apart, not a row
+    stride, so the kernel takes them as groups of B rows (``_wire_groups``)."""
+    B, k = t.shape
+    zeros = lambda m: torch.zeros(m, dtype=t.dtype, device=t.device)
+    buf = torch.cat([zeros(head)] + [x for row in t for x in (zeros(gap), row)])
+    wire, L, step = buf.repeat(ranks), buf.numel(), gap + k
+    return [wire[g * L + head + i * step + gap:][:k]
+            for g in range(ranks) for i in range(B)]
+
+
+def _wire_groups(rows, dtype, width):
+    """(R, group stride, row stride) that the quant4 wrapper reads from
+    ``rows``' starts, in elements."""
+    from repro_torch.kernels import quant4 as q4
+
+    return q4._rows("rows", rows, dtype, width)[2:]
 
 
 def mesh_quant4(dev=None, cfg=None):
     """quant4's batched kernels at the launches of one mesh round (phase
     4d's shapes): each pack byte for byte its plain version row by row,
     each unpack exact, and a low-rank leaf's unpack of its rows' chunks
-    as two ranks' gathered buffers hold them (``_wire_rows``) bitwise the
-    unpack of the pack's own rows. Times each batched launch
-    beside its bytes bound and beside the same rows launched one at a
-    time (the kernel at B = 1, back to back, so the host's launch gaps
-    count); returns the sums over the round."""
+    as two ranks' gathered buffers hold them (``_wire_rows``: 2 groups
+    of B rows, checked) bitwise the unpack of the pack's own rows. Times
+    each batched launch beside its bytes bound and beside the same rows
+    launched one at a time (the kernel at B = 1, back to back, so the
+    host's launch gaps count); returns the sums over the round."""
     from repro_torch.kernels import quant4 as q4
 
     _phase("kernel vs plain: quant4 batched, one mesh round's launches")
@@ -757,12 +769,16 @@ def mesh_quant4(dev=None, cfg=None):
         if not torch.equal(out, q4.unpack_batched_plain(p, s, n)):
             _fail(f"quant4_unpack batched {what} ({B} x {n}): not exact")
         if B > 1:
-            got = q4.cuda_quant4_unpack_batched(_wire_rows(p, 101),
-                                                _wire_rows(s, 3), n)
+            pw, sw = _wire_rows(p, 101, 37), _wire_rows(s, 3, 5)
+            if (_wire_groups(pw, torch.uint8, p.shape[1])[0] != B
+                    or _wire_groups(sw, torch.float32, s.shape[1])[0] != B):
+                _fail(f"quant4 {what}: the two-rank wire layout was not read "
+                      f"as 2 groups of {B} rows")
+            got = q4.cuda_quant4_unpack_batched(pw, sw, n)
             if not torch.equal(got, out.repeat(2, 1)):
                 _fail(f"quant4_unpack batched {what}: rows read from a "
                       f"gathered wire layout differ from the pack's rows")
-            del got
+            del got, pw, sw
         nbytes = B * (4 * n + p.shape[1] + 4 * s.shape[1])
         times = {
             "pack": (time_ms(lambda: q4.cuda_quant4_pack_batched(x),

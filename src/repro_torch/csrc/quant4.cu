@@ -32,25 +32,25 @@
 //
 // Design: the grid's y is the row (so a row's offsets take one 32-bit
 // division a thread, once), its x the row's blocks; one warp per
-// quantization block (BPW blocks a warp, 1 by default), 8 warps per
-// 256-thread block. In a 256-value segment lane l owns two quads, values
-// 4l..4l+3 and 128+4l..128+4l+3, so that each 16-byte access of a warp
-// covers 512 contiguous bytes (whole sectors): pack loads the quads as two
-// 16-byte loads, keeps them in registers, takes the block's absmax with
-// shuffles, codes them and stores two 16-bit halves (bytes 2l, 2l+1 and
-// 64+2l, 64+2l+1); unpack loads the halves and stores two 16-byte
-// vectors. A quad that is not whole (the ragged tail, a block that is not
-// a multiple of 4) or not aligned (a row that starts off a 16-byte
-// boundary) takes scalar loads and stores of the same values, so both
-// paths give the same bits. Blocks of more than 256 values loop over
-// segments; the pack then reads each segment twice (absmax, then codes).
+// quantization block, 8 warps per 256-thread block. In a 256-value
+// segment lane l owns two quads, values 4l..4l+3 and 128+4l..128+4l+3, so
+// that each 16-byte access of a warp covers 512 contiguous bytes (whole
+// sectors): pack loads the quads as two 16-byte loads, keeps them in
+// registers, takes the block's absmax with shuffles, codes them and stores
+// two 16-bit halves (bytes 2l, 2l+1 and 64+2l, 64+2l+1); unpack loads the
+// halves and stores two 16-byte vectors. A quad that is not whole (the
+// ragged tail, a block that is not a multiple of 4) or not aligned (a row
+// that starts off a 16-byte boundary) takes scalar loads and stores of the
+// same values, so both paths give the same bits. Blocks of more than 256
+// values (WIDE) loop over segments; the pack then reads each segment twice
+// (absmax, then codes).
 //
 // Why one block a warp: 64 resident warps an SM with 1 KB each in flight
 // already cover HBM's latency (3.35 TB/s x ~1 us over 132 SMs is ~25 KB
 // an SM), while 4 blocks a warp made each warp's chain of loads, shuffles
 // and divisions 4 times as long, which the many launches of a few blocks
-// pay in full (scripts/quant4_sweep.py: BPW 4 was slower on every set of
-// launches but the mesh round's unpacks; PERF.md).
+// pay in full (PERF.md: 4 blocks a warp were slower on every set of
+// launches but the mesh round's unpacks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,9 +58,6 @@
 #include "quant4_codes.cuh"
 
 #define WARPS_PER_BLOCK 8
-#ifndef BPW                         // scripts/quant4_sweep.py times others
-#define BPW 1                       // quantization blocks per warp
-#endif
 #define SEG 256                     // values a warp covers at once
 #define QUAD 128                    // offset of a lane's second quad
 
@@ -130,78 +127,40 @@ __device__ __forceinline__ uint32_t load_quad(const uint8_t* p, int nv) {
   return h;
 }
 
-// Blocks of at most SEG values: one pass, BPW blocks in registers.
+// One quantization block a warp. A block of at most SEG values is loaded
+// once and kept in registers; a WIDE block loops over its segments twice,
+// for the absmax and then for the codes (the second pass from L1/L2).
+template <bool WIDE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 quant4_pack_kernel(const float* __restrict__ x, Rows xr,
                    uint8_t* __restrict__ packed, Rows pr,
                    float* __restrict__ scales, Rows sr, Batch bt) {
-  const long long b0 =
-      ((long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5)) * BPW;
-  if (b0 >= bt.nblk) return;
-  const int lane = threadIdx.x & 31;
-  const int nv0 = quad_values(bt.block, 4 * lane);
-  const int nv1 = quad_values(bt.block, QUAD + 4 * lane);
-  const float* xrow = x + row_at(bt.R, xr);
-  float v[BPW][8];
-  float amax[BPW];
-#pragma unroll
-  for (int t = 0; t < BPW; ++t) {
-    const long long e = (b0 + t) * bt.block + 4 * lane;
-    const bool live = b0 + t < bt.nblk;
-    load4(xrow, e, live ? bt.n : 0, nv0, v[t]);
-    load4(xrow, e + QUAD, live ? bt.n : 0, nv1, v[t] + 4);
-  }
-#pragma unroll
-  for (int t = 0; t < BPW; ++t) {
-    amax[t] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) amax[t] = fmaxf(amax[t], fabsf(v[t][k]));
-  }
-#pragma unroll
-  for (int t = 0; t < BPW; ++t) amax[t] = warp_amax(amax[t]);
-  uint8_t* prow = packed + row_at(bt.R, pr);
-  float* srow = scales + row_at(bt.R, sr);
-#pragma unroll
-  for (int t = 0; t < BPW; ++t) {
-    if (b0 + t >= bt.nblk) break;
-    const float scale = block_scale(amax[t]);
-    uint8_t* p = prow + (b0 + t) * (bt.block / 2) + 2 * lane;
-    store_quad(p, code_quad(v[t], scale), nv0);
-    store_quad(p + QUAD / 2, code_quad(v[t] + 4, scale), nv1);
-    if (lane == 0) srow[b0 + t] = scale;
-  }
-}
-
-// Blocks of more than SEG values: one block a warp, two passes over its
-// segments (the second from L1/L2).
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-quant4_pack_wide_kernel(const float* __restrict__ x, Rows xr,
-                        uint8_t* __restrict__ packed, Rows pr,
-                        float* __restrict__ scales, Rows sr, Batch bt) {
   const long long blk =
       (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (blk >= bt.nblk) return;
   const int lane = threadIdx.x & 31;
-  const float* xrow = x + row_at(bt.R, xr) + blk * bt.block;
-  const long long n = bt.n - blk * bt.block;
+  const float* xblk = x + row_at(bt.R, xr) + blk * bt.block;
+  const long long n = bt.n - blk * bt.block;   // the row's values from here
   float v[8];
   float amax = 0.f;
-  for (int s = 0; s < bt.block; s += SEG) {
-    load4(xrow, s + 4 * lane, n, quad_values(bt.block, s + 4 * lane), v);
-    load4(xrow, s + QUAD + 4 * lane, n,
+  for (int s = 0; s < (WIDE ? bt.block : 1); s += SEG) {
+    load4(xblk, s + 4 * lane, n, quad_values(bt.block, s + 4 * lane), v);
+    load4(xblk, s + QUAD + 4 * lane, n,
           quad_values(bt.block, s + QUAD + 4 * lane), v + 4);
 #pragma unroll
     for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(v[k]));
   }
   const float scale = block_scale(warp_amax(amax));
-  uint8_t* prow = packed + row_at(bt.R, pr) + blk * (bt.block / 2);
-  for (int s = 0; s < bt.block; s += SEG) {
+  uint8_t* pblk = packed + row_at(bt.R, pr) + blk * (bt.block / 2);
+  for (int s = 0; s < (WIDE ? bt.block : 1); s += SEG) {
     const int nv0 = quad_values(bt.block, s + 4 * lane);
     const int nv1 = quad_values(bt.block, s + QUAD + 4 * lane);
-    load4(xrow, s + 4 * lane, n, nv0, v);
-    load4(xrow, s + QUAD + 4 * lane, n, nv1, v + 4);
-    store_quad(prow + s / 2 + 2 * lane, code_quad(v, scale), nv0);
-    store_quad(prow + (s + QUAD) / 2 + 2 * lane, code_quad(v + 4, scale),
+    if (WIDE) {
+      load4(xblk, s + 4 * lane, n, nv0, v);
+      load4(xblk, s + QUAD + 4 * lane, n, nv1, v + 4);
+    }
+    store_quad(pblk + s / 2 + 2 * lane, code_quad(v, scale), nv0);
+    store_quad(pblk + (s + QUAD) / 2 + 2 * lane, code_quad(v + 4, scale),
                nv1);
   }
   if (lane == 0) scales[row_at(bt.R, sr) + blk] = scale;
@@ -221,45 +180,34 @@ __device__ __forceinline__ void store_values(float* o, long long e,
   }
 }
 
-// BPW blocks a warp, their codes and scales loaded first; a block of more
-// than SEG values (WIDE) loops over its segments.
+// One quantization block a warp; a WIDE block loops over its segments.
 template <bool WIDE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 quant4_unpack_kernel(const uint8_t* __restrict__ packed, Rows pr,
                      const float* __restrict__ scales, Rows sr,
                      float* __restrict__ out, Rows orr, Batch bt) {
-  const long long b0 =
-      ((long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5)) * BPW;
-  if (b0 >= bt.nblk) return;
+  const long long blk =
+      (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (blk >= bt.nblk) return;
   const int lane = threadIdx.x & 31;
-  const uint8_t* prow = packed + row_at(bt.R, pr);
-  const float* srow = scales + row_at(bt.R, sr);
-  float* orow = out + row_at(bt.R, orr);
+  const uint8_t* pblk = packed + row_at(bt.R, pr) + blk * (bt.block / 2);
+  const float scale = scales[row_at(bt.R, sr) + blk];
+  float* oblk = out + row_at(bt.R, orr) + blk * bt.block;
+  const long long n = bt.n - blk * bt.block;   // the row's values from here
   for (int s = 0; s < (WIDE ? bt.block : 1); s += SEG) {
     const int nv0 = quad_values(bt.block, s + 4 * lane);
     const int nv1 = quad_values(bt.block, s + QUAD + 4 * lane);
-    uint32_t h[BPW][2];
-    float scale[BPW];
-#pragma unroll
-    for (int t = 0; t < BPW; ++t) {
-      const bool live = b0 + t < bt.nblk;
-      const uint8_t* p = prow + (b0 + t) * (bt.block / 2) + s / 2 + 2 * lane;
-      h[t][0] = live ? load_quad(p, nv0) : 0;
-      h[t][1] = live ? load_quad(p + QUAD / 2, nv1) : 0;
-      scale[t] = live ? srow[b0 + t] : 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < BPW; ++t) {
-      if (b0 + t >= bt.nblk) break;
-      const long long e = (b0 + t) * bt.block + s + 4 * lane;
-      store_values(orow, e, bt.n, nv0, h[t][0], scale[t]);
-      store_values(orow, e + QUAD, bt.n, nv1, h[t][1], scale[t]);
-    }
+    const uint32_t h0 = load_quad(pblk + s / 2 + 2 * lane, nv0);
+    const uint32_t h1 = load_quad(pblk + (s + QUAD) / 2 + 2 * lane, nv1);
+    store_values(oblk, s + 4 * lane, n, nv0, h0, scale);
+    store_values(oblk, s + QUAD + 4 * lane, n, nv1, h1, scale);
   }
 }
 
-static inline dim3 grid_for(long long nblk, long long per_cta, long long B) {
-  return dim3((unsigned)((nblk + per_cta - 1) / per_cta), (unsigned)B);
+// ceil(nblk / 8) x B: a warp a block, a grid row a batch row.
+static inline dim3 grid_for(long long nblk, long long B) {
+  return dim3((unsigned)((nblk + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK),
+              (unsigned)B);
 }
 
 extern "C" int quant4_pack_f32(const void* x, long long xs0, long long xs1,
@@ -271,16 +219,11 @@ extern "C" int quant4_pack_f32(const void* x, long long xs0, long long xs1,
   if (B * nblk == 0) return 0;
   const Batch bt{n, nblk, (int)R, block};
   const Rows xr{xs0, xs1}, pr{ps0, ps1}, sr{ss0, ss1};
-  if (block <= SEG) {
-    quant4_pack_kernel<<<grid_for(nblk, WARPS_PER_BLOCK * BPW, B),
-                         WARPS_PER_BLOCK * 32, 0, (cudaStream_t)stream>>>(
-        (const float*)x, xr, (uint8_t*)packed, pr, (float*)scales, sr, bt);
-  } else {
-    quant4_pack_wide_kernel<<<grid_for(nblk, WARPS_PER_BLOCK, B),
-                              WARPS_PER_BLOCK * 32, 0,
-                              (cudaStream_t)stream>>>(
-        (const float*)x, xr, (uint8_t*)packed, pr, (float*)scales, sr, bt);
-  }
+  auto* kernel = block <= SEG ? quant4_pack_kernel<false>
+                              : quant4_pack_kernel<true>;
+  kernel<<<grid_for(nblk, B), WARPS_PER_BLOCK * 32, 0,
+           (cudaStream_t)stream>>>((const float*)x, xr, (uint8_t*)packed, pr,
+                                   (float*)scales, sr, bt);
   return (int)cudaGetLastError();
 }
 
@@ -294,18 +237,12 @@ extern "C" int quant4_unpack_f32(const void* packed, long long ps0,
   if (B * nblk == 0) return 0;
   const Batch bt{n, nblk, (int)R, block};
   const Rows pr{ps0, ps1}, sr{ss0, ss1}, orr{os0, os1};
-  const dim3 grid = grid_for(nblk, WARPS_PER_BLOCK * BPW, B);
-  if (block <= SEG) {
-    quant4_unpack_kernel<false><<<grid, WARPS_PER_BLOCK * 32, 0,
-                                  (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, pr, (const float*)scales, sr, (float*)out,
-        orr, bt);
-  } else {
-    quant4_unpack_kernel<true><<<grid, WARPS_PER_BLOCK * 32, 0,
-                                 (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, pr, (const float*)scales, sr, (float*)out,
-        orr, bt);
-  }
+  auto* kernel = block <= SEG ? quant4_unpack_kernel<false>
+                              : quant4_unpack_kernel<true>;
+  kernel<<<grid_for(nblk, B), WARPS_PER_BLOCK * 32, 0,
+           (cudaStream_t)stream>>>((const uint8_t*)packed, pr,
+                                   (const float*)scales, sr, (float*)out, orr,
+                                   bt);
   return (int)cudaGetLastError();
 }
 

@@ -187,8 +187,9 @@ def test_cuda_quant4_batched_matches_plain_per_row(B, n, block, layout):
     aligned, ragged (n % block != 0) and misaligned rows, at blocks that
     are no multiple of 8 and wider than a warp's 256 values; one launch
     each; two calls bitwise equal; the unpack into a strided output and
-    from a gathered wire layout (two ranks' buffers, rows off any word
-    boundary) bitwise the unpack of the pack's rows."""
+    from a gathered wire layout (two ranks' buffers read as 2 groups of B
+    rows, rows off any word boundary) bitwise the unpack of the pack's
+    rows."""
     _need_cuda()
     x = _q4_rows(B, n, layout, seed=B * n + block)
     before = (q4.cuda_quant4_pack.launches, q4.cuda_quant4_unpack.launches)
@@ -208,8 +209,11 @@ def test_cuda_quant4_batched_matches_plain_per_row(B, n, block, layout):
     assert torch.equal(strided[:, 1:n + 1].cpu(), want)
     assert (strided[:, 0] == 9).all() and (strided[:, n + 1:] == 9).all()
     cs = load_chip_smoke()
-    got = q4.quant4_unpack_batched(cs._wire_rows(p, 101), cs._wire_rows(s, 3),
-                                   n, block)
+    pw, sw = cs._wire_rows(p, 101, 37), cs._wire_rows(s, 3, 5)
+    if B > 1:     # grouped: R = B rows a rank, not one stride over 2B
+        assert cs._wire_groups(pw, torch.uint8, p.shape[1])[0] == B
+        assert cs._wire_groups(sw, torch.float32, s.shape[1])[0] == B
+    got = q4.quant4_unpack_batched(pw, sw, n, block)
     assert torch.equal(got.cpu(), want.repeat(2, 1))
 
 

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _fused_contract import quant_inputs
+from _fused_contract import load_chip_smoke, quant_inputs
 from repro.kernels import ref as jref
 from repro.kernels.quant4 import quant4_pack_pallas, quant4_unpack_pallas
 from repro_torch.kernels import quant4 as q4
@@ -244,6 +244,29 @@ def test_unpack_wrapper_reads_gathered_chunks_in_place(recording_lib, ranks,
                                               recv.shape[1] // 4)
     assert (call["out"], call["os1"], call["os0"]) == (P.data_ptr(), m * r,
                                                        R * m * r)
+
+
+@pytest.mark.parametrize("B", [2, 24])
+def test_chip_smoke_wire_rows_reach_the_grouped_addressing(recording_lib, B):
+    """``chip_smoke._wire_rows`` (phase 3b's two-rank wire layout and the
+    ``cuda`` tests') puts the ranks a buffer apart, not a row stride: the
+    wrapper hands the kernel 2 groups of B rows (R = B, not 2 B), and the
+    plain unpack of those rows is the unpack of the pack's own rows."""
+    cs = load_chip_smoke()
+    n, gap, head = 1000, 101, 37
+    x = torch.from_numpy(_batch(B, n, seed=B))
+    p, s = q4.pack_batched_plain(x)
+    pw, sw = cs._wire_rows(p, gap, head), cs._wire_rows(s, 3, 5)
+    q4.cuda_quant4_unpack_batched(pw, sw, n)
+    call = recording_lib[-1]
+    step, L = gap + p.shape[1], head + B * (gap + p.shape[1])
+    assert (call["B"], call["R"], call["ps1"], call["ps0"]) == (
+        2 * B, B, step, L)
+    assert (call["ss1"], call["ss0"]) == (3 + s.shape[1],
+                                          5 + B * (3 + s.shape[1]))
+    assert cs._wire_groups(pw, torch.uint8, p.shape[1]) == (B, L, step)
+    assert torch.equal(q4.unpack_batched_plain(pw, sw, n),
+                       q4.unpack_batched_plain(p, s, n).repeat(2, 1))
 
 
 def test_batched_wrappers_refuse_what_the_kernel_cannot_address(
