@@ -10,11 +10,13 @@ continues:
   3. kernel vs plain: each kernel against its plain PyTorch version at the
      shapes its path gives it, with its time, the plain version's, a
      library yardstick's and the least time the card could take:
-     a. paged attention at the served models' shapes: each case within
-        the JAX gate, two calls bit for bit equal, and slot 0 run alone
-        bit for bit its row of the batch; each case's plan (pages per
-        chunk, chunks, blocks) and, at the full-size cases, each kernel's
-        time (``kernel_profile``);
+     a. paged attention at the served models' shapes (opt-1.3b,
+        granite-3-8b, gemma3-1b; stablelm-12b's head dim 160 and
+        qwen1.5-107b's G = 8 at the serve phase's lengths and at 2,048
+        tokens): each case within the JAX gate, two calls bit for bit
+        equal, and slot 0 run alone bit for bit its row of the batch;
+        each case's plan (pages per chunk, chunks, blocks) and, at the
+        full-size cases, each kernel's time (``kernel_profile``);
      b. the compressor's five kernels (int4 pack/unpack, project,
         project-transpose + pack, reconstruct) at every leaf shape of the
         training configuration, r = 64 and r_t in {64, 40}, held to the
@@ -33,12 +35,14 @@ continues:
         also when the rows are read from a two-rank gathered wire layout
         (2 groups of B rows, the kernel's grouped addressing), timed
         beside their bytes bound and beside the same rows launched one at
-        a time (``mesh_quant4``);
+        a time (``mesh_quant4``), at opt-1.3b's leaves and again at
+        stablelm-12b's (2 layers: phase 4e's launches);
      c. flash attention, the forward and the backward kernels, at the
         training shape (opt-1.3b, B 4 x S 512), opt-1.3b at 2,048 tokens,
         the GQA shapes of granite-3-8b, hundred-m and gemma3-1b's global
-        layers (d 256), S = 384 and 200, non-causal, Sq != Sk, and one
-        layer of the paper's qwen1.5-107b at 4,096 keys: the forward
+        layers (d 256), S = 384 and 200, non-causal, Sq != Sk, one
+        layer of the paper's qwen1.5-107b at 4,096 keys and one of
+        phi3-medium-14b (H 40, KV 10, d 128): the forward
         within the JAX gate rtol/atol 2e-3 and an elementwise f32 bound
         (``flash_tolerances``), the backward (fed the plain forward's o
         and lse) within the same kind of bound and bitwise equal over two
@@ -58,6 +62,7 @@ continues:
         JAX gate; each product's route (split, rank, general) and split
         plan, times beside the plain version and torch.matmul, summed per
         route, and at the batched split products the plan against S = 1;
+        then the same at phase 4e's tree (stablelm-12b, 2 layers);
   4. train: ``run_diloco_training`` on opt-1.3b at full width, 12 of 24
      layers, 2 clusters, H = 4, batch 4 x 512, LowRankQuant(rank 64,
      int4, the fused kernels), 2 rounds with the delay and EF: finite
@@ -80,10 +85,22 @@ continues:
         leaf and factor), the all-gather handed the payload's bytes, peak
         memory; then the outer step run again on the last state, plain
         and split into its parts by CUDA events (``outer_split``);
-  5. serve: ``repro_torch.launch.serve`` on full-width opt-1.3b with the
-     paged engine; the kernel's launch count must equal device steps x 24;
+     e. the same driver on stablelm-12b (parallel residual, LayerNorm and
+        GELU, head dim 160) at full width, cut to 2 of 40 layers
+        (``--n-layers 2``), with the same gates;
+     f. ``run_compressed_ddp_training`` with CocktailSGD (random 0.1, top-k
+        0.08 of the sample, int4) on phase 4's opt-1.3b, 2 clusters, 4
+        steps: finite losses, both clusters' masks bitwise equal in each
+        step, every leaf's kept values inside the mask and at most k; the
+        wire bytes per step beside DiLoCoX's per round (``cocktail_ddp``);
+  5. serve: ``repro_torch.launch.serve`` with the paged engine on
+     full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
+     width and depth (40 layers); the kernel's launch count must equal
+     device steps x layers;
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
-     dense decode loop (plain attention) at full width must agree.
+     dense decode loop (plain attention) at full width must agree: opt-1.3b,
+     then (6b) stablelm-12b (40 layers) and qwen1.5-107b cut to 2 of 78
+     layers.
 The line before the last holds the kernels' numbers as JSON; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -270,6 +287,18 @@ def kernel_vs_plain():
         ("gemma3-1b len<=2048 w512", dict(S=8, P=128, ps=16, KV=1, G=4,
                                           dh=256, max_len=2048,
                                           n_inactive=1), 512),
+        # stablelm-12b: head dim 160, 40 float4s a row (not a power of
+        # two, more than a warp); qwen1.5-107b: G = 8
+        ("stablelm-12b len<=192", dict(S=8, P=12, ps=16, KV=8, G=4, dh=160,
+                                       max_len=192, n_inactive=1), 0),
+        ("stablelm-12b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=4,
+                                        dh=160, max_len=2048,
+                                        n_inactive=1), 0),
+        ("qwen1.5-107b len<=192", dict(S=8, P=12, ps=16, KV=8, G=8, dh=128,
+                                       max_len=192, n_inactive=1), 0),
+        ("qwen1.5-107b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=8,
+                                        dh=128, max_len=2048,
+                                        n_inactive=1), 0),
     ]
     rows = []
     worst = 0.0
@@ -750,14 +779,16 @@ def mesh_quant4(dev=None, cfg=None):
     host's launch gaps count); returns the sums over the round."""
     from repro_torch.kernels import quant4 as q4
 
-    _phase("kernel vs plain: quant4 batched, one mesh round's launches")
+    cfg = cfg or mesh_config()
+    _phase(f"kernel vs plain: quant4 batched, one mesh round's launches "
+           f"({cfg.name}, {cfg.n_layers} layers)")
     dev = dev or torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     tot = {k: dict(ms=0.0, one_ms=0.0, bound_ms=0.0, nbytes=0)
            for k in ("pack", "unpack")}
-    launches = mesh_quant4_launches(cfg or mesh_config())
+    launches = mesh_quant4_launches(cfg)
     for what, B, n in launches:
         x = torch.randn((B, n), generator=gen, device=dev) * 0.05
         p, s = q4.cuda_quant4_pack_batched(x)
@@ -829,9 +860,11 @@ FLASH_CASES = [
     # one layer of the paper's model (section 4.1.1, configs/qwen1_5_107b):
     # G = 8, d 128, 4,096 keys
     ("qwen1.5-107b", 1, 4096, 4096, 64, 8, 128, True),
+    # phi3-medium-14b: H 40 (not a power of two), KV 10, d 128
+    ("phi3-medium-14b", 1, 512, 512, 40, 10, 128, True),
 ]
 FLASH_PROFILED = ("opt-1.3b train", "granite-3-8b", "gemma3-1b global",
-                  "qwen1.5-107b")
+                  "qwen1.5-107b", "phi3-medium-14b")
 
 
 def flash_pairs(Sq, Sk, causal):
@@ -988,7 +1021,7 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
     gen.manual_seed(3)
     worst = {"fwd": 0.0, "bwd": 0.0}
     worst_ratio = {"fwd": (0.0, ""), "bwd": (0.0, "")}
-    rows = {}
+    rows, per_case = {}, {}
     for name, B, Sq, Sk, H, KV, d, causal in cases:
         q = torch.randn((B, Sq, H, d), generator=gen, device=dev)
         k = torch.randn((B, Sk, KV, d), generator=gen, device=dev)
@@ -1085,6 +1118,12 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
             print(f"{name}: us per call by kernel (torch.profiler, L2 warm): "
                   + ", ".join(f"{k_} {us:.1f}" for k_, us in prof.items()),
                   flush=True)
+        per_case[name] = {"fwd": dict(ms=ms_f, plain_ms=plain_f,
+                                   bound_ms=bound_f, library_ms=lib_f,
+                                   max_abs_err=err_o),
+                       "bwd": dict(ms=ms_b, plain_ms=plain_b,
+                                   bound_ms=bound_b, library_ms=lib_b,
+                                   max_abs_err=max(errs))}
         if not rows:
             src = "src/repro_torch/csrc/flash_attention.cu"
             tpu = "src/repro/kernels/flash_attention.py:24"
@@ -1101,6 +1140,9 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
         torch.cuda.empty_cache()
     rows["flash_attention"]["max_abs_err"] = worst["fwd"]
     rows["flash_attention_bwd"]["max_abs_err"] = worst["bwd"]
+    for kind, key in (("fwd", "flash_attention"),
+                      ("bwd", "flash_attention_bwd")):
+        rows[key]["cases"] = {name: c[kind] for name, c in per_case.items()}
     for kind in ("fwd", "bwd"):
         r, at = worst_ratio[kind]
         print(f"flash {kind}: worst error {r:.4f} of the f32 bound "
@@ -1376,6 +1418,16 @@ def mesh_config():
     return get_config("opt-1.3b")
 
 
+STABLELM_LAYERS = 2     # of stablelm-12b's 40: phase 4e's mesh round keeps
+                        # ~39 B a parameter (phase 4d), ~53 GiB at 2 layers
+
+
+def stablelm_mesh_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("stablelm-12b"),
+                               n_layers=STABLELM_LAYERS)
+
+
 def mesh_products(cfg, rank=RANK):
     """{(batch, m, k, n, transposed operand): leaves} of the outer step's
     products per cluster and round: P = M Q, Q = M^T P (a transposed) and
@@ -1429,7 +1481,9 @@ def lowrank_mm_kernel(dev=None, cfg=None):
     look at the batch)."""
     from repro_torch.kernels import lowrank_mm as lm
 
-    _phase("kernel vs plain: lowrank_mm (mesh outer-step products)")
+    cfg = cfg or mesh_config()
+    _phase(f"kernel vs plain: lowrank_mm (mesh outer-step products, "
+           f"{cfg.name}, {cfg.n_layers} layers)")
     dev = dev or torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
@@ -1438,7 +1492,7 @@ def lowrank_mm_kernel(dev=None, cfg=None):
     by_route = {}
     worst, worst_ratio = 0.0, 0.0
     for (batch, m, k, n, trans), count in sorted(mesh_products(
-            cfg or mesh_config()).items()):
+            cfg).items()):
         a, b = _mm_operands(gen, dev, batch, m, k, n, trans)
         route, plan = _route_tag(lm, a, b)
         tag = (f"batch {batch} ({m} x {k}) @ ({k} x {n}) transposed "
@@ -1801,6 +1855,121 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
     return launches
 
 
+# phase 4e: the mesh driver on stablelm-12b (parallel residual, head dim
+# 160) at full width, 2 of 40 layers
+MESH_ARGS_STABLELM = ["--arch", "stablelm-12b", "--n-layers",
+                      str(STABLELM_LAYERS)] + MESH_ARGS[2:]
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the CocktailSGD baseline, through the user's entry point
+# ---------------------------------------------------------------------------
+
+COCKTAIL = dict(n_clusters=2, local_batch=4, seq_len=512, inner_lr=1e-3,
+                compressor="cocktail",
+                compressor_kw=dict(random_ratio=0.1, topk_ratio=0.08, bits=4),
+                seed=0)
+COCKTAIL_STEPS = 4
+
+
+def cocktail_ddp(dev=None, cfg=None, steps=COCKTAIL_STEPS):
+    """``run_compressed_ddp_training`` with the CocktailSGD compressor
+    (random 0.1, top-k 0.08 of the sample, int4) on opt-1.3b at phase 4's
+    width and depth. Each leaf's random mask is recorded
+    (``compression._mask``) and each roundtrip's result
+    (``compression.cocktail_apply``): both clusters draw the same mask in
+    each step (bitwise), every kept value lies in the mask, and a leaf
+    keeps at most k = max(1, int(n 0.1 0.08)) values. No kernel runs on
+    this path (plain attention, a plain compressor). Prints the wire
+    bytes per step beside DiLoCoX's per round."""
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.models import model as M
+    from repro_torch.train import trainer as T
+
+    cfg = cfg or train_config()
+    tcfg = T.TrainConfig(**COCKTAIL)
+    _phase(f"cocktail DDP: run_compressed_ddp_training {cfg.name} d_model "
+           f"{cfg.d_model}, {cfg.n_layers} layers, {steps} steps, {COCKTAIL}")
+    dev = dev or torch.device("cuda")
+    kw = tcfg.compressor_kw
+    first = {}                       # (step, path): cluster 0's mask
+    stats = dict(pairs=0, calls=0, worst=0.0, outside=0)
+    draw, apply = C._mask, C.cocktail_apply
+
+    def record_mask(seed, step, path, shape, ratio, device):
+        m = draw(seed, step, path, shape, ratio, device)
+        other = first.pop((step, path), None)
+        if other is None:
+            first[(step, path)] = m
+        elif not torch.equal(other, m):
+            _fail(f"cocktail: step {step} {path}: the clusters' masks differ")
+        else:
+            stats["pairs"] += 1
+        return m
+
+    def record_apply(x, mask, random_ratio, topk_ratio, bits):
+        out = apply(x, mask, random_ratio, topk_ratio, bits)
+        kept = out.reshape(-1) != 0
+        k = max(1, int(x.numel() * random_ratio * topk_ratio))
+        stats["calls"] += 1
+        stats["worst"] = max(stats["worst"], int(kept.sum()) / k)
+        stats["outside"] += int((kept & ~mask.reshape(-1)).sum())
+        return out
+
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    for w in wrappers.values():
+        w.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C._mask, C.cocktail_apply = record_mask, record_apply
+    try:
+        t0 = time.perf_counter()
+        res = T.run_compressed_ddp_training(cfg, tcfg, steps, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        C._mask, C.cocktail_apply = draw, apply
+    launches = {name: w.launches for name, w in wrappers.items()}
+    shapes = C.tree_shapes(M.init_params(cfg, device="meta"))
+    n_leaves = len(shapes)
+    dlx = C.LowRankQuant(rank=RANK).wire_bytes(shapes)
+    tokens = tcfg.n_clusters * tcfg.local_batch * tcfg.seq_len
+    h = TRAIN["h_steps"]
+    for i in range(steps):
+        print(f"step {i}: loss {res.losses[i]:.6f} eval "
+              f"{res.eval_losses[i]:.6f}", flush=True)
+    print(f"cocktail: {steps} steps in {wall:.3f} s ({steps * tokens / wall:.1f}"
+          f" tokens/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; masks of "
+          f"both clusters bitwise equal in {stats['pairs']} (step, leaf) "
+          f"pairs (expected {steps * n_leaves}); kept values at most "
+          f"{stats['worst']:.4f} of k over {stats['calls']} roundtrips, "
+          f"{stats['outside']} outside the mask; wire {res.wire_bytes_per_round[0]}"
+          f" B per step and cluster ({h * res.wire_bytes_per_round[0]} B"
+          f" per {h} steps) against DiLoCoX's {dlx} B per round of "
+          f"H = {h} (rank {RANK}, int4); launches {launches}",
+          flush=True)
+    if not all(map(math.isfinite, res.losses + res.eval_losses)):
+        _fail(f"cocktail: non-finite losses {res.losses} {res.eval_losses}")
+    if first or stats["pairs"] != steps * n_leaves:
+        _fail(f"cocktail: {stats['pairs']} mask pairs compared, "
+              f"{len(first)} unpaired; expected {steps * n_leaves}")
+    if stats["calls"] != steps * tcfg.n_clusters * n_leaves \
+            or stats["worst"] > 1.0 or stats["outside"]:
+        _fail(f"cocktail: {stats['calls']} roundtrips, kept up to "
+              f"{stats['worst']} of k, {stats['outside']} kept values "
+              f"outside the mask")
+    if any(launches.values()):
+        _fail(f"cocktail: kernels launched on a plain path: {launches}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
@@ -1810,15 +1979,20 @@ SERVE_ARGS = ["--arch", "opt-1.3b", "--paged", "--batch", "8",
               "--page-size", "16", "--eos", "-1", "--device", "cuda"]
 
 
-def serve():
+def serve(arch="opt-1.3b"):
+    """Phase 5 (opt-1.3b) and 5b (stablelm-12b, full width and depth)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as serve_lib
     from repro_torch.serve import attention_paged as ap
 
-    _phase("serve: python -m repro_torch.launch.serve " + " ".join(SERVE_ARGS))
-    cfg = get_config("opt-1.3b")
+    argv = ["--arch", arch] + SERVE_ARGS[2:]
+    _phase("serve: python -m repro_torch.launch.serve " + " ".join(argv))
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ap.cuda_paged_attention.launches = 0
-    st = serve_lib.main(SERVE_ARGS)
+    st = serve_lib.main(argv)
     torch.cuda.synchronize()
     launches = ap.cuda_paged_attention.launches
     want = st["device_steps"] * cfg.n_layers
@@ -1848,16 +2022,25 @@ def serve():
 # phase 6: paged (kernel) vs dense (plain attention) greedy tokens
 # ---------------------------------------------------------------------------
 
-def paged_vs_dense(n_prompts=2, prompt_len=16, gen_len=32, ps=16,
-                   tie_margin=1e-4):
+def paged_vs_dense(arch="opt-1.3b", n_layers=0, n_prompts=2, prompt_len=16,
+                   gen_len=32, ps=16, tie_margin=1e-4):
+    """Phase 6 (opt-1.3b), 6b (stablelm-12b; qwen1.5-107b at ``n_layers``
+    of 78): greedy tokens of the paged engine (kernel) against the dense
+    decode loop (plain attention); a divergence passes only at a dense
+    top-2 margin below ``tie_margin``."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
+    from repro_torch.serve import attention_paged as ap
     from repro_torch.serve.engine import ServeEngine
 
-    _phase(f"paged vs dense: opt-1.3b, {n_prompts} prompts x {gen_len} "
-           f"tokens")
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    _phase(f"paged vs dense: {arch} full width, {cfg.n_layers} layers, "
+           f"{n_prompts} prompts x {gen_len} tokens")
     dev = torch.device("cuda")
-    cfg = get_config("opt-1.3b")
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = M.init_params(cfg, gen, dev)
@@ -1890,7 +2073,13 @@ def paged_vs_dense(n_prompts=2, prompt_len=16, gen_len=32, ps=16,
                       max_pages_per_seq=max_pages, eos_id=None, device=dev)
     for b in range(n_prompts):
         eng.submit(prompts[b].tolist(), gen_len)
+    ap.cuda_paged_attention.launches = 0
     eng.run()
+    torch.cuda.synchronize()
+    if ap.cuda_paged_attention.launches != eng.device_steps * cfg.n_layers:
+        _fail(f"paged vs dense {arch}: {ap.cuda_paged_attention.launches} "
+              f"kernel launches, expected {eng.device_steps} device steps x "
+              f"{cfg.n_layers}")
     paged = torch.tensor([r.generated for r in
                           sorted(eng.sched.done, key=lambda r: r.rid)])
     for b in range(n_prompts):
@@ -1925,9 +2114,12 @@ def main():
     rows, worst = kernel_vs_plain()
     comp_rows = compressor_kernels()
     mesh_q4 = mesh_quant4()
+    mesh_q4_stablelm = mesh_quant4(cfg=stablelm_mesh_config())
     flash_rows = flash_kernels()
     torch.cuda.empty_cache()
     mm_row = lowrank_mm_kernel()
+    torch.cuda.empty_cache()
+    mm_row_stablelm = lowrank_mm_kernel(cfg=stablelm_mesh_config())
     torch.cuda.empty_cache()
     einsum_run = train()
     compressor_share(einsum_run[1], comp_rows)
@@ -1941,8 +2133,16 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches = mesh_driver()
     torch.cuda.empty_cache()
+    mesh_launches_stablelm = mesh_driver(argv=MESH_ARGS_STABLELM,
+                                         cfg=stablelm_mesh_config())
+    torch.cuda.empty_cache()
+    cocktail_ddp()
+    torch.cuda.empty_cache()
     launches = serve()
+    launches_stablelm = serve("stablelm-12b")
     paged_vs_dense()
+    paged_vs_dense("stablelm-12b")
+    paged_vs_dense("qwen1.5-107b", n_layers=2)
     main_row = rows[0]                  # opt-1.3b, the served shape
     print(f"chip_smoke seconds: {time.monotonic() - t0:.1f}")
     print(smi)
@@ -1954,25 +2154,37 @@ def main():
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "plan": main_row["plan"],
-        "blocks": main_row["blocks"]}]
+        "blocks": main_row["blocks"],
+        "launches_serve_stablelm_12b": launches_stablelm,
+        "cases": {row["case"]: {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "plan", "blocks")} for row in rows}}]
     for row in comp_rows:
         row = dict(row)
         row.pop("wrapper")
         row["launches"] = einsum_run[0][row["name"]]
         if row["name"].startswith("quant4_"):
-            # the mesh round's batched launches (phase 3b) and phase 4d's
-            mesh = mesh_q4[row["name"][len("quant4_"):]]
-            row["mesh_round"] = dict(
-                ms=mesh["ms"], one_row_at_a_time_ms=mesh["one_ms"],
-                bound_ms=mesh["bound_ms"],
-                launches=mesh_launches[row["name"]])
+            # the mesh round's batched launches (phase 3b) and phase 4d's,
+            # and the same at stablelm-12b's leaves (phase 4e's)
+            for key, q4, ml in (("mesh_round", mesh_q4, mesh_launches),
+                                ("mesh_round_stablelm_12b", mesh_q4_stablelm,
+                                 mesh_launches_stablelm)):
+                mesh = q4[row["name"][len("quant4_"):]]
+                row[key] = dict(
+                    ms=mesh["ms"], one_row_at_a_time_ms=mesh["one_ms"],
+                    bound_ms=mesh["bound_ms"], launches=ml[row["name"]])
         kernels.append(row)
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name]))
     kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
                         launches_by_path={
                             route: mesh_launches[f"lowrank_mm_{route}"]
-                            for route in ("split", "rank", "general")}))
+                            for route in ("split", "rank", "general")},
+                        stablelm_12b=dict(
+                            {k: mm_row_stablelm[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "max_abs_err")},
+                            launches=mesh_launches_stablelm["lowrank_mm"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@ class ModelConfig:
     sliding_window: int = 0
     global_every: int = 0         # 0 = all layers same; k>0: layer is global
                                   # iff (idx % k == k-1)
-    # norms / embeddings
+    # norms / residual structure / embeddings
     norm: str = "rmsnorm"         # rmsnorm | layernorm
+    parallel_residual: bool = False   # stablelm-2 style attn+FFN in parallel
     tie_embeddings: bool = False
     # numerics
     param_dtype: str = "float32"
@@ -65,17 +66,16 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# the dense configs the paged engine serves on one card
-ARCH_IDS = ["opt-1.3b", "granite-3-8b", "gemma3-1b", "hundred-m"]
+# the dense configs of the JAX package
+ARCH_IDS = ["opt-1.3b", "granite-3-8b", "gemma3-1b", "hundred-m",
+            "qwen1.5-107b", "phi3-medium-14b", "stablelm-12b"]
 
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
                for a in ARCH_IDS}
 
 # architectures of the JAX package that the port does not carry yet: the
-# dense configs (A.16a) and the non-dense families (A.16)
+# non-dense families (A.16)
 _NOT_PORTED = {
-    "qwen1.5-107b": "A.16a", "stablelm-12b": "A.16a",
-    "phi3-medium-14b": "A.16a",
     "deepseek-v2-236b": "A.16", "arctic-480b": "A.16", "zamba2-1.2b": "A.16",
     "seamless-m4t-large-v2": "A.16", "qwen2-vl-7b": "A.16",
     "xlstm-1.3b": "A.16",

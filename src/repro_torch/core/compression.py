@@ -4,8 +4,11 @@
 The DiLoCoX compressor (Alg. 1) is ``Quantize_q o LowRank_r``: a
 single-iteration PowerSGD projection with a persistent warm-start Q per
 2-D-reshaped parameter, then block-wise symmetric int-q quantization of
-both factors. Baselines: Top-K, fp16 (OpenDiLoCo), quantization only.
-``RandomSparse`` and ``CocktailSGD`` are not ported yet (ROADMAP A.3).
+both factors. Baselines: Top-K, random sparsification, CocktailSGD
+(random o top-k o quant), fp16 (OpenDiLoCo), quantization only. The two
+random baselines draw their masks from torch generators seeded by (seed,
+step, leaf path), so the masks match the JAX package's in law, not in
+bits (its stream is threefry).
 
 Trees are the port's nested dicts/lists (``repro_torch.tree``); leaves are
 zipped in ``jax.tree_util`` flatten order, so a warm-start tree carried
@@ -16,7 +19,9 @@ zero-masked; wire-byte accounting uses r_t.
 """
 from __future__ import annotations
 
+import hashlib
 import math
+import struct
 import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -284,15 +289,102 @@ class TopK(Compressor):
         return total
 
 
-_NOT_PORTED = {"random_sparse": "A.3", "cocktail": "A.3"}
+def _mask_seed(seed: int, step: int, path: str) -> int:
+    """A 63-bit generator seed from (seed, step, crc32 of the leaf's keystr
+    path) alone, the three numbers the JAX package folds into its key."""
+    crc = zlib.crc32(path.encode()) % (2 ** 31)
+    digest = hashlib.blake2b(struct.pack("<qqq", seed, step, crc),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def _mask(seed: int, step: int, path: str, shape, ratio: float,
+          device) -> torch.Tensor:
+    """The random mask of one leaf at one step: uniform draws < ``ratio``
+    from a ``torch.Generator`` on ``device`` seeded by ``_mask_seed``. It
+    depends on nothing else, so every cluster (and every rank) draws the
+    same mask, as the JAX package's clusters do under one key. Torch's
+    stream is not threefry: the parity tests pass JAX's mask in."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_mask_seed(seed, step, path))
+    return torch.rand(tuple(shape), generator=gen, device=device) < ratio
+
+
+def random_sparse_apply(x: torch.Tensor, mask: torch.Tensor,
+                        ratio: float) -> torch.Tensor:
+    """Random sparsification given the mask: kept values scaled by
+    1 / ratio (unbiased), the rest 0. The scale is x * f32(1 / f32(ratio)),
+    as the jitted JAX function computes x / ratio (XLA turns the division
+    by a constant into a multiply by its f32 reciprocal)."""
+    r = torch.tensor(ratio, dtype=torch.float32, device=x.device)
+    kept = x * (torch.ones_like(r) / r)
+    return torch.where(mask, kept, torch.zeros_like(kept))
+
+
+def cocktail_apply(x: torch.Tensor, mask: torch.Tensor, random_ratio: float,
+                   topk_ratio: float, bits: int) -> torch.Tensor:
+    """CocktailSGD given the random mask: the sampled values, the k =
+    max(1, int(n random_ratio topk_ratio)) largest of them in magnitude,
+    then ``quantize_sim``."""
+    flat = x.reshape(-1)
+    sampled = torch.where(mask.reshape(-1), flat, torch.zeros_like(flat))
+    k = max(1, int(flat.numel() * random_ratio * topk_ratio))
+    _, idx = torch.topk(sampled.abs(), k)
+    tmask = torch.zeros_like(flat)
+    tmask[idx] = 1.0
+    return quantize_sim(sampled * tmask, bits).reshape(x.shape)
+
+
+@dataclass
+class RandomSparse(Compressor):
+    ratio: float = 0.1
+    seed: int = 0
+    name: str = "random_sparse"
+
+    def roundtrip(self, tree, state, rank_scalar=None):
+        step = int(state)
+        leaves = [random_sparse_apply(
+            x, _mask(self.seed, step, path, x.shape, self.ratio, x.device),
+            self.ratio) for path, x in T.keystr_items(tree)]
+        return T.unflatten_like(tree, leaves), state + 1
+
+    def wire_bytes(self, shapes, rank=None):
+        # the seed is free; the values are ratio * n
+        return sum(int(math.prod(s) * self.ratio) * 4
+                   for s in shapes.values())
+
+
+@dataclass
+class CocktailSGD(Compressor):
+    """Random sparsify -> Top-K within the sample -> quantize (Wang et al.
+    2023). Ratios per the paper's §4.1.3 hyperparameters."""
+    random_ratio: float = 0.1
+    topk_ratio: float = 0.08
+    bits: int = 4
+    seed: int = 0
+    name: str = "cocktail"
+
+    def roundtrip(self, tree, state, rank_scalar=None):
+        step = int(state)
+        leaves = [cocktail_apply(
+            x, _mask(self.seed, step, path, (x.numel(),), self.random_ratio,
+                     x.device),
+            self.random_ratio, self.topk_ratio, self.bits)
+            for path, x in T.keystr_items(tree)]
+        return T.unflatten_like(tree, leaves), state + 1
+
+    def wire_bytes(self, shapes, rank=None):
+        total = 0
+        for s in shapes.values():
+            k = max(1, int(math.prod(s) * self.random_ratio
+                           * self.topk_ratio))
+            total += quant_wire_bytes(k, self.bits) + k * 4   # + indices
+        return total
 
 
 def make_compressor(name: str, **kw) -> Compressor:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]}: its masks come from jax.random)")
     table = {"identity": Identity, "allreduce_fp32": Identity, "fp16": FP16,
              "quant": QuantOnly, "diloco_x": LowRankQuant,
-             "lowrank_quant": LowRankQuant, "topk": TopK}
+             "lowrank_quant": LowRankQuant, "topk": TopK,
+             "random_sparse": RandomSparse, "cocktail": CocktailSGD}
     return table[name](**kw)

@@ -34,6 +34,7 @@ JAX driver see different numbers; the tests carry JAX's over.
 """
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -47,6 +48,9 @@ def _parse_args(argv=None):
     ap.add_argument("--arch", default="granite-3-8b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-sized)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="keep the config's width but cut its depth to this "
+                         "many layers (0: the config's own)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--clusters", type=int, default=2)
@@ -163,6 +167,8 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     C = args.clusters
     CL = len(clusters)
 

@@ -74,6 +74,19 @@ def apply_ffn_unit(p, x, cfg: ModelConfig):
     return apply_gelu_mlp(p["mlp"], h)
 
 
+def add_residual(p, x, a, cfg: ModelConfig):
+    """The unit's output from its input ``x`` and its attention output
+    ``a``: sequential (``x + a``, then the FFN of that), or under
+    ``cfg.parallel_residual`` (stablelm-2) the FFN of ``x`` itself and
+    ``x + a + f``, summed left to right as the JAX package does. Shared
+    by the training and decode units and the paged engine, which must
+    stay bitwise-identical to them."""
+    if cfg.parallel_residual:
+        return x + a + apply_ffn_unit(p, x, cfg)
+    x = x + a
+    return x + apply_ffn_unit(p, x, cfg)
+
+
 def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
     """Builds a Segment unit for one dense transformer layer."""
     d, dt = cfg.d_model, torch_dtype(cfg.param_dtype)
@@ -95,12 +108,12 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
 
     def apply_unit(p, x, ctx):
         h = apply_norm(p["ln1"], x, cfg.norm)
-        x = x + attn.apply_gqa(
+        a = attn.apply_gqa(
             p["attn"], h, ctx["positions"], n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=hd, rope_theta=cfg.rope_theta,
             causal=True, window=window, chunk=ctx["chunk"],
             flash=ctx["flash"])
-        return x + apply_ffn_unit(p, x, cfg)
+        return add_residual(p, x, a, cfg)
 
     def init_cache(batch, s_max, n, dtype, device):
         return {"self": attn.init_gqa_cache(batch, s_max, cfg.n_kv_heads, hd,
@@ -117,8 +130,7 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
         else:
             a, _ = attn.decode_gqa(p["attn"], h, cache["self"], index,
                                    window=window, **kw)
-        x1 = x1 + a
-        return x1 + apply_ffn_unit(p, x1, cfg), cache
+        return add_residual(p, x1, a, cfg), cache
 
     return Segment(kind, 1, window, init_unit, apply_unit, init_cache,
                    decode_unit)

@@ -92,8 +92,7 @@ def make_paged_decode_step(cfg: ModelConfig):
                     active)
         o = pa.paged_attention(q, cache, page_tables, lengths, window=window)
         a = o.reshape(x1.shape[0], 1, -1) @ p["attn"]["wo"]
-        x1 = x1 + a
-        return x1 + M.apply_ffn_unit(p, x1, cfg)
+        return M.add_residual(p, x1, a, cfg)
 
     def step(params, caches, tokens, lengths, active, page_tables):
         x1 = M.embed_tokens(params, cfg, tokens[:, None])

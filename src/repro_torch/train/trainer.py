@@ -238,6 +238,19 @@ def _data_and_eval(cfg, tcfg, device, eval_batch):
     return data, eval_batch
 
 
+def check_flash(cfg: ModelConfig, tcfg: TrainConfig) -> None:
+    """Refuses, before the first step, a run whose attention would take
+    the flash kernels at a head dim they do not instantiate."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    d = cfg.resolved_head_dim
+    if tcfg.flash_attention and d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{cfg.name}: flash_attention=True at head dim {d}: the flash "
+            f"kernels take head dims {HEAD_DIMS} (head dim {d} is ROADMAP "
+            f"B item 9); train it with flash_attention=False (einsum)")
+
+
 def _init_params(cfg, tcfg, device, params):
     if params is not None:
         return params
@@ -265,6 +278,7 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
         raise NotImplementedError("inner_engine='pp' (the pipeline-parallel "
                                   "inner engine) is not ported yet (ROADMAP "
                                   "A.12)")
+    check_flash(cfg, tcfg)
     device = resolve_device(device)
     params = _init_params(cfg, tcfg, device, params)
     compressor = make_compressor(tcfg.compressor, **tcfg.compressor_kw)
@@ -364,6 +378,7 @@ def run_allreduce_training(cfg: ModelConfig, tcfg: TrainConfig,
     """Vanilla synchronous AllReduce baseline: the D clusters' gradients
     are averaged every step. ``batch_fn(cluster, 0, step)`` may replace the
     per-shard streams."""
+    check_flash(cfg, tcfg)
     device = resolve_device(device)
     params = _init_params(cfg, tcfg, device, params)
     opt = adamw.init(params)
@@ -402,6 +417,7 @@ def run_compressed_ddp_training(cfg: ModelConfig, tcfg: TrainConfig,
     """CocktailSGD-style baseline: NO local training. Every step each
     cluster compresses its gradient (with error feedback), the compressed
     gradients are averaged, and one AdamW applies them."""
+    check_flash(cfg, tcfg)
     device = resolve_device(device)
     params = _init_params(cfg, tcfg, device, params)
     opt = adamw.init(params)

@@ -119,7 +119,7 @@ def test_baseline_roundtrips_exact(name, kw):
 @pytest.mark.parametrize("name,kw", [
     ("identity", {}), ("fp16", {}), ("quant", {}), ("quant", {"bits": 8}),
     ("diloco_x", {"rank": 16}), ("diloco_x", {"rank": 64}),
-    ("topk", {"ratio": 0.01})])
+    ("topk", {"ratio": 0.01}), ("random_sparse", {}), ("cocktail", {})])
 @pytest.mark.parametrize("rank", [None, 5])
 def test_wire_bytes_equal(name, kw, rank):
     shapes = JC.tree_shapes(_j(_tree()))
@@ -129,9 +129,19 @@ def test_wire_bytes_equal(name, kw, rank):
 
 
 def test_not_ported_compressors_raise_with_roadmap_item():
+    """The two random baselines, refused until ROADMAP A.3b ported them,
+    build and round-trip (their parity: tests/test_torch_sparse_compressors.py);
+    the pallas backend still refuses int8."""
+    tree = _t(_tree(2))
     for name in ("random_sparse", "cocktail"):
-        with pytest.raises(NotImplementedError, match="A.3"):
-            C.make_compressor(name)
+        comp = C.make_compressor(name)
+        out, state = comp.roundtrip(tree, comp.init_state(tree))
+        assert int(state) == 1
+        for (k, x), (_, y) in zip(T.keystr_items(out),
+                                  T.keystr_items(tree)):
+            assert x.shape == y.shape and x.dtype == y.dtype, k
+            assert torch.isfinite(x).all() and 0 < int((x != 0).sum()) \
+                < x.numel(), k
     with pytest.raises(ValueError):
         C.LowRankQuant(backend="pallas", bits=8)
 

@@ -25,7 +25,13 @@ def _need_cuda():
 @pytest.mark.parametrize("S,P,ps,KV,G,dh", [(3, 4, 4, 2, 2, 8),
                                             (2, 3, 8, 1, 4, 16),
                                             (4, 12, 16, 32, 1, 64),
-                                            (3, 8, 16, 1, 4, 256)])
+                                            (3, 8, 16, 1, 4, 256),
+                                            # stablelm-12b's head dim: 40
+                                            # quads over 16 and 32 lanes
+                                            (3, 4, 2, 2, 4, 160),
+                                            (2, 1, 4, 2, 4, 160),
+                                            # qwen1.5-107b's G
+                                            (2, 3, 8, 8, 8, 128)])
 def test_cuda_paged_attention_matches_plain(window, S, P, ps, KV, G, dh):
     _need_cuda()
     case = to_torch(*paged_fixture(0, S=S, P=P, ps=ps, KV=KV, G=G, dh=dh),
@@ -64,7 +70,7 @@ def _chunk_edge_case(dh, G, KV=2, ps=16, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160, 256])
 def test_cuda_paged_chunks_match_plain_and_are_batch_free(dh, G):
     """Page chunks and their merge at each head dim: within the gate with
     no window, a window of 5 and one that straddles a chunk edge; one
@@ -823,3 +829,34 @@ def test_cuda_reconstruct_matches_plain_and_lowrank_mm(no_tf32, m, n, r, ef):
     assert torch.equal(hat, again[0])
     if with_ef:
         assert torch.equal(e_new, again[1])
+
+
+# ---------------------------------------------------------------------------
+# the random baselines (no kernel: torch RNG and plain ops on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_sparse", "cocktail"])
+def test_cuda_random_baselines_match_cpu_given_one_mask(name):
+    """On the card a mask depends on (seed, step, path) alone (two draws
+    bitwise equal, another step another mask, density within six
+    binomial sigmas), and given one mask the roundtrip's second half is
+    bitwise its CPU result."""
+    from repro_torch.core import compression as C
+
+    _need_cuda()
+    n, ratio = 1 << 20, 0.1
+    m = C._mask(0, 3, "['w']", (n,), ratio, "cuda")
+    assert m.is_cuda and torch.equal(m, C._mask(0, 3, "['w']", (n,), ratio,
+                                                "cuda"))
+    assert not torch.equal(m, C._mask(0, 4, "['w']", (n,), ratio, "cuda"))
+    assert abs(int(m.sum()) - n * ratio) <= 6 * (n * ratio * (1 - ratio)) ** .5
+    x = torch.randn((1024, 1024), generator=torch.Generator().manual_seed(0))
+    mask = m.reshape(x.shape)
+    if name == "random_sparse":
+        apply = lambda t, mk: C.random_sparse_apply(t, mk, ratio)
+    else:
+        apply = lambda t, mk: C.cocktail_apply(t, mk, ratio, 0.08, 4)
+    got = apply(x.cuda(), mask)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), apply(x, mask.cpu()))
