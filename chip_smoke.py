@@ -93,6 +93,21 @@ continues:
         steps: finite losses, both clusters' masks bitwise equal in each
         step, every leaf's kept values inside the mask and at most k; the
         wire bytes per step beside DiLoCoX's per round (``cocktail_ddp``);
+     g. the trainer's pipeline-parallel inner engine:
+        ``run_diloco_training(inner_engine="pp", pp_stages=2, pp_micro=2,
+        flash_attention=True)``, phase 4b's run (same params mapped into
+        the pp tree, same warm starts and data), both stages on the card:
+        finite losses, round 0 leaves the params bit for bit, the flash
+        and compressor kernels launched as the path requires
+        (``pp_flash_launches_expected``, ``pp_compressor_launches``), each
+        round's losses within rtol 1e-3 of phase 4b's, two runs of one pp
+        inner step bit for bit equal; ms per inner step beside 4b's, peak
+        memory, the GPipe bubble share (``train_pp``);
+     h. the mesh driver with ``--inner pp`` on full opt-1.3b (24 layers,
+        one stage: a second stage needs a second card), rank 64, H = 4,
+        4 x 512, 2 rounds: finite losses, round 0 bitwise, the compressor
+        kernels' launches, the f32 bytes handed to the clusters group,
+        peak memory (``pp_driver``);
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -1971,6 +1986,263 @@ def cocktail_ddp(dev=None, cfg=None, steps=COCKTAIL_STEPS):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the trainer's pipeline-parallel inner engine, both stages on the
+# card
+# ---------------------------------------------------------------------------
+
+PP_STAGES, PP_MICRO = 2, 2
+
+
+def pp_compressor_launches(cfg, pcfg, calls):
+    """The compressor's launches for ``calls`` roundtrips of the pp tree:
+    its leaves are the sequential tree's (a stage-split leaf is the same
+    matrix: (n_stages * lps * d_in, d_out)) and the quant-only ``active``
+    mask."""
+    from repro_torch.core.compression import matrix_shape, tree_shapes
+    from repro_torch.parallel import pipeline as PP
+
+    n_low = n_quant = 0
+    for shape in tree_shapes(PP.init_pp_params(cfg, None, pcfg,
+                                               "meta")).values():
+        m, n = matrix_shape(shape)
+        if min(m, n) >= 64:
+            n_low += 1
+        else:
+            n_quant += 1
+    return {"quant4_pack": calls * (n_low + n_quant),
+            "quant4_unpack": calls * n_quant,
+            "fused_project": calls * n_low,
+            "fused_project_t_pack": calls * n_low,
+            "fused_reconstruct": calls * n_low, "lowrank_mm": 0}
+
+
+def pp_flash_launches_expected(cfg, tcfg, pcfg, rounds):
+    """Flash launches of the pp trainer: per inner step and microbatch one
+    forward per layer slot (no grad), again in the backward's per-stage
+    recompute, and one backward per slot; per round the eval's forward
+    per slot and microbatch (the 16-row eval batch in ``n_micro``
+    microbatches). Padded slots run too (opt-1.3b's 12 layers in 2 stages
+    have none)."""
+    from repro_torch.parallel import pipeline as PP
+
+    slots = pcfg.n_stages * PP.layers_per_stage(cfg, pcfg)[0]
+    per_step = pcfg.n_micro * slots
+    steps = rounds * tcfg.n_clusters * tcfg.h_steps
+    return {"flash_attention": steps * 2 * per_step
+            + rounds * pcfg.n_micro * slots,
+            "flash_attention_bwd": steps * per_step}
+
+
+def pp_warm_starts(q_seq):
+    """Phase 4b's compressor warm starts (of the sequential tree) as the pp
+    tree's: the segment's under ``stages``, none for ``active``."""
+    from repro_torch.parallel import pipeline as PP
+
+    out = {k: q_seq[k] for k in PP.REPLICATED if k in q_seq}
+    out["stages"] = q_seq["segments"][0]
+    out["active"] = torch.zeros((0,), device=q_seq["embed"].device)
+    return out
+
+
+def train_pp(flash_run, dev=None, cfg=None):
+    """Phase 4g: phase 4b's run through ``inner_engine="pp"``: phase 4b's
+    params and warm starts mapped into the pp tree, the same data."""
+    from repro_torch.core.compression import LowRankQuant
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import inner_engine as IE
+    from repro_torch.parallel import pipeline as PP
+    from repro_torch.train import trainer as T
+    from repro_torch.tree import tree_map
+
+    cfg = cfg or train_config()
+    pcfg = PP.PipelineConfig(n_stages=PP_STAGES, n_micro=PP_MICRO)
+    tcfg = T.TrainConfig(**TRAIN, flash_attention=True, inner_engine="pp",
+                         pp_stages=pcfg.n_stages, pp_micro=pcfg.n_micro)
+    _phase(f"train pp: run_diloco_training(inner_engine='pp', pp_stages="
+           f"{pcfg.n_stages}, pp_micro={pcfg.n_micro}, flash_attention=True)"
+           f" {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
+           f"{TRAIN_ROUNDS} rounds, both stages on the card")
+    dev = dev or torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    seq = M.init_params(cfg, gen, dev)
+    comp_state = pp_warm_starts(LowRankQuant(
+        **TRAIN["compressor_kw"]).init_state(seq))
+    params = PP.to_pp_params(seq, cfg, pcfg)
+    del seq
+    initial = {k: v.cpu() for k, v in _items(params)}
+    round0 = []
+
+    def on_round(r, state):
+        if r == 0:
+            round0.append(all(torch.equal(v.cpu(), initial[k])
+                              for k, v in _items(state.params)))
+
+    calls = TRAIN_ROUNDS * tcfg.n_clusters
+    want = pp_compressor_launches(cfg, pcfg, calls)
+    want.update(pp_flash_launches_expected(cfg, tcfg, pcfg, TRAIN_ROUNDS))
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    res = T.run_diloco_training(cfg, tcfg, TRAIN_ROUNDS, device=dev,
+                                params=params, comp_state=comp_state,
+                                on_round=on_round)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, res_b, peak_b = flash_run
+    steps = tcfg.n_clusters * tcfg.h_steps
+    gaps = []
+    for r in range(TRAIN_ROUNDS):
+        for what, a, b in (("loss", res_b.losses[r], res.losses[r]),
+                           ("eval", res_b.eval_losses[r],
+                            res.eval_losses[r])):
+            gaps.append(abs(b - a) / abs(a))
+            print(f"round {r} {what}: sequential (4b) {a:.6f} pp {b:.6f} "
+                  f"relative gap {gaps[-1]:.3e}")
+        print(f"round {r}: round s pp {res.round_s[r]:.3f} (4b "
+              f"{res_b.round_s[r]:.3f}); ms per inner step pp "
+              f"{1e3 * res.inner_s[r] / steps:.1f} (4b "
+              f"{1e3 * res_b.inner_s[r] / steps:.1f}); compressor "
+              f"{1e3 * res.compress_s[r]:.1f} ms", flush=True)
+    bubble = (pcfg.n_stages - 1) / (pcfg.n_micro + pcfg.n_stages - 1)
+    print(f"train pp: peak memory {peak / 2**30:.2f} GiB (4b "
+          f"{peak_b / 2**30:.2f}); GPipe bubble share (n_stages - 1) / "
+          f"(n_micro + n_stages - 1) = {bubble:.3f} (the stages run one after "
+          f"another on one card: stage idle time not measured); launches "
+          f"{launches} (expected {want}), round 0 params unchanged: {round0};"
+          f" max relative loss gap to 4b {max(gaps):.3e} (gate "
+          f"{FLASH_TRAIN_RTOL})", flush=True)
+    if not all(map(math.isfinite, res.losses + res.eval_losses)):
+        _fail(f"train pp: non-finite losses {res.losses} {res.eval_losses}")
+    if round0 != [True]:
+        _fail("train pp: round 0 of the delay mode changed the params")
+    if launches != want:
+        _fail(f"train pp: launches {launches}, expected {want}")
+    if max(gaps) > FLASH_TRAIN_RTOL:
+        _fail(f"train pp: losses {max(gaps):.3e} from phase 4b's, over rtol "
+              f"{FLASH_TRAIN_RTOL}")
+    # one pp inner step twice from the same state: bit for bit
+    step = IE.make_pp_train_step(cfg, pcfg, inner_lr=TRAIN["inner_lr"],
+                                 flash=True)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN["local_batch"],
+                                             TRAIN["seq_len"]),
+                         generator=gen, device=dev, dtype=torch.int32)
+    outs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, _, loss = step(p, adamw.init(p), toks)
+        torch.cuda.synchronize()
+        outs.append((p, float(loss), 1e3 * (time.perf_counter() - t0)))
+        del p
+    same = outs[0][1] == outs[1][1] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(_items(outs[0][0]),
+                                                    _items(outs[1][0])))
+    print(f"one pp inner step twice: {outs[0][2]:.1f} and {outs[1][2]:.1f} ms,"
+          f" bit for bit equal: {same}", flush=True)
+    if not same:
+        _fail("train pp: two runs of one pp inner step differ")
+    return launches, res, peak
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the mesh driver's pipeline-parallel inner engine (--inner pp)
+# ---------------------------------------------------------------------------
+
+PP_DRIVER_ARGS = ["--arch", "opt-1.3b", "--device", "cuda", "--inner", "pp",
+                  "--devices", "1", "--clusters", "1", "--data", "1",
+                  "--pp-stages", "1", "--pp-micro", "2", "--rounds", "2",
+                  "--h-steps", "4", "--global-batch", "4", "--seq-len", "512",
+                  "--rank", str(RANK)]
+
+
+def pp_driver(dev=None, argv=PP_DRIVER_ARGS, cfg=None):
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import train as train_lib
+    from repro_torch.parallel import pipeline as PP
+
+    args = train_lib._parse_args(argv)
+    cfg = cfg or mesh_config()
+    pcfg = PP.PipelineConfig(n_stages=args.pp_stages, n_micro=args.pp_micro)
+    _phase("pp driver: python -m repro_torch.launch.train " + " ".join(argv))
+    dev = dev or torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    initial = {k: v.cpu() for k, v in _items(PP.init_pp_params(cfg, gen, pcfg,
+                                                               dev))}
+    n_params = sum(v.numel() for v in initial.values())
+    round0 = []
+
+    def on_round(r, params, opt, outer):
+        if r == 0:
+            anchor = dict(_items(outer.anchor))
+            round0.append(all(
+                torch.equal(anchor[k], initial[k].to(dev))
+                and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
+
+    want = pp_compressor_launches(cfg, pcfg, args.rounds * args.clusters)
+    want.update(flash_attention=0, flash_attention_bwd=0)
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = train_lib.main(argv, on_round=on_round)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(out.getvalue(), end="")
+    tokens = args.global_batch * args.seq_len * args.h_steps
+    for r in range(args.rounds):
+        print(f"round {r}: mean loss {summary['mean_loss'][r]:.6f}, round "
+              f"{summary['round_s'][r]:.3f} s: inner "
+              f"{summary['inner_s'][r]:.3f} s "
+              f"({1e3 * summary['inner_s'][r] / args.h_steps:.1f} ms per "
+              f"step), outer {summary['outer_s'][r]:.3f} s; "
+              f"{tokens / summary['round_s'][r]:.1f} tokens/s; clusters group "
+              f"handed {summary['allreduce_bytes'][r]} B of f32 (expected "
+              f"{4 * n_params}), wire_bytes {summary['wire_bytes'][r]} B",
+              flush=True)
+    print(f"pp driver: {n_params} params, peak memory {peak / 2**30:.2f} GiB "
+          f"(ranks {[round(b / 2**30, 2) for b in summary['peak_bytes']]}), "
+          f"launches {launches} (expected {want}), round 0 params unchanged:"
+          f" {round0}", flush=True)
+    if "TRAIN-DRIVER-OK" not in out.getvalue():
+        _fail("pp driver: no TRAIN-DRIVER-OK")
+    if not all(map(math.isfinite, summary["mean_loss"])):
+        _fail(f"pp driver: non-finite losses {summary['mean_loss']}")
+    if round0 != [True]:
+        _fail("pp driver: round 0 changed the params (Delta must be 0)")
+    if launches != want:
+        _fail(f"pp driver: launches {launches}, expected {want}")
+    if summary["allreduce_bytes"] != [4 * n_params] * args.rounds:
+        _fail(f"pp driver: clusters group handed "
+              f"{summary['allreduce_bytes']} B, expected {4 * n_params}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -2138,6 +2410,10 @@ def main():
     torch.cuda.empty_cache()
     cocktail_ddp()
     torch.cuda.empty_cache()
+    pp_train_launches = train_pp(flash_run)[0]
+    torch.cuda.empty_cache()
+    pp_driver_launches = pp_driver()
+    torch.cuda.empty_cache()
     launches = serve()
     launches_stablelm = serve("stablelm-12b")
     paged_vs_dense()
@@ -2163,6 +2439,9 @@ def main():
         row = dict(row)
         row.pop("wrapper")
         row["launches"] = einsum_run[0][row["name"]]
+        # the pipeline-parallel trainer's (phase 4g) and driver's (4h)
+        row["launches_pp_trainer"] = pp_train_launches[row["name"]]
+        row["launches_pp_driver"] = pp_driver_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -2175,7 +2454,8 @@ def main():
                     bound_ms=mesh["bound_ms"], launches=ml[row["name"]])
         kernels.append(row)
     for name, row in flash_rows.items():
-        kernels.append(dict(row, launches=flash_run[0][name]))
+        kernels.append(dict(row, launches=flash_run[0][name],
+                            launches_pp_trainer=pp_train_launches[name]))
     kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
                         launches_by_path={
                             route: mesh_launches[f"lowrank_mm_{route}"]

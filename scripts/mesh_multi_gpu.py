@@ -16,10 +16,31 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    gradient all-reduce every step). Prints rank 0's round, inner and
    outer seconds and the bytes it handed to the all-gather.
 
+3. The pipeline-parallel driver (``--inner pp``, ``--pp`` on its own or
+   after 1 and 2 with ``--pp-also``), full opt-1.3b width, rank 64, H = 4,
+   2 microbatches of 2 rows of 512 tokens per cluster, 2 rounds:
+   ``--clusters 1 --pp-stages 4`` and ``--clusters 2 --pp-stages 2`` on
+   the four cards, one stage per rank, activations and their gradients
+   sent by NCCL point to point. Each rank's state after each round
+   (params, AdamW state, anchor, Nesterov momentum, pending deltas, EF
+   buffers, warm starts) is reduced to one exact integer digest per leaf
+   (``state_digests``) and compared with the same cluster's and stage's
+   rows of the in-process pipeline on one card (every stage and cluster in
+   one process): bit for bit, or the script fails. Every rank run comes
+   before the one-card references, so that no reference holds the first
+   card's memory while ranks run (``--pp-legs`` picks the cluster
+   counts). Prints each round's
+   round, inner and outer seconds, the f32 bytes each rank hands to the
+   clusters group and every card's peak memory. The one-card reference
+   of 2 clusters holds both clusters' states; at 24 layers that is ~70
+   GiB, so the 2 x 2 leg compares at ``--pp-equal-layers`` (12) and times
+   the 24-layer ranks separately.
+
 ``--device cpu --smoke-only`` runs the same on CPU processes (gloo) at the
 reduced size, to rehearse. Needs ``--cards`` GPUs otherwise.
 """
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -94,12 +115,199 @@ def timed(train, device, cards, clusters, data, smoke):
               f"{s['gather_bytes'][r]} B to the all-gather", flush=True)
 
 
+def state_digests(params, opt, outer, clusters=None, stage=None):
+    """{leaf path: exact digest} of a driver's round state (the layout of
+    ``--state-out``): each leaf's f32/int32 bits (+0.0 for -0.0) as int64,
+    weighted by position and summed in integer arithmetic on the device,
+    so equal digests mean equal bits up to the sign of zero (what
+    ``np.array_equal`` compares). With ``clusters``/``stage``: the rows of
+    one cluster and one stage of an in-process state, as that rank holds
+    them."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.parallel.pipeline import is_stage_path
+
+    out = {}
+    tree = {"params": params, "opt": opt, "outer": outer._asdict()}
+    for key, x in T.keystr_items(tree):
+        unstacked = key.startswith(("['outer']['anchor']",
+                                    "['outer']['outer_opt']"))
+        if clusters is not None and not unstacked and x.dim() > 0:
+            x = x.narrow(0, clusters, 1)
+        if stage is not None and is_stage_path(key) \
+                and "['q_state']" not in key:
+            x = x.narrow(0 if unstacked else 1, stage, 1)
+        x = x.contiguous().reshape(-1)
+        if x.dtype.is_floating_point:
+            x = (x.float() + 0.0).view(torch.int32)
+        total = 0
+        for i in range(0, x.numel(), 1 << 26):
+            v = x[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + v.numel(), device=v.device) % 1000003 + 1
+            total += int((v * w).sum())
+        out[key] = total
+    return out
+
+
+def _pp_rank(rank, argv, store_path, out_dir, stuck_s):
+    """One spawned rank of the pp leg: the driver's worker, with each
+    round's state digests written to ``out_dir``. A rank still running
+    after ``stuck_s`` seconds prints every thread's Python stack and
+    exits, which stops the others."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(stuck_s, exit=True)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "src"))
+    import torch
+
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    digests = []
+    summary = train._worker(
+        rank, train._parse_args(argv), store_path,
+        on_round=lambda r, *st: digests.append(state_digests(*st)))
+    faulthandler.cancel_dump_traceback_later()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"digests": digests, "summary": summary}, f)
+
+
+def pp_argv(device, cards, clusters, stages, smoke, n_layers=0):
+    argv = ["--arch", "opt-1.3b", "--device", device, "--inner", "pp",
+            "--devices", str(cards), "--clusters", str(clusters), "--data",
+            "1", "--pp-stages", str(stages), "--pp-micro", "2", "--rounds",
+            "2", "--h-steps", "4", "--global-batch", str(4 * clusters),
+            "--seq-len", "32" if smoke else "512", "--rank", "64",
+            "--join-timeout", "900"]
+    if smoke:
+        argv.append("--smoke")
+    if n_layers:
+        argv += ["--n-layers", str(n_layers)]
+    if device == "cpu":
+        argv += ["--cpu-threads", "1"]
+    return argv
+
+
+def pp_ranks(argv, cards, tmp, stuck_s=420):
+    """The driver's ranks, spawned here so that each writes its digests."""
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(dir=tmp)
+    store = os.path.join(out, "store")
+    print("== ranks: python -m repro_torch.launch.train " + " ".join(argv),
+          flush=True)
+    mp.start_processes(_pp_rank, args=(argv, store, out, stuck_s),
+                       nprocs=cards, start_method="spawn", join=True)
+    got = []
+    for rank in range(cards):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            got.append(json.load(f))
+    s = got[0]["summary"]
+    for r in range(len(s["round_s"])):
+        print(f"round {r}: mean loss {s['mean_loss'][r]:.6f}, round "
+              f"{s['round_s'][r]:.3f} s, inner {s['inner_s'][r]:.3f} s "
+              f"({1e3 * s['inner_s'][r] / 4:.1f} ms per step), outer "
+              f"{s['outer_s'][r]:.3f} s; rank 0 hands "
+              f"{s['allreduce_bytes'][r]} B of f32 to the clusters group",
+              flush=True)
+    peaks = s.get("peak_bytes") or []
+    print(f"peak memory per card: "
+          f"{[round(b / 2**30, 2) for b in peaks]} GiB", flush=True)
+    return got
+
+
+def pp_reference(train, device, argv, clusters, stages):
+    """The in-process pipeline (every stage and cluster in this process,
+    one card): per round, each (cluster, stage)'s digests; its device
+    memory is released afterwards for the next ranks."""
+    import torch
+
+    want = []
+    dev = torch.device(device)
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)
+    try:
+        summary = train.run(train._parse_args(argv), dev,
+                            clusters=list(range(clusters)),
+                            on_round=lambda r, *st: want.append(
+                                {(c, s): state_digests(*st, clusters=c,
+                                                       stage=s)
+                                 for c in range(clusters)
+                                 for s in range(stages)}))
+    finally:
+        torch.set_num_threads(threads)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"in-process on one card ({' '.join(argv[argv.index('--clusters'):argv.index('--pp-micro')])}"
+          f"{' --n-layers ' + argv[-1] if '--n-layers' in argv else ''}): "
+          f"mean loss {summary['mean_loss']}, peak "
+          f"{[round(b / 2**30, 2) for b in summary['peak_bytes']]} GiB",
+          flush=True)
+    return summary, want
+
+
+def pp_compare(ranks, ref, clusters, stages):
+    """Whether every rank's digests equal its rows of the reference."""
+    summary, want = ref
+    equal = ranks[0]["summary"]["mean_loss"] == summary["mean_loss"]
+    for r, digests in enumerate(want):
+        bad = []
+        for rank, got in enumerate(ranks):
+            c, s = divmod(rank, stages)
+            got = got["digests"][r]
+            bad += [f"rank {rank} {k}" for k, v in digests[(c, s)].items()
+                    if got.get(k) != v]
+            if sorted(got) != sorted(digests[(c, s)]):
+                bad.append(f"rank {rank}: other leaves")
+        print(f"round {r}: {clusters} clusters x {stages} stages, ranks bit "
+              f"for bit the in-process pipeline: {not bad} "
+              f"({len(bad)} leaves differ{': ' + ', '.join(bad[:4]) if bad else ''})",
+              flush=True)
+        equal &= not bad
+    return equal
+
+
+def pp_legs(train, device, cards, legs, smoke, tmp, equal_layers):
+    """Each leg (a cluster count; stages = cards / clusters): the ranks at
+    full depth, and for 2 clusters again at ``equal_layers``; then the
+    one-card references of the runs to compare, after every rank run, so
+    that no reference holds the first card's memory while ranks run."""
+    runs = []
+    for clusters in legs:
+        stages = cards // clusters
+        full = pp_argv(device, cards, clusters, stages, smoke)
+        cut = (pp_argv(device, cards, clusters, stages, smoke, equal_layers)
+               if clusters > 1 and equal_layers else None)
+        got = pp_ranks(full, cards, tmp)
+        if cut is not None:
+            got = pp_ranks(cut, cards, tmp)
+        runs.append((cut or full, got, clusters, stages))
+    equal = True
+    for argv, got, clusters, stages in runs:
+        equal &= pp_compare(got, pp_reference(train, device, argv, clusters,
+                                              stages), clusters, stages)
+    return equal
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cards", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--smoke-only", action="store_true",
                     help="the timing runs at the reduced size too")
+    ap.add_argument("--pp", action="store_true",
+                    help="the pipeline-parallel leg only")
+    ap.add_argument("--pp-also", action="store_true",
+                    help="the pipeline-parallel leg after the others")
+    ap.add_argument("--pp-equal-layers", type=int, default=12,
+                    help="depth of the 2 clusters x 2 stages bitwise leg")
+    ap.add_argument("--pp-legs", default="1,2",
+                    help="cluster counts of the pp legs (stages: cards / "
+                         "clusters)")
     args = ap.parse_args()
     if args.device == "cuda":
         if torch.cuda.device_count() < args.cards:
@@ -115,12 +323,21 @@ def main():
         __file__)), "..", "src"))
     from repro_torch.launch import train
 
-    with tempfile.TemporaryDirectory() as tmp:
-        equivalence(train, args.device, tmp)
-    timed(train, args.device, args.cards, args.cards, 1, args.smoke_only)
-    if args.cards % 2 == 0 and args.cards >= 4:
-        timed(train, args.device, args.cards, args.cards // 2, 2,
-              args.smoke_only)
+    if not args.pp:
+        with tempfile.TemporaryDirectory() as tmp:
+            equivalence(train, args.device, tmp)
+        timed(train, args.device, args.cards, args.cards, 1, args.smoke_only)
+        if args.cards % 2 == 0 and args.cards >= 4:
+            timed(train, args.device, args.cards, args.cards // 2, 2,
+                  args.smoke_only)
+    if args.pp or args.pp_also:
+        legs = [int(c) for c in args.pp_legs.split(",")
+                if args.cards % int(c) == 0]
+        with tempfile.TemporaryDirectory() as tmp:
+            equal = pp_legs(train, args.device, args.cards, legs,
+                            args.smoke_only, tmp, args.pp_equal_layers)
+        if not equal:
+            sys.exit("FAIL pp: the ranks differ from the in-process pipeline")
     print("MESH-MULTI-GPU-OK")
 
 

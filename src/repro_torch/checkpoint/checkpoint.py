@@ -15,7 +15,11 @@ tree: the trainer's ``DiLoCoXState`` (params, inner AdamW and outer
 Nesterov states, pending deltas, EF buffers, the compressor's warm
 starts, the round counter) or the mesh driver's ``launch.steps.
 OuterState`` (anchor, Nesterov state, pending deltas, EF buffers, warm
-starts).
+starts). The pipeline-parallel engine's trees cross the same way:
+``pp_params_from_flat`` and ``train_state_from_flat`` for
+``repro.parallel.pipeline.init_pp_params``'s tree and a
+``DiLoCoTrainState``; ``stage_rows`` cuts one stage's rows out of a flat
+pp tree, what a process holding that stage keeps.
 Both packages keep the JAX layouts (``(d_in, d_out)`` weights, stacked
 units with a leading ``n``, cluster-stacked rows with a leading ``C``), so
 the bridge is a rename, not a transpose.
@@ -139,3 +143,39 @@ def state_from_flat(flat: Dict[str, np.ndarray], state_like, device=None):
 def state_to_flat(state) -> Dict[str, np.ndarray]:
     """The inverse of ``state_from_flat``."""
     return _flatten(state)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-parallel trees
+# ---------------------------------------------------------------------------
+
+def pp_params_from_flat(flat: Dict[str, np.ndarray], cfg, pcfg, device):
+    """``{keystr: ndarray}`` of ``repro.parallel.pipeline.init_pp_params``'s
+    tree -> the port's pp tree on ``device`` (``params_to_flat`` is the
+    inverse)."""
+    from repro_torch.parallel import pipeline as PP
+
+    return tree_from_flat(flat, PP.init_pp_params(cfg, None, pcfg, "meta"),
+                          device)
+
+
+def train_state_from_flat(flat: Dict[str, np.ndarray], cfg, pcfg, device):
+    """``{keystr: ndarray}`` of a JAX ``repro.parallel.inner_engine.
+    DiLoCoTrainState`` (one cluster, unstacked) -> the port's on
+    ``device`` (``state_to_flat`` is the inverse)."""
+    from repro_torch.parallel import inner_engine as IE
+
+    return tree_from_flat(flat, IE.init_train_state(cfg, pcfg, None, "meta"),
+                          device)
+
+
+def stage_rows(flat: Dict[str, np.ndarray], stage: int, *,
+               stage_dim: int = 0) -> Dict[str, np.ndarray]:
+    """Stage ``stage``'s rows (the stage dim kept, of size 1) of every
+    array of a flat pp tree that the placement rule splits by stage
+    (paths under ``stages`` or ``active``), the others as they are.
+    ``stage_dim`` is 1 for cluster-stacked trees."""
+    from repro_torch.parallel.pipeline import is_stage_path
+
+    return {k: (np.take(v, [stage], axis=stage_dim) if is_stage_path(k)
+                else v) for k, v in flat.items()}

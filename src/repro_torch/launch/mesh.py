@@ -5,10 +5,11 @@ from ``repro.launch.mesh``).
 group out as ("clusters", "data", "model"), row-major, with
 ``torch.distributed.device_mesh.init_device_mesh``: the ranks of one
 "clusters" group share a data index and meet only in the outer step (the
-slow links), the ranks of one "data" group share a cluster. The
-production and serving meshes (a pod axis, the serving flattening) wait
-for tensor parallelism and multi-card serving (ROADMAP A.11b) and the
-pipeline-parallel engine (A.12).
+slow links), the ranks of one "data" group share a cluster. Under the
+pipeline-parallel engine (``launch/train.py --inner pp``) the "model"
+axis holds a cluster's stages, one rank each. The production and serving
+meshes (a pod axis, the serving flattening) wait for tensor parallelism
+and multi-card serving (ROADMAP A.11b).
 """
 from __future__ import annotations
 

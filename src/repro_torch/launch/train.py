@@ -21,7 +21,18 @@ Usage (2 CPU processes, one cluster each):
       --device cpu --devices 2 --clusters 2 --data 1 --model 1 \\
       --rounds 2 --h-steps 2
 
-Not ported: ``--inner pp`` (ROADMAP A.12); ``--model`` > 1, i.e. tensor
+``--inner pp`` switches the inner loop to the pipeline-parallel engine
+(``parallel/inner_engine.py``, ``run_pp``): the mesh becomes (clusters,
+data, ``--pp-stages``), ``--devices`` = clusters x data x pp-stages, and
+rank (c, j, s) holds stage s of cluster c's model (its rows of the
+params, AdamW moments, Nesterov momentum and EF residual; embed, final
+norm and head on every stage) and trains on the j-th slice of the
+cluster's batch:
+  python -m repro_torch.launch.train --arch granite-3-8b --smoke \\
+      --inner pp --device cpu --devices 4 --clusters 2 --data 1 \\
+      --pp-stages 2
+
+Not ported: ``--model`` > 1 under ``--inner gspmd``, i.e. tensor
 parallelism and FSDP placement (``parallel/sharding.py``, ROADMAP A.11b):
 within a cluster the weights are replicated over the data group;
 ``--ckpt-dir`` with more than one device (A.11b). The JAX driver's
@@ -78,7 +89,8 @@ def _parse_args(argv=None):
     ap.add_argument("--inner", default="gspmd", choices=["gspmd", "pp"],
                     help="inner engine: gspmd = the per-cluster step "
                          "(launch/steps.py); pp = the pipeline-parallel "
-                         "engine, not ported yet (ROADMAP A.12)")
+                         "engine (parallel/inner_engine.py), --pp-stages "
+                         "stages a cluster, one per rank")
     ap.add_argument("--pp-stages", type=int, default=2)
     ap.add_argument("--pp-micro", type=int, default=4)
     ap.add_argument("--ckpt-dir", default="")
@@ -102,21 +114,34 @@ def _parse_args(argv=None):
 
 def _check_args(args) -> None:
     """The refusals and the JAX driver's checks, before any process
-    starts."""
-    if args.inner == "pp":
-        raise NotImplementedError("--inner pp (the pipeline-parallel inner "
-                                  "engine) is not ported yet (ROADMAP A.12)")
-    if args.model > 1:
-        raise NotImplementedError("--model > 1 (tensor parallelism and FSDP "
-                                  "placement, parallel/sharding.py) is not "
-                                  "ported yet (ROADMAP A.11b)")
+    starts. ``--inner pp`` ignores ``--model`` (default 2), as the JAX
+    driver does, so its checks come first."""
     C = args.clusters
-    assert C * args.data * args.model == args.devices, (
-        "--devices must equal clusters * data * model")
     if args.ckpt_dir and args.devices > 1:
         raise NotImplementedError("--ckpt-dir with more than one device (a "
                                   "checkpoint gathered across ranks) is not "
                                   "ported yet (ROADMAP A.11b)")
+    if args.inner == "pp":
+        if args.adaptive or args.h_policy != "global":
+            raise SystemExit("--inner pp supports the static round schedule "
+                             "only (no --adaptive / --h-policy balance yet)")
+        assert C * args.data * args.pp_stages == args.devices, (
+            "--devices must equal clusters * data * pp-stages")
+        Bc = args.global_batch // C
+        assert Bc % args.pp_micro == 0, (
+            "per-cluster batch (global-batch/clusters) must divide --pp-micro")
+        if args.global_batch % C or Bc % args.data or \
+                (Bc // args.data) % args.pp_micro:
+            raise ValueError(f"--global-batch {args.global_batch} must split "
+                             f"into {C} clusters x {args.data} data ranks x "
+                             f"{args.pp_micro} microbatches")
+        return
+    if args.model > 1:
+        raise NotImplementedError("--model > 1 (tensor parallelism and FSDP "
+                                  "placement, parallel/sharding.py) is not "
+                                  "ported yet (ROADMAP A.11b)")
+    assert C * args.data * args.model == args.devices, (
+        "--devices must equal clusters * data * model")
     if args.global_batch % C or (args.global_batch // C) % args.data:
         raise ValueError(f"--global-batch {args.global_batch} must split "
                          f"into {C} clusters x {args.data} data ranks")
@@ -150,12 +175,16 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     its ``data_rank``-th slice of each cluster's batch. Returns a summary
     dict (per round: mean loss, executed H, rank, wire bytes, gathered
     bytes, synchronized round/inner/outer seconds). ``on_round(r, params,
-    opt, outer_state)`` sees the state after each round."""
+    opt, outer_state)`` sees the state after each round. ``--inner pp``
+    runs ``run_pp`` with every stage in this process."""
+    if args.inner == "pp":
+        return run_pp(args, device, clusters=clusters, data_rank=data_rank,
+                      cluster_group=cluster_group, data_group=data_group,
+                      rank=rank, on_round=on_round)
     import numpy as np
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt_lib
-    from repro_torch.configs.base import get_config
     from repro_torch.core import adaptive, diloco
     from repro_torch.core import mesh_compression as mc
     from repro_torch.data.synthetic import SyntheticLM
@@ -164,11 +193,7 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     from repro_torch.models import model as M
     from repro_torch import tree as T
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
-    if args.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    cfg = _model_config(args)
     C = args.clusters
     CL = len(clusters)
 
@@ -301,6 +326,213 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     return summary
 
 
+def _model_config(args):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
+           cluster_group=None, data_group=None, model_group=None,
+           rank: int = 0, on_round=None):
+    """The ``--inner pp`` round loop (the JAX driver's ``_run_pp``) for
+    this rank's ``clusters`` on its ``data_rank``-th slice of each
+    cluster's batch: every stage in this process with no ``model_group``
+    (of more than one rank), else stage ``stage`` of each.
+
+    Each round: H pipelined AdamW steps (``inner_engine.
+    make_pp_train_step``; the stages' replicated leaves' gradients summed
+    over the model group, the data group's averaged), then the delayed
+    outer round of ``core.diloco.diloco_round``, leaf by leaf and in
+    place: the ``LowRankQuant`` roundtrip of last round's δ (the whole
+    leaf: a stage-split leaf's rows are first gathered over the model
+    group, as the JAX driver compresses the gathered pseudo-gradient), the
+    f32 mean over clusters (a sum over the clusters group, then / C), EF
+    against the applied mean, the new δ = (anchor − θ) + e with
+    ``active``'s pinned to zero (``inner_engine.extract_delta``), Nesterov
+    on the anchor, and every cluster's params restarting from it.
+
+    The state is ``launch.steps.OuterState``'s layout: cluster-stacked
+    params, AdamW state, pending deltas, EF buffers and warm starts, the
+    anchor and its Nesterov momentum unstacked; stage-split leaves hold
+    this rank's stage rows (warm starts are per whole leaf). Returns the
+    summary of ``run``, with ``allreduce_bytes`` (the f32 bytes this rank
+    hands to the clusters group per round) in place of the gathered
+    bytes, and ``peak_bytes`` (each rank's peak device memory, on the
+    card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core import diloco
+    from repro_torch.core.compression import make_compressor, tree_shapes
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import all_reduce_sum
+    from repro_torch.optim import nesterov
+    from repro_torch.parallel import inner_engine as IE
+    from repro_torch.parallel import pipeline as PP
+
+    cfg = _model_config(args)
+    C, CL = args.clusters, len(clusters)
+    pcfg = PP.PipelineConfig(n_stages=args.pp_stages, n_micro=args.pp_micro)
+    if model_group is not None and steps._group_size(model_group) > 1:
+        transport = PP.StageGroup(model_group, stage, args.pp_stages)
+    else:
+        transport = PP.InProcess(args.pp_stages)
+    lo, hi = transport.stages[0], transport.stages[-1] + 1
+
+    # the whole model drawn on every rank (generator seeded 0), then this
+    # rank's stage rows kept
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    full = PP.init_pp_params(cfg, gen, pcfg, device)
+    # the JAX driver's make_compressor("diloco_x"): the fused kernels
+    compressor = make_compressor("diloco_x", rank=args.rank,
+                                 backend="pallas")
+    q1 = compressor.init_state(full)
+    wire = compressor.wire_bytes(tree_shapes(full))
+    params1 = T.tree_map(lambda x: x.clone(),
+                         PP.stage_slice(full, lo, hi))
+    del full
+    params = diloco.stack_replicas(params1, CL)
+    opt = steps.init_inner_state(params)
+    zeros = lambda: T.tree_map(
+        lambda x: torch.zeros_like(x, dtype=torch.float32), params)
+    outer = steps.OuterState(
+        anchor=params1, outer_opt=nesterov.init(params1),
+        delta_pending=zeros(), error=zeros(),
+        q_state=T.tree_map(lambda q: diloco.stack_replicas(q, CL), q1))
+    allreduce_bytes = 4 * sum(x.numel() for x in T.leaves(params1))
+
+    train_step = IE.make_pp_train_step(
+        cfg, pcfg, inner_lr=args.inner_lr, transport=transport,
+        data_group=data_group, cluster_stacked=True)
+
+    @torch.no_grad()
+    def outer_round(params, st, rank_r):
+        for (path, p), a, v, d, e, q in zip(
+                T.keystr_items(params), T.leaves(st.anchor),
+                T.leaves(st.outer_opt.momentum), T.leaves(st.delta_pending),
+                T.leaves(st.error), T.leaves(st.q_state)):
+            split = PP.is_stage_path(path)
+            # comm leg: compress LAST round's pseudo-grads (one-step delay)
+            hat_sum = None
+            for c in range(CL):
+                whole = transport.gather_rows(d[c], 0) if split else d[c]
+                (hat,), (q_new,) = compressor.roundtrip([whole], [q[c]],
+                                                        rank_r)
+                q[c].copy_(q_new)
+                hat = hat.narrow(0, lo, hi - lo) if split else hat
+                hat_sum = hat if hat_sum is None else hat_sum + hat
+            Delta = all_reduce_sum(hat_sum, cluster_group) / C
+            del hat_sum
+            # Alg. 2 error feedback: e = delta - Delta (the applied mean)
+            torch.sub(d, Delta[None], out=e)
+            # next round's pending delta (extract_delta, leaf by leaf)
+            if path == "['active']":
+                d.zero_()
+            else:
+                torch.sub(a.float()[None], p.float(), out=d)
+                d.add_(e)
+            # delayed outer Nesterov on the anchor; replicas restart there
+            nesterov.update_leaf(Delta, v, a, lr=args.outer_lr,
+                                 momentum=args.outer_momentum)
+            p.copy_(a[None].expand_as(p))
+        return params, st._replace(outer_opt=nesterov.NesterovState(
+            step=st.outer_opt.step + 1, momentum=st.outer_opt.momentum))
+
+    Bc = args.global_batch // C
+    n_data = steps._group_size(data_group) if data_group is not None else 1
+    rows = slice(data_rank * Bc // n_data, (data_rank + 1) * Bc // n_data)
+    data = [SyntheticLM(cfg.vocab_size, args.seq_len, Bc, seed=0,
+                        data_shard=c) for c in clusters]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    log, tracer, span = _setup_obs(args, rank)
+    summary = {k: [] for k in ("mean_loss", "h", "rank", "wire_bytes",
+                               "allreduce_bytes", "round_s", "inner_s",
+                               "outer_s")}
+    for r in range(args.rounds):
+        losses = []
+        sync()
+        t0 = time.perf_counter()
+        with span("round", round=r):
+            with span("inner", round=r):
+                for h in range(args.h_steps):
+                    toks = torch.stack([d.next_batch()["tokens"][rows]
+                                        for d in data]).to(device)
+                    params, opt, loss = train_step(params, opt, toks)
+                    loss = all_reduce_sum(loss.detach().float(),
+                                          cluster_group)
+                    losses.append(float(loss) / C)
+                sync()
+            t1 = time.perf_counter()
+            with span("outer", round=r):
+                params, outer = outer_round(params, outer, args.rank)
+                sync()
+        t2 = time.perf_counter()
+        log.info(f"round {r}: mean_loss={np.mean(losses):.4f} "
+                 f"H={args.h_steps} r={args.rank} "
+                 f"wire_per_cluster={wire/1e6:.2f}MB",
+                 round=r, mean_loss=float(np.mean(losses)), h=args.h_steps,
+                 rank=args.rank, wire_bytes=wire,
+                 allreduce_bytes=allreduce_bytes)
+        for key, val in (("mean_loss", float(np.mean(losses))),
+                         ("h", [args.h_steps] * C), ("rank", args.rank),
+                         ("wire_bytes", wire),
+                         ("allreduce_bytes", allreduce_bytes),
+                         ("round_s", t2 - t0), ("inner_s", t1 - t0),
+                         ("outer_s", t2 - t1)):
+            summary[key].append(val)
+        if args.ckpt_dir:
+            ckpt_lib.save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
+                          {"params": params}, step=r,
+                          meta={"arch": args.arch, "inner": "pp"})
+        if args.state_out:
+            ckpt_lib.save(os.path.join(args.state_out,
+                                       f"round_{r:04d}.rank{rank}"),
+                          {"params": params, "opt": opt,
+                           "outer": outer._asdict()},
+                          step=r, meta={"clusters": list(clusters),
+                                        "data_rank": data_rank,
+                                        "stages": [lo, hi]})
+        if on_round is not None:
+            on_round(r, params, opt, outer)
+    summary["peak_bytes"] = _peak_bytes(device)
+    log.info("TRAIN-DRIVER-OK")
+    if tracer is not None:
+        tracer.write(args.trace)
+        log.info(f"wrote {args.trace}")
+    return summary
+
+
+def _peak_bytes(device):
+    """Every rank's peak device memory (bytes, in rank order; empty on the
+    CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    if device.type != "cuda":
+        return []
+    peak = torch.tensor([torch.cuda.max_memory_allocated(device)],
+                        dtype=torch.int64, device=device)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [int(peak)]
+    got = [torch.empty_like(peak) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, peak)
+    return [int(x) for x in got]
+
+
 def _worker(rank: int, args, store_path: str, on_round=None,
             summary_path: str = ""):
     """One rank: joins the process group, builds the mesh, runs its
@@ -324,13 +556,20 @@ def _worker(rank: int, args, store_path: str, on_round=None,
                             store=dist.FileStore(store_path, args.devices),
                             rank=rank, world_size=args.devices)
     try:
-        mesh = make_cluster_mesh(args.clusters, args.data, args.model,
+        pp = args.inner == "pp"
+        mesh = make_cluster_mesh(args.clusters, args.data,
+                                 args.pp_stages if pp else args.model,
                                  device_type=device.type)
-        c, j, _ = mesh.get_coordinate()
-        summary = run(args, device, clusters=[c], data_rank=j,
-                      cluster_group=mesh.get_group("clusters"),
-                      data_group=mesh.get_group("data"), rank=rank,
-                      on_round=on_round)
+        c, j, s = mesh.get_coordinate()
+        groups = dict(cluster_group=mesh.get_group("clusters"),
+                      data_group=mesh.get_group("data"))
+        if pp:
+            summary = run_pp(args, device, clusters=[c], data_rank=j,
+                             stage=s, model_group=mesh.get_group("model"),
+                             rank=rank, on_round=on_round, **groups)
+        else:
+            summary = run(args, device, clusters=[c], data_rank=j,
+                          rank=rank, on_round=on_round, **groups)
     finally:
         dist.destroy_process_group()
     if summary_path and rank == 0:

@@ -57,7 +57,8 @@ class TrainConfig:
     h_policy: str = "global"      # global | balance
     h_min: int = 1
     step_times: Optional[Any] = None   # per-cluster step seconds (len C)
-    # "pp" (the pipeline-parallel inner engine) is ROADMAP A.12
+    # "pp": the pipeline-parallel inner engine (parallel.inner_engine),
+    # every stage on this device, pp_micro microbatches a step
     inner_engine: str = "scalar"  # scalar | pp
     pp_stages: int = 2
     pp_micro: int = 2
@@ -102,29 +103,22 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x.to(device)
 
 
-def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
-                  h_vec=None, *, batch_fn: Optional[Callable] = None):
-    """Returns ``inner_fn(params, inner_opt_stacked, round_idx) -> (stacked
-    params after the local AdamW steps of every cluster, inner state,
-    losses)``. Clusters run one after another (no vmap); each starts from
-    ``params`` and updates its own row of the stacked tensors in place.
-    Losses are (C, H), or with ``h_vec`` (per-cluster step counts) the (C,)
-    per-cluster mean over the steps each cluster ran. ``batch_fn(cluster,
-    round, step)`` gives token batches (default: the port's stream)."""
-    batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
+def _cluster_loop(tcfg: TrainConfig, batch_fn: Callable, h_vec,
+                  train_step: Callable, prepare: Callable = lambda p: p):
+    """``inner_fn(params, inner_opt_stacked, round_idx)`` running
+    ``train_step(params, opt, tokens) -> (params, opt, loss)`` (in place)
+    H times for every cluster. Clusters run one after another (no vmap);
+    each starts from ``params`` (``prepare`` sees its rows first) and
+    updates its own row of the stacked tensors in place. Losses are (C,
+    H), or with ``h_vec`` (per-cluster step counts) the (C,) per-cluster
+    mean over the steps each cluster ran."""
     C, H = tcfg.n_clusters, tcfg.h_steps
 
     def step_body(carry, h, cluster_idx, round_idx):
         params, opt_state = carry
         dev = T.leaves(params)[0].device
         toks = _as_tensor(batch_fn(cluster_idx, round_idx, h), dev)
-        with torch.enable_grad():
-            loss, _ = M.loss_fn(params, cfg, {"tokens": toks},
-                                flash=tcfg.flash_attention)
-            grads = torch.autograd.grad(loss, T.leaves(params))
-        grads = T.unflatten_like(params, list(grads))
-        params, opt_state = adamw.update(grads, opt_state, params,
-                                         lr=tcfg.inner_lr)
+        params, opt_state, loss = train_step(params, opt_state, toks)
         return (params, opt_state), loss.detach()
 
     def inner_fn(params, inner_opt_stacked, round_idx):
@@ -132,8 +126,7 @@ def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
         params_s = diloco.stack_replicas(params, C)
         losses, steps = [], []
         for c in range(C):
-            p_c = T.tree_map(lambda x: x.detach().requires_grad_(True),
-                             diloco.take_row(params_s, c))
+            p_c = prepare(diloco.take_row(params_s, c))
             opt_c = adamw.AdamWState(step=inner_opt_stacked.step[c],
                                      m=diloco.take_row(inner_opt_stacked.m, c),
                                      v=diloco.take_row(inner_opt_stacked.v, c))
@@ -156,6 +149,45 @@ def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
         return params_s, opt, torch.stack(losses)
 
     return inner_fn
+
+
+def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
+                  h_vec=None, *, batch_fn: Optional[Callable] = None):
+    """Returns ``inner_fn(params, inner_opt_stacked, round_idx) -> (stacked
+    params after the local AdamW steps of every cluster, inner state,
+    losses)`` (``_cluster_loop``) with the sequential model's loss.
+    ``batch_fn(cluster, round, step)`` gives token batches (default: the
+    port's stream)."""
+    batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
+
+    def train_step(params, opt_state, toks):
+        with torch.enable_grad():
+            loss, _ = M.loss_fn(params, cfg, {"tokens": toks},
+                                flash=tcfg.flash_attention)
+            grads = torch.autograd.grad(loss, T.leaves(params))
+        grads = T.unflatten_like(params, list(grads))
+        params, opt_state = adamw.update(grads, opt_state, params,
+                                         lr=tcfg.inner_lr)
+        return params, opt_state, loss
+
+    return _cluster_loop(tcfg, batch_fn, h_vec, train_step,
+                         prepare=lambda row: T.tree_map(
+                             lambda x: x.detach().requires_grad_(True), row))
+
+
+def make_pp_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table, pcfg,
+                     h_vec=None, *, batch_fn: Optional[Callable] = None):
+    """Pipeline-parallel counterpart of ``make_inner_fn``: the same
+    (cluster, round, step) batches, every inner step through
+    ``parallel.inner_engine.make_pp_train_step`` (the GPipe loss, all
+    stages in this process) instead of the sequential loss, clusters
+    unrolled. Numerics against the sequential engine are tolerance-level,
+    not bitwise (``parallel.inner_engine``)."""
+    from repro_torch.parallel import inner_engine as IE
+
+    batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
+    return _cluster_loop(tcfg, batch_fn, h_vec, IE.make_pp_train_step(
+        cfg, pcfg, inner_lr=tcfg.inner_lr, flash=tcfg.flash_attention))
 
 
 def cluster_mean(stacked_tree):
@@ -270,16 +302,25 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
     replace the port's own random draws when given; ``params`` are updated
     in place round by round. ``on_round(r, state)`` sees the state after
     each round (e.g. to check that round 0 of the delay mode left the
-    params as they were)."""
+    params as they were). ``inner_engine="pp"`` trains the pp parameter
+    tree (``parallel.pipeline``; ``params`` must then be one, e.g.
+    ``pipeline.to_pp_params`` of a sequential tree) and evaluates with the
+    pipelined loss on the 16-row eval batch."""
     if tcfg.inner_engine not in ("scalar", "pp"):
         raise ValueError(f"inner_engine must be 'scalar' or 'pp', got "
                          f"{tcfg.inner_engine!r}")
-    if tcfg.inner_engine == "pp":
-        raise NotImplementedError("inner_engine='pp' (the pipeline-parallel "
-                                  "inner engine) is not ported yet (ROADMAP "
-                                  "A.12)")
+    pp = tcfg.inner_engine == "pp"
     check_flash(cfg, tcfg)
+    if pp:
+        from repro_torch.parallel import pipeline as PP
+        pcfg = PP.PipelineConfig(n_stages=tcfg.pp_stages,
+                                 n_micro=tcfg.pp_micro)
+        PP.check_pp(cfg)
     device = resolve_device(device)
+    if pp and params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(tcfg.seed)
+        params = PP.init_pp_params(cfg, gen, pcfg, device)
     params = _init_params(cfg, tcfg, device, params)
     compressor = make_compressor(tcfg.compressor, **tcfg.compressor_kw)
     state = diloco.init_state(params, _init_inner_stacked(
@@ -308,9 +349,18 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
             np.ones(tcfg.n_clusters, bool))
         h_by = tuple(h_map[c] for c in range(tcfg.n_clusters))
     uniform = h_by is None or all(h == tcfg.h_steps for h in h_by)
-    inner_fn = _Timed(make_inner_fn(cfg, tcfg, data.table,
-                                    h_vec=None if uniform else h_by,
-                                    batch_fn=batch_fn), device)
+    h_vec = None if uniform else h_by
+    if pp:
+        inner_fn = make_pp_inner_fn(cfg, tcfg, data.table, pcfg, h_vec,
+                                    batch_fn=batch_fn)
+        pp_loss = PP.make_pp_loss(cfg, pcfg, flash=tcfg.flash_attention)
+        eval_fn = lambda p: float(pp_loss(p, eval_batch["tokens"]))
+    else:
+        inner_fn = make_inner_fn(cfg, tcfg, data.table, h_vec,
+                                 batch_fn=batch_fn)
+        eval_fn = lambda p: _eval_loss(p, cfg, eval_batch,
+                                       tcfg.flash_attention)
+    inner_fn = _Timed(inner_fn, device)
     timed_comp = _TimedCompressor(compressor, device)
 
     ada_cfg = adaptive.AdaGradCmpConfig(
@@ -337,8 +387,7 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
         if on_round is not None:
             on_round(r, state)
         res.losses.append(float(torch.mean(round_losses.float())))
-        res.eval_losses.append(_eval_loss(state.params, cfg, eval_batch,
-                                          tcfg.flash_attention))
+        res.eval_losses.append(eval_fn(state.params))
         res.wire_bytes_per_round.append(
             compressor.wire_bytes(shapes, rank=r_exec if tcfg.adaptive
                                   else None)

@@ -86,5 +86,6 @@ def test_full_size_tree_equals_jax_eval_shape(arch):
     if arch == "qwen1.5-107b":
         n = sum(int(np.prod(s)) for s, _ in ttree.values())
         # 78 layers of 1,358,970,880 and the embed + head: the f32 copy
-        # that waits for tensor parallelism and the pipeline (A.11b, A.12)
+        # that waits for tensor parallelism (A.11b); the pipeline's tree
+        # (80 padded slots at 8 stages) is tests/test_torch_inner_engine.py's
         assert n == 78 * 1_358_970_880 + 2_491_424_768

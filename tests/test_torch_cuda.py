@@ -860,3 +860,88 @@ def test_cuda_random_baselines_match_cpu_given_one_mask(name):
     got = apply(x.cuda(), mask)
     assert got.is_cuda
     assert torch.equal(got.cpu(), apply(x, mask.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-parallel engine (parallel/pipeline.py) on the card
+# ---------------------------------------------------------------------------
+
+PP_CASES = [(1, 3), (2, 5), (4, 6)]
+
+
+def _pp_case(stages, layers, seq=16):
+    """tests/test_torch_pipeline.py's configuration (reduced granite-3-8b,
+    vocab 128, B 8, 4 microbatches), the port's own weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.parallel import pipeline as PP
+
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(),
+                              n_layers=layers, vocab_size=128)
+    pcfg = PP.PipelineConfig(n_stages=stages, n_micro=4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = PP.init_pp_params(cfg, gen, pcfg, "cuda")
+    toks = torch.randint(0, 128, (8, seq), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return cfg, pcfg, params, toks
+
+
+def _pp_grads_gap(a, b):
+    from repro_torch import tree as T
+    return max(float((x - y).abs().max()) for (k, x), y in
+               zip(T.keystr_items(a), T.leaves(b)) if "active" not in k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages,layers", PP_CASES)
+def test_cuda_pp_matches_sequential(no_tf32, stages, layers):
+    """The pipeline on the card against the sequential model on the card
+    (the same tree through ``pipeline.sequential_params``), the CPU test's
+    bound: loss within 1e-6 relative, gradients within 1e-6."""
+    _need_cuda()
+    from repro_torch import tree as T
+    from repro_torch.models import model as M
+    from repro_torch.parallel import pipeline as PP
+
+    cfg, pcfg, params, toks = _pp_case(stages, layers)
+    loss, grads = PP.make_pp_loss(cfg, pcfg).value_and_grad(params, toks)
+    leaves = T.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    ref, _ = M.loss_fn(PP.sequential_params(params, cfg), cfg,
+                       {"tokens": toks}, remat=False)
+    ref_g = torch.autograd.grad(ref, leaves, allow_unused=True)
+    ref_g = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, ref_g)]
+    assert abs(float(loss) - float(ref)) <= 1e-6 * abs(float(ref))
+    assert _pp_grads_gap(grads, ref_g) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_pp_flash_stages(no_tf32):
+    """flash=True on the card: the flash kernels launch inside the stages
+    (forward and the backward's recompute per layer slot and microbatch,
+    one backward each), loss and gradients within JAX's pp gate (1e-4,
+    1e-3) of the einsum pipeline, and two runs bit for bit equal."""
+    _need_cuda()
+    from repro_torch import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import pipeline as PP
+
+    cfg, pcfg, params, toks = _pp_case(2, 5, seq=128)
+    want_loss, want = PP.make_pp_loss(cfg, pcfg).value_and_grad(params, toks)
+    fwd, bwd = fa.cuda_flash_attention_fwd, fa.cuda_flash_attention_bwd
+    f0, b0 = fwd.launches, bwd.launches
+    pp = PP.make_pp_loss(cfg, pcfg, flash=True)
+    loss, grads = pp.value_and_grad(params, toks)
+    slots = 2 * PP.layers_per_stage(cfg, pcfg)[0]
+    assert fwd.launches - f0 == 2 * 4 * slots
+    assert bwd.launches - b0 == 4 * slots
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    assert _pp_grads_gap(grads, T.leaves(want)) < 1e-3
+    loss2, grads2 = pp.value_and_grad(params, toks)
+    assert float(loss2) == float(loss)
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(grads),
+                                                 T.leaves(grads2)))

@@ -52,7 +52,9 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.tree", "repro_torch.kernels.lowrank_mm",
               "repro_torch.core.mesh_compression",
               "repro_torch.launch.steps", "repro_torch.launch.mesh",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.dryrun",
+              "repro_torch.parallel.pipeline",
+              "repro_torch.parallel.inner_engine"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

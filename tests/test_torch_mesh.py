@@ -468,9 +468,14 @@ def test_driver_data_ranks_match_one_process(tmp_path):
 
 def test_driver_refusals_and_checkpoint_format(tmp_path):
     base = DRIVER + ["--data", "1"]
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # --inner pp is ported: it keeps JAX's refusals and the A.11b one
+    with pytest.raises(SystemExit, match="static round schedule"):
         TR.main(base + ["--devices", "2", "--clusters", "2", "--inner",
-                        "pp"])
+                        "pp", "--pp-stages", "1", "--adaptive"])
+    with pytest.raises(NotImplementedError, match="A.11b"):
+        TR.main(base + ["--devices", "2", "--clusters", "2", "--inner",
+                        "pp", "--pp-stages", "1", "--ckpt-dir",
+                        str(tmp_path)])
     with pytest.raises(NotImplementedError, match="A.11b"):
         TR.main(DRIVER[:-6] + ["--devices", "2", "--clusters", "1",
                                "--data", "1", "--model", "2"])

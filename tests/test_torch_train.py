@@ -187,10 +187,24 @@ def test_allreduce_and_compressed_ddp_match_jax():
 
 
 def test_pp_inner_engine_refused():
-    cfg = get_config("opt-1.3b").reduced()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        TT.run_diloco_training(cfg, TT.TrainConfig(inner_engine="pp"), 1,
+    """The pipeline-parallel engine refuses what the JAX package's refuses
+    (non-uniform stacks: gemma3-1b's global_every, non-dense families) and
+    trains a dense config: one round of the pp trainer on reduced
+    opt-1.3b."""
+    with pytest.raises(ValueError, match="uniform decoder"):
+        TT.run_diloco_training(get_config("gemma3-1b").reduced(),
+                               TT.TrainConfig(inner_engine="pp"), 1,
                                device="cpu")
+    moe = dataclasses.replace(get_config("opt-1.3b").reduced(), family="moe")
+    with pytest.raises(ValueError, match="uniform decoder"):
+        TT.run_diloco_training(moe, TT.TrainConfig(inner_engine="pp"), 1,
+                               device="cpu")
+    cfg = get_config("opt-1.3b").reduced()
+    res = TT.run_diloco_training(
+        cfg, TT.TrainConfig(inner_engine="pp", local_batch=4, seq_len=16,
+                            h_steps=1, compressor_kw=dict(rank=8)), 1,
+        device="cpu")
+    assert np.isfinite(res.losses + res.eval_losses).all()
 
 
 def test_quickstart_driver_on_cpu():
