@@ -16,8 +16,8 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    gradient all-reduce every step). Prints rank 0's round, inner and
    outer seconds and the bytes it handed to the all-gather.
 
-3. The pipeline-parallel driver (``--inner pp``, ``--pp`` on its own or
-   after 1 and 2 with ``--pp-also``), full opt-1.3b width, rank 64, H = 4,
+3. The pipeline-parallel driver (``--inner pp``; ``--pp``, in place of 1
+   and 2), full opt-1.3b width, rank 64, H = 4,
    2 microbatches of 2 rows of 512 tokens per cluster, 2 rounds:
    ``--clusters 1 --pp-stages 4`` and ``--clusters 2 --pp-stages 2`` on
    the four cards, one stage per rank, activations and their gradients
@@ -33,7 +33,7 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    round, inner and outer seconds, the f32 bytes each rank hands to the
    clusters group and every card's peak memory. The one-card reference
    of 2 clusters holds both clusters' states; at 24 layers that is ~70
-   GiB, so the 2 x 2 leg compares at ``--pp-equal-layers`` (12) and times
+   GiB, so the 2 x 2 leg compares at ``PP_EQUAL_LAYERS`` (12) and times
    the 24-layer ranks separately.
 
 ``--device cpu --smoke-only`` runs the same on CPU processes (gloo) at the
@@ -243,7 +243,7 @@ def pp_reference(train, device, argv, clusters, stages):
         if device == "cuda":
             torch.cuda.empty_cache()
     print(f"in-process on one card ({' '.join(argv[argv.index('--clusters'):argv.index('--pp-micro')])}"
-          f"{' --n-layers ' + argv[-1] if '--n-layers' in argv else ''}): "
+          f"{' --n-layers ' + argv[argv.index('--n-layers') + 1] if '--n-layers' in argv else ''}): "
           f"mean loss {summary['mean_loss']}, peak "
           f"{[round(b / 2**30, 2) for b in summary['peak_bytes']]} GiB",
           flush=True)
@@ -271,17 +271,20 @@ def pp_compare(ranks, ref, clusters, stages):
     return equal
 
 
-def pp_legs(train, device, cards, legs, smoke, tmp, equal_layers):
+PP_EQUAL_LAYERS = 12     # the depth whose 2-cluster reference fits a card
+
+
+def pp_legs(train, device, cards, legs, smoke, tmp):
     """Each leg (a cluster count; stages = cards / clusters): the ranks at
-    full depth, and for 2 clusters again at ``equal_layers``; then the
+    full depth, and for 2 clusters again at ``PP_EQUAL_LAYERS``; then the
     one-card references of the runs to compare, after every rank run, so
     that no reference holds the first card's memory while ranks run."""
     runs = []
     for clusters in legs:
         stages = cards // clusters
         full = pp_argv(device, cards, clusters, stages, smoke)
-        cut = (pp_argv(device, cards, clusters, stages, smoke, equal_layers)
-               if clusters > 1 and equal_layers else None)
+        cut = (pp_argv(device, cards, clusters, stages, smoke,
+                       PP_EQUAL_LAYERS) if clusters > 1 else None)
         got = pp_ranks(full, cards, tmp)
         if cut is not None:
             got = pp_ranks(cut, cards, tmp)
@@ -300,11 +303,7 @@ def main():
     ap.add_argument("--smoke-only", action="store_true",
                     help="the timing runs at the reduced size too")
     ap.add_argument("--pp", action="store_true",
-                    help="the pipeline-parallel leg only")
-    ap.add_argument("--pp-also", action="store_true",
-                    help="the pipeline-parallel leg after the others")
-    ap.add_argument("--pp-equal-layers", type=int, default=12,
-                    help="depth of the 2 clusters x 2 stages bitwise leg")
+                    help="the pipeline-parallel legs in place of the others")
     ap.add_argument("--pp-legs", default="1,2",
                     help="cluster counts of the pp legs (stages: cards / "
                          "clusters)")
@@ -330,12 +329,12 @@ def main():
         if args.cards % 2 == 0 and args.cards >= 4:
             timed(train, args.device, args.cards, args.cards // 2, 2,
                   args.smoke_only)
-    if args.pp or args.pp_also:
+    else:
         legs = [int(c) for c in args.pp_legs.split(",")
                 if args.cards % int(c) == 0]
         with tempfile.TemporaryDirectory() as tmp:
             equal = pp_legs(train, args.device, args.cards, legs,
-                            args.smoke_only, tmp, args.pp_equal_layers)
+                            args.smoke_only, tmp)
         if not equal:
             sys.exit("FAIL pp: the ranks differ from the in-process pipeline")
     print("MESH-MULTI-GPU-OK")

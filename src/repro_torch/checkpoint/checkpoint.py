@@ -18,8 +18,8 @@ OuterState`` (anchor, Nesterov state, pending deltas, EF buffers, warm
 starts). The pipeline-parallel engine's trees cross the same way:
 ``pp_params_from_flat`` and ``train_state_from_flat`` for
 ``repro.parallel.pipeline.init_pp_params``'s tree and a
-``DiLoCoTrainState``; ``stage_rows`` cuts one stage's rows out of a flat
-pp tree, what a process holding that stage keeps.
+``DiLoCoTrainState``; what a process holding one stage keeps of the
+latter is ``parallel.inner_engine.shard_train_state`` of it.
 Both packages keep the JAX layouts (``(d_in, d_out)`` weights, stacked
 units with a leading ``n``, cluster-stacked rows with a leading ``C``), so
 the bridge is a rename, not a transpose.
@@ -168,14 +168,3 @@ def train_state_from_flat(flat: Dict[str, np.ndarray], cfg, pcfg, device):
     return tree_from_flat(flat, IE.init_train_state(cfg, pcfg, None, "meta"),
                           device)
 
-
-def stage_rows(flat: Dict[str, np.ndarray], stage: int, *,
-               stage_dim: int = 0) -> Dict[str, np.ndarray]:
-    """Stage ``stage``'s rows (the stage dim kept, of size 1) of every
-    array of a flat pp tree that the placement rule splits by stage
-    (paths under ``stages`` or ``active``), the others as they are.
-    ``stage_dim`` is 1 for cluster-stacked trees."""
-    from repro_torch.parallel.pipeline import is_stage_path
-
-    return {k: (np.take(v, [stage], axis=stage_dim) if is_stage_path(k)
-                else v) for k, v in flat.items()}

@@ -57,10 +57,9 @@ def pp_inner_smoke(arch: str, *, n_stages: int = 8, n_micro: int = 8,
         meta = torch.device("meta")
         state = IE.init_train_state(cfg, pcfg, None, meta)
         specs = IE.state_shardings(state)
-        n_placed = len(T.leaves(specs))
-        n_leaves = len(T.leaves(state))
-        assert n_placed == n_leaves, (n_placed, n_leaves)
-        for (k, x), sp in zip(T.keystr_items(state), T.leaves(specs)):
+        assert list(specs) == [k for k, _ in T.keystr_items(state)]
+        for k, x in T.keystr_items(state):
+            sp = specs[k]
             assert len(sp) == x.dim(), (k, sp, tuple(x.shape))
             assert ("model" in sp) == PP.is_stage_path(k), (k, sp)
 
@@ -105,17 +104,13 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b", choices=ARCH_IDS)
-    ap.add_argument("--inner", default="gspmd", choices=["gspmd", "pp"],
-                    help="pp: the pipeline-parallel inner engine's shape "
-                         "check on the meta device; gspmd (lowering the "
-                         "mesh step) is not ported yet (ROADMAP A.12)")
+    ap.add_argument("--inner", default="pp", choices=["pp"],
+                    help="the pipeline-parallel inner engine's shape check "
+                         "on the meta device (the JAX dry-run's other "
+                         "modes are not ported yet, ROADMAP A.12)")
     ap.add_argument("--pp-stages", type=int, default=8)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    if args.inner != "pp":
-        raise NotImplementedError("the dry-run's XLA lowering, HLO "
-                                  "collective parsing and roofline are not "
-                                  "ported yet (ROADMAP A.12); use --inner pp")
     results = [pp_inner_smoke(args.arch, n_stages=args.pp_stages)]
     if args.out:
         with open(args.out, "w") as f:

@@ -350,12 +350,14 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
     over the model group, the data group's averaged), then the delayed
     outer round of ``core.diloco.diloco_round``, leaf by leaf and in
     place: the ``LowRankQuant`` roundtrip of last round's δ (the whole
-    leaf: a stage-split leaf's rows are first gathered over the model
-    group, as the JAX driver compresses the gathered pseudo-gradient), the
-    f32 mean over clusters (a sum over the clusters group, then / C), EF
-    against the applied mean, the new δ = (anchor − θ) + e with
-    ``active``'s pinned to zero (``inner_engine.extract_delta``), Nesterov
-    on the anchor, and every cluster's params restarting from it.
+    leaf, as the JAX driver compresses the gathered pseudo-gradient, once
+    per leaf on its owner stage, ``StageGroup.on_owner``: leaf j on stage
+    j mod n_stages, which gathers a stage-split leaf, compresses it and
+    scatters the reconstruction's rows), the f32 mean over clusters (a
+    sum over the clusters group, then / C), EF against the applied mean,
+    the new δ = (anchor − θ) + e with ``active``'s pinned to zero
+    (``inner_engine.delta_leaf``), Nesterov on the anchor, and every
+    cluster's params restarting from it.
 
     The state is ``launch.steps.OuterState``'s layout: cluster-stacked
     params, AdamW state, pending deltas, EF buffers and warm starts, the
@@ -364,7 +366,9 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
     summary of ``run``, with ``allreduce_bytes`` (the f32 bytes this rank
     hands to the clusters group per round) in place of the gathered
     bytes, and ``peak_bytes`` (each rank's peak device memory, on the
-    card)."""
+    card). The warm starts stay current on every stage (the owner
+    broadcasts them), so every rank's state is the in-process run's
+    rows."""
     import numpy as np
     import torch
 
@@ -417,30 +421,28 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
 
     @torch.no_grad()
     def outer_round(params, st, rank_r):
-        for (path, p), a, v, d, e, q in zip(
+        for j, ((path, p), a, v, d, e, q) in enumerate(zip(
                 T.keystr_items(params), T.leaves(st.anchor),
                 T.leaves(st.outer_opt.momentum), T.leaves(st.delta_pending),
-                T.leaves(st.error), T.leaves(st.q_state)):
-            split = PP.is_stage_path(path)
-            # comm leg: compress LAST round's pseudo-grads (one-step delay)
+                T.leaves(st.error), T.leaves(st.q_state))):
+            # comm leg: compress LAST round's pseudo-grads (one-step delay),
+            # the whole leaf once, on its owner stage
             hat_sum = None
             for c in range(CL):
-                whole = transport.gather_rows(d[c], 0) if split else d[c]
-                (hat,), (q_new,) = compressor.roundtrip([whole], [q[c]],
-                                                        rank_r)
-                q[c].copy_(q_new)
-                hat = hat.narrow(0, lo, hi - lo) if split else hat
+                def roundtrip(whole, c=c):
+                    (hat,), (q_new,) = compressor.roundtrip([whole], [q[c]],
+                                                            rank_r)
+                    q[c].copy_(q_new)
+                    return hat
+                hat = transport.on_owner(j, d[c], PP.is_stage_path(path),
+                                         roundtrip, shared=(q[c],))
                 hat_sum = hat if hat_sum is None else hat_sum + hat
             Delta = all_reduce_sum(hat_sum, cluster_group) / C
             del hat_sum
             # Alg. 2 error feedback: e = delta - Delta (the applied mean)
             torch.sub(d, Delta[None], out=e)
-            # next round's pending delta (extract_delta, leaf by leaf)
-            if path == "['active']":
-                d.zero_()
-            else:
-                torch.sub(a.float()[None], p.float(), out=d)
-                d.add_(e)
+            # next round's pending delta
+            IE.delta_leaf(path, a[None], p, e, out=d)
             # delayed outer Nesterov on the anchor; replicas restart there
             nesterov.update_leaf(Delta, v, a, lr=args.outer_lr,
                                  momentum=args.outer_momentum)

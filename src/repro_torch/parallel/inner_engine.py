@@ -8,9 +8,10 @@ The paper's 107B-over-1-Gbps result rests on Pipeline Parallelism inside
 each cluster (§2.2) with the Dual Optimizer and the one-step-delay overlap
 on top. The JAX package runs the stages on faked devices of one process
 (``unit_mesh``) or on a cluster-stacked mesh (``launch/train.py --inner
-pp``). Here the stages run in this process (``unit_mesh``: the in-process
-transport; the trainer) or one per rank (``pipeline.StageGroup``: the
-mesh driver), with the same schedule and the same bits.
+pp``). Here the stages run in this process (``pipeline.InProcess``, the
+counterpart of ``unit_mesh``: the trainer) or one per rank
+(``pipeline.StageGroup``: the mesh driver), with the same schedule and
+the same bits.
 
 State is a ``DiLoCoTrainState``: params, inner AdamW moments, outer
 Nesterov momentum and EF residual, placed by one rule
@@ -27,7 +28,7 @@ optimizer state are the given tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -54,12 +55,6 @@ class DiLoCoTrainState(NamedTuple):
 # placement + state construction
 # ---------------------------------------------------------------------------
 
-def unit_mesh(pcfg: PP.PipelineConfig) -> PP.InProcess:
-    """The single-cluster engine's placement: every stage in this process
-    (the JAX function's ("data", "model") mesh of faked devices, data 1)."""
-    return PP.InProcess(pcfg.n_stages)
-
-
 def init_train_state(cfg: ModelConfig, pcfg: PP.PipelineConfig,
                      generator=None, device=None) -> DiLoCoTrainState:
     """Round-0 state for one cluster (unstacked): moments, the outer
@@ -72,48 +67,47 @@ def init_train_state(cfg: ModelConfig, pcfg: PP.PipelineConfig,
                          params))
 
 
-def state_shardings(state: DiLoCoTrainState) -> DiLoCoTrainState:
-    """The placement of every leaf of one cluster's state
-    (``pipeline.Spec``): params and every param-shaped companion (AdamW m
-    and v, Nesterov momentum, EF residual) by ``pipeline.pp_param_specs``;
-    step counters replicated."""
-    spec = PP.pp_param_specs
-    step = PP.Spec()
-    return DiLoCoTrainState(
-        params=spec(state.params),
-        inner_opt=type(state.inner_opt)(step=step, m=spec(state.inner_opt.m),
-                                        v=spec(state.inner_opt.v)),
-        outer_opt=type(state.outer_opt)(
-            step=step, momentum=spec(state.outer_opt.momentum)),
-        error=spec(state.error))
+def state_shardings(state: DiLoCoTrainState) -> Dict[str, Tuple]:
+    """The placement of every leaf of one cluster's state, by keystr: the
+    params and every param-shaped companion (AdamW m and v, Nesterov
+    momentum, EF residual) by ``pipeline.pp_param_specs``, the step
+    counters replicated."""
+    return PP.pp_param_specs(state)
 
 
 def shard_train_state(state: DiLoCoTrainState, start: int,
                       stop: int) -> DiLoCoTrainState:
-    """The rows of stages ``[start, stop)`` of every leaf that
-    ``state_shardings`` splits by stage (copies), the rest as it is: the
-    state a process holding those stages keeps."""
-    specs = T.leaves(state_shardings(state))
-    out = []
-    for x, sp in zip(T.leaves(state), specs):
-        if "model" in sp:
-            x = x.narrow(sp.index("model"), start, stop - start).clone()
-        out.append(x)
-    return T.unflatten_like(state, out)
+    """Copies of the rows of stages ``[start, stop)`` of every leaf that
+    ``state_shardings`` splits by stage (``pipeline.stage_slice``), and of
+    the rest whole: the state a process holding those stages keeps."""
+    return T.tree_map(torch.clone, PP.stage_slice(state, start, stop))
 
 
 # ---------------------------------------------------------------------------
 # delta extraction (the outer-layer boundary)
 # ---------------------------------------------------------------------------
 
+def delta_leaf(path: str, anchor, params, error, out=None):
+    """One leaf of ``extract_delta``: δ = (θ_anchor − θ_local) + e in f32
+    (``core.diloco.pseudo_grad``'s arithmetic), into ``out`` when given
+    (``anchor`` may broadcast over stacked ``params``). The ``active``
+    mask is not trainable: its delta is pinned to exactly zero, so it
+    stays zero through compression and its outer momentum never moves."""
+    if out is None:
+        out = torch.empty(torch.broadcast_shapes(anchor.shape, params.shape),
+                          dtype=torch.float32, device=params.device)
+    if path == "['active']":
+        return out.zero_()
+    torch.sub(anchor.float(), params.float(), out=out)
+    return out.add_(error)
+
+
 def extract_delta(anchor, state: DiLoCoTrainState):
-    """Per-cluster pseudo-gradient δ = (θ_anchor − θ_local) + e, f32
-    (``core.diloco.pseudo_grad``). The ``active`` mask is not trainable:
-    its delta is pinned to exactly zero, so it stays zero through
-    compression and its outer momentum never moves."""
-    delta = dict(diloco.pseudo_grad(anchor, state.params, state.error))
-    delta["active"] = torch.zeros_like(delta["active"])
-    return delta
+    """Per-cluster pseudo-gradient, leaf by leaf (``delta_leaf``)."""
+    return T.unflatten_like(anchor, [
+        delta_leaf(k, a, p, e) for (k, a), p, e in zip(
+            T.keystr_items(anchor), T.leaves(state.params),
+            T.leaves(state.error))])
 
 
 def apply_delta(anchor, delta, error=None):
@@ -220,33 +214,33 @@ def make_pp_train_step(cfg: ModelConfig, pcfg: PP.PipelineConfig, *,
 def make_pp_one_cluster(cfg: ModelConfig, pcfg: PP.PipelineConfig, *,
                         inner_lr: float, h_steps: int, batch_fn: Callable,
                         flash: bool = False) -> Tuple[Callable, Callable]:
-    """Per-cluster H-step inner loops. ``batch_fn(c, i) -> tokens (B, S)``
-    for cluster ``c`` and inner step ``i`` (no round index: pp data is
-    round-invariant here; trainers fold the round into their own
-    batch_fn). Returns ``(one_cluster, one_cluster_h)``:
-      one_cluster(params, opt, c)      -> (params_H, opt', losses (H,))
-      one_cluster_h(params, opt, c, h) -> (params_H, opt', mean_loss)
+    """Per-cluster H-step inner loops, every stage in this process.
+    ``batch_fn(c, t, i) -> tokens (B, S)`` for cluster ``c``, round ``t``
+    and inner step ``i`` (the JAX function's data is round-invariant and
+    takes no ``t``). Returns ``(one_cluster, one_cluster_h)``:
+      one_cluster(params, opt, c, t)      -> (params_H, opt', losses (H,))
+      one_cluster_h(params, opt, c, t, h) -> (params_H, opt', mean_loss)
     the second running only the first ``h`` steps
     (``diloco.masked_local_steps``)."""
     train_step = make_pp_train_step(cfg, pcfg, inner_lr=inner_lr,
                                     flash=flash)
 
-    def step_body(carry, i, c):
+    def step_body(carry, i, c, t):
         params, opt = carry
-        params, opt, loss = train_step(params, opt, batch_fn(c, i))
+        params, opt, loss = train_step(params, opt, batch_fn(c, t, i))
         return (params, opt), loss.detach()
 
-    def one_cluster(params, opt, c):
+    def one_cluster(params, opt, c, t):
         carry, losses = (params, opt), []
         for i in range(h_steps):
-            carry, loss = step_body(carry, i, c)
-            losses.append(loss.float().cpu())
-        return carry[0], carry[1], torch.stack(losses)
+            carry, loss = step_body(carry, i, c, t)
+            losses.append(loss)
+        return carry[0], carry[1], torch.stack(losses).float().cpu()
 
-    def one_cluster_h(params, opt, c, h):
+    def one_cluster_h(params, opt, c, t, h):
         (params, opt), mean = diloco.masked_local_steps(
-            lambda carry, i: step_body(carry, i, c), (params, opt), h_steps,
-            h)
+            lambda carry, i: step_body(carry, i, c, t), (params, opt),
+            h_steps, h)
         return params, opt, mean
 
     return one_cluster, one_cluster_h
@@ -258,9 +252,9 @@ def make_pp_inner_fns(one_cluster: Callable, one_cluster_h: Callable,
     round_idx) -> (params_stacked, opt_stacked, aux)`` (and ``inner_fn_h``
     with a per-cluster step count vector) by unrolling over clusters, one
     after another, never batched: each cluster runs the same op sequence
-    a lone worker runs. The round index is ignored (round-invariant pp
-    data, see ``make_pp_one_cluster``). Each cluster starts from a copy of
-    ``params`` and updates its own rows of the stacked tensors."""
+    a lone worker runs. Each cluster starts from a copy of ``params`` and
+    updates its own rows of the stacked tensors; ``aux`` is the (C, H)
+    losses, or with ``inner_fn_h`` the (C,) per-cluster means."""
 
     def run(params, opt_stacked, call):
         params_s = diloco.stack_replicas(params, n_clusters)
@@ -276,10 +270,11 @@ def make_pp_inner_fns(one_cluster: Callable, one_cluster_h: Callable,
             v=opt_stacked.v), torch.stack(aux)
 
     def inner_fn(params, opt_stacked, t):
-        return run(params, opt_stacked, one_cluster)
+        return run(params, opt_stacked,
+                   lambda p, o, c: one_cluster(p, o, c, int(t)))
 
     def inner_fn_h(params, opt_stacked, t, h_vec):
         return run(params, opt_stacked,
-                   lambda p, o, c: one_cluster_h(p, o, c, h_vec[c]))
+                   lambda p, o, c: one_cluster_h(p, o, c, int(t), h_vec[c]))
 
     return inner_fn, inner_fn_h

@@ -114,52 +114,21 @@ def is_stage_path(path: str) -> bool:
     return "['stages']" in path or "['active']" in path
 
 
-class Spec:
-    """A leaf's placement: one mesh axis name (or None: not split) per
-    dim, as a ``jax.sharding.PartitionSpec`` spells it (a tree leaf, not a
-    sequence)."""
-
-    __slots__ = ("axes",)
-
-    def __init__(self, *axes):
-        self.axes = tuple(axes)
-
-    def __len__(self):
-        return len(self.axes)
-
-    def __iter__(self):
-        return iter(self.axes)
-
-    def __contains__(self, axis):
-        return axis in self.axes
-
-    def index(self, axis) -> int:
-        return self.axes.index(axis)
-
-    def __eq__(self, other):
-        return isinstance(other, Spec) and self.axes == other.axes
-
-    def __hash__(self):
-        return hash(self.axes)
-
-    def __repr__(self):
-        return f"Spec{self.axes}"
-
-
-def pp_param_specs(tree, *, cluster_stacked: bool = False):
-    """The placement rule, as the JAX package's PartitionSpecs: the stage
-    dim -> ``"model"``; everything else replicated within the cluster; a
-    leading cluster dim -> ``"clusters"``."""
+def pp_param_specs(tree, *, cluster_stacked: bool = False
+                   ) -> Dict[str, Tuple]:
+    """The placement rule, as the JAX package's PartitionSpecs: per leaf
+    (by keystr, in tree order) one mesh axis name or None per dim; the
+    stage dim -> ``"model"``, everything else replicated within the
+    cluster, a leading cluster dim -> ``"clusters"``."""
     lead = ("clusters",) if cluster_stacked else ()
 
     def spec(path, x):
         rest = x.dim() - len(lead)
         if is_stage_path(path):
-            return Spec(*lead, "model", *(None,) * (rest - 1))
-        return Spec(*lead, *(None,) * rest)
+            return (*lead, "model", *(None,) * (rest - 1))
+        return (*lead, *(None,) * rest)
 
-    return T.unflatten_like(tree, [spec(k, x)
-                                   for k, x in T.keystr_items(tree)])
+    return {k: spec(k, x) for k, x in T.keystr_items(tree)}
 
 
 def stage_slice(tree, start: int, stop: int):
@@ -248,9 +217,13 @@ class InProcess:
         """Every stage's scalar, in stage order (here: all of them)."""
         return parts
 
-    def gather_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """A stage-split leaf's rows of every stage (here: all of them)."""
-        return x
+    def on_owner(self, j: int, x: torch.Tensor, split: bool, fn,
+                 shared=()) -> torch.Tensor:
+        """``fn(whole leaf) -> whole result`` on leaf ``j``'s owner stage,
+        this process's rows of the result back (here every stage is in
+        process: ``x`` is the whole leaf and the result is returned as it
+        is; see ``StageGroup.on_owner``)."""
+        return fn(x)
 
     def share_loss(self, loss: Optional[torch.Tensor], like) -> torch.Tensor:
         return loss
@@ -313,13 +286,41 @@ class StageGroup:
         dist.all_gather(got, parts[0].contiguous(), group=self.group)
         return got
 
-    def gather_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def on_owner(self, j: int, x: torch.Tensor, split: bool, fn,
+                 shared=()) -> torch.Tensor:
+        """``fn(whole leaf) -> whole result`` once, on leaf ``j``'s owner
+        (stage ``j % n_stages``, so the leaves' work is spread round-robin
+        over the stages), and this rank's rows of the result back. A
+        stage-split leaf (``split``; ``x`` this rank's rows) is gathered
+        whole on the owner alone and the result's rows scattered back; a
+        replicated one (``x`` the same on every rank) is the owner's, and
+        the result is broadcast. ``fn`` may update the tensors in
+        ``shared`` in place on the owner; they are broadcast after it."""
         import torch.distributed as dist
 
+        n, own = self.n_stages, j % self.n_stages
+        src, mine = self._ranks[own], self.stages[0] == own
         x = x.contiguous()
-        got = [torch.empty_like(x) for _ in range(self.n_stages)]
-        dist.all_gather(got, x, group=self.group)
-        return torch.cat(got, dim)
+        if split:
+            whole = (x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+                     if mine else None)
+            dist.gather(x, list(whole.chunk(n)) if mine else None, dst=src,
+                        group=self.group)
+        else:
+            whole = x if mine else None
+        out = fn(whole) if mine else None
+        del whole
+        if split:
+            rows = torch.empty_like(x)
+            dist.scatter(rows, [r.contiguous() for r in out.chunk(n)]
+                         if mine else None, src=src, group=self.group)
+        else:
+            rows = out.contiguous() if mine else torch.empty_like(x)
+            dist.broadcast(rows, src, group=self.group)
+        for t in shared:
+            if t.numel():
+                dist.broadcast(t, src, group=self.group)
+        return rows
 
     def share_loss(self, loss: Optional[torch.Tensor], like) -> torch.Tensor:
         """The last stage's loss on every rank (the others add zero)."""

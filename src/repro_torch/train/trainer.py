@@ -103,22 +103,29 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x.to(device)
 
 
-def _cluster_loop(tcfg: TrainConfig, batch_fn: Callable, h_vec,
-                  train_step: Callable, prepare: Callable = lambda p: p):
-    """``inner_fn(params, inner_opt_stacked, round_idx)`` running
-    ``train_step(params, opt, tokens) -> (params, opt, loss)`` (in place)
-    H times for every cluster. Clusters run one after another (no vmap);
-    each starts from ``params`` (``prepare`` sees its rows first) and
-    updates its own row of the stacked tensors in place. Losses are (C,
-    H), or with ``h_vec`` (per-cluster step counts) the (C,) per-cluster
-    mean over the steps each cluster ran."""
+def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
+                  h_vec=None, *, batch_fn: Optional[Callable] = None):
+    """Returns ``inner_fn(params, inner_opt_stacked, round_idx) -> (stacked
+    params after the local AdamW steps of every cluster, inner state,
+    losses)``. Clusters run one after another (no vmap); each starts from
+    ``params`` and updates its own row of the stacked tensors in place.
+    Losses are (C, H), or with ``h_vec`` (per-cluster step counts) the (C,)
+    per-cluster mean over the steps each cluster ran. ``batch_fn(cluster,
+    round, step)`` gives token batches (default: the port's stream)."""
+    batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
     C, H = tcfg.n_clusters, tcfg.h_steps
 
     def step_body(carry, h, cluster_idx, round_idx):
         params, opt_state = carry
         dev = T.leaves(params)[0].device
         toks = _as_tensor(batch_fn(cluster_idx, round_idx, h), dev)
-        params, opt_state, loss = train_step(params, opt_state, toks)
+        with torch.enable_grad():
+            loss, _ = M.loss_fn(params, cfg, {"tokens": toks},
+                                flash=tcfg.flash_attention)
+            grads = torch.autograd.grad(loss, T.leaves(params))
+        grads = T.unflatten_like(params, list(grads))
+        params, opt_state = adamw.update(grads, opt_state, params,
+                                         lr=tcfg.inner_lr)
         return (params, opt_state), loss.detach()
 
     def inner_fn(params, inner_opt_stacked, round_idx):
@@ -126,7 +133,8 @@ def _cluster_loop(tcfg: TrainConfig, batch_fn: Callable, h_vec,
         params_s = diloco.stack_replicas(params, C)
         losses, steps = [], []
         for c in range(C):
-            p_c = prepare(diloco.take_row(params_s, c))
+            p_c = T.tree_map(lambda x: x.detach().requires_grad_(True),
+                             diloco.take_row(params_s, c))
             opt_c = adamw.AdamWState(step=inner_opt_stacked.step[c],
                                      m=diloco.take_row(inner_opt_stacked.m, c),
                                      v=diloco.take_row(inner_opt_stacked.v, c))
@@ -151,43 +159,27 @@ def _cluster_loop(tcfg: TrainConfig, batch_fn: Callable, h_vec,
     return inner_fn
 
 
-def make_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table,
-                  h_vec=None, *, batch_fn: Optional[Callable] = None):
-    """Returns ``inner_fn(params, inner_opt_stacked, round_idx) -> (stacked
-    params after the local AdamW steps of every cluster, inner state,
-    losses)`` (``_cluster_loop``) with the sequential model's loss.
-    ``batch_fn(cluster, round, step)`` gives token batches (default: the
-    port's stream)."""
-    batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
-
-    def train_step(params, opt_state, toks):
-        with torch.enable_grad():
-            loss, _ = M.loss_fn(params, cfg, {"tokens": toks},
-                                flash=tcfg.flash_attention)
-            grads = torch.autograd.grad(loss, T.leaves(params))
-        grads = T.unflatten_like(params, list(grads))
-        params, opt_state = adamw.update(grads, opt_state, params,
-                                         lr=tcfg.inner_lr)
-        return params, opt_state, loss
-
-    return _cluster_loop(tcfg, batch_fn, h_vec, train_step,
-                         prepare=lambda row: T.tree_map(
-                             lambda x: x.detach().requires_grad_(True), row))
-
-
 def make_pp_inner_fn(cfg: ModelConfig, tcfg: TrainConfig, data_table, pcfg,
-                     h_vec=None, *, batch_fn: Optional[Callable] = None):
+                     h_vec=None, *, batch_fn: Optional[Callable] = None,
+                     device=None):
     """Pipeline-parallel counterpart of ``make_inner_fn``: the same
-    (cluster, round, step) batches, every inner step through
-    ``parallel.inner_engine.make_pp_train_step`` (the GPipe loss, all
-    stages in this process) instead of the sequential loss, clusters
-    unrolled. Numerics against the sequential engine are tolerance-level,
-    not bitwise (``parallel.inner_engine``)."""
+    (cluster, round, step) batches, every inner step through the GPipe
+    loss with all stages in this process (``parallel.inner_engine.
+    make_pp_one_cluster``), clusters unrolled by ``make_pp_inner_fns``.
+    Numerics against the sequential engine are tolerance-level, not
+    bitwise (``parallel.inner_engine``)."""
     from repro_torch.parallel import inner_engine as IE
 
     batch_fn = batch_fn or default_batch_fn(tcfg, data_table)
-    return _cluster_loop(tcfg, batch_fn, h_vec, IE.make_pp_train_step(
-        cfg, pcfg, inner_lr=tcfg.inner_lr, flash=tcfg.flash_attention))
+    one, one_h = IE.make_pp_one_cluster(
+        cfg, pcfg, inner_lr=tcfg.inner_lr, h_steps=tcfg.h_steps,
+        batch_fn=lambda c, t, i: _as_tensor(batch_fn(c, t, i), device),
+        flash=tcfg.flash_attention)
+    inner_fn, inner_fn_h = IE.make_pp_inner_fns(one, one_h,
+                                                tcfg.n_clusters)
+    if h_vec is None:
+        return inner_fn
+    return lambda params, opt, t: inner_fn_h(params, opt, t, h_vec)
 
 
 def cluster_mean(stacked_tree):
@@ -352,7 +344,7 @@ def run_diloco_training(cfg: ModelConfig, tcfg: TrainConfig, n_rounds: int,
     h_vec = None if uniform else h_by
     if pp:
         inner_fn = make_pp_inner_fn(cfg, tcfg, data.table, pcfg, h_vec,
-                                    batch_fn=batch_fn)
+                                    batch_fn=batch_fn, device=device)
         pp_loss = PP.make_pp_loss(cfg, pcfg, flash=tcfg.flash_attention)
         eval_fn = lambda p: float(pp_loss(p, eval_batch["tokens"]))
     else:

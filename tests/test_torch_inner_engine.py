@@ -121,18 +121,22 @@ def test_state_placement_and_stage_rows():
     gen.manual_seed(0)
     st = IE.init_train_state(tcfg, pcfg, gen, CPU)
     specs = IE.state_shardings(st)
-    assert len(T.leaves(specs)) == len(T.leaves(st))
-    for (k, x), sp in zip(T.keystr_items(st), T.leaves(specs)):
-        assert len(sp) == x.dim(), k
-        assert ("model" in sp) == PP.is_stage_path(k), k
+    assert list(specs) == [k for k, _ in T.keystr_items(st)]
+    for k, x in T.keystr_items(st):
+        assert len(specs[k]) == x.dim(), k
+        assert ("model" in specs[k]) == PP.is_stage_path(k), k
     one = IE.shard_train_state(st, 1, 2)
     for (k, x), full in zip(T.keystr_items(one), T.leaves(st)):
         want = full.narrow(0, 1, 1) if PP.is_stage_path(k) else full
         assert torch.equal(x, want), k
-    flat = ckpt.stage_rows(ckpt.state_to_flat(st), 1)
-    assert list(flat) == list(ckpt.state_to_flat(one))
-    for k, v in ckpt.state_to_flat(one).items():
-        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+        assert x.data_ptr() != full.data_ptr(), k      # copies
+    # the stage's rows of a state read from the JAX package's flat layout
+    flat = ckpt.state_to_flat(st)
+    back = IE.shard_train_state(ckpt.train_state_from_flat(
+        flat, tcfg, pcfg, CPU), 1, 2)
+    for k, v in ckpt.state_to_flat(back).items():
+        want = flat[k][1:2] if PP.is_stage_path(k) else flat[k]
+        np.testing.assert_array_equal(v, want, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +178,9 @@ def test_pp_inner_fns_unroll_clusters():
     alone from the same params; ``inner_fn_h`` with h = H is ``inner_fn``
     and with h < H the first h steps."""
     tcfg, pcfg, params = _tiny()
-    one, one_h = IE.make_pp_one_cluster(tcfg, pcfg, inner_lr=1e-3,
-                                        h_steps=2, batch_fn=_batch_fn)
+    one, one_h = IE.make_pp_one_cluster(
+        tcfg, pcfg, inner_lr=1e-3, h_steps=2,
+        batch_fn=lambda c, t, i: _batch_fn(c + t, i))
     inner_fn, inner_fn_h = IE.make_pp_inner_fns(one, one_h, 2)
     opt_s = lambda: T.tree_map(lambda x: torch.stack([x, x.clone()]),
                                adamw.init(params))
@@ -183,10 +188,12 @@ def test_pp_inner_fns_unroll_clusters():
     assert tuple(losses.shape) == (2, 2) and o_s.step.tolist() == [2, 2]
     for c in range(2):
         p = T.tree_map(torch.clone, params)
-        p, _, lc = one(p, adamw.init(p), c)
+        p, _, lc = one(p, adamw.init(p), c, 0)
         assert torch.equal(lc, losses[c])
         for a, b in zip(T.leaves(p), T.leaves(p_s)):
             assert torch.equal(a, b[c])
+    _, _, later = inner_fn(params, opt_s(), 1)     # the round reaches
+    assert torch.equal(later[0], losses[1])          # batch_fn
     p_h, o_h, mean = inner_fn_h(params, opt_s(), 0, [2, 1])
     assert o_h.step.tolist() == [2, 1]
     assert float(mean[0]) == pytest.approx(float(losses[0].mean()))
@@ -389,10 +396,8 @@ def test_pp_driver_ranks_equal_in_process_bitwise(tmp_path, capfd):
             for key, arr in ref.items():
                 unstacked = key.startswith(UNSTACKED)
                 arr = arr if unstacked else arr[c:c + 1]
-                if "['q_state']" not in key:      # warm starts: whole leaf
-                    arr = ckpt.stage_rows({key: arr}, s,
-                                          stage_dim=0 if unstacked
-                                          else 1)[key]
+                if "['q_state']" not in key and PP.is_stage_path(key):
+                    arr = np.take(arr, [s], axis=0 if unstacked else 1)
                 np.testing.assert_array_equal(got[key], arr,
                                               err_msg=f"{r} {rank} {key}")
 
@@ -496,8 +501,10 @@ def test_dryrun_cli(capsys):
     out = capsys.readouterr().out
     assert "PP-INNER-SMOKE-OK arch=hundred-m stages=4" in out
     assert "DRYRUN SUMMARY ok=1 skipped=0 fail=0" in out
-    with pytest.raises(NotImplementedError, match="A.12"):
-        dryrun.main(["--arch", "hundred-m"])
+    dryrun.main(["--arch", "hundred-m", "--pp-stages", "4"])   # pp: default
+    assert "PP-INNER-SMOKE-OK arch=hundred-m" in capsys.readouterr().out
+    with pytest.raises(SystemExit):     # the other modes are not ported
+        dryrun.main(["--arch", "hundred-m", "--inner", "gspmd"])
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +525,7 @@ def test_pp_engine_differential_vs_scalar():
                                 .astype(np.int32))
 
     one, _ = IE.make_pp_one_cluster(tcfg, pcfg, inner_lr=LR, h_steps=3,
-                                    batch_fn=batch_fn)
+                                    batch_fn=lambda c, t, i: batch_fn(c, i))
 
     def ref_one(params, opt, c):
         losses = []
@@ -549,11 +556,11 @@ def test_pp_engine_differential_vs_scalar():
     p_rf, o_rf = clone(), adamw.init(params0)
     flat0 = ckpt.params_to_flat(params0)
     for r in range(3):
-        pA, oA, _ = one(pA, oA, r)
-        pB, oB, _ = one(pB, oB, r)
+        pA, oA, _ = one(pA, oA, r, 0)
+        pB, oB, _ = one(pB, oB, r, 0)
         for a, b in zip(T.leaves(pA), T.leaves(pB)):
             assert torch.equal(a, b), f"pp nondeterministic @r{r}"
-        p_pp, o_pp, l_pp = one(p_pp, o_pp, r)
+        p_pp, o_pp, l_pp = one(p_pp, o_pp, r, 0)
         p_rf, o_rf, l_rf = ref_one(p_rf, o_rf, r)
         fp, fr = ckpt.params_to_flat(p_pp), ckpt.params_to_flat(p_rf)
         d = max(float(np.abs(fp[k] - fr[k]).max()) for k in fr)
