@@ -111,6 +111,17 @@ continues:
         kernels' launches, the f32 bytes handed to the clusters group,
         peak memory at most 1.5 x the round state's bytes over what the
         phase starts with (``pp_driver``);
+     i. the mesh driver's tensor parallelism and FSDP placement:
+        ``launch/train.py`` on full opt-1.3b (24 layers) at ``--data 2
+        --model 2``, every shard of the cluster in one process on the card
+        (``run`` with no groups), as 4d otherwise: round 0 bitwise, the
+        round losses within ``TP_LOSS_RTOL`` of 4d's, ``lowrank_mm`` and
+        the int4 kernels launched as in 4d, the all-gather handed 4d's
+        bytes, each shard's stored blocks a quarter of a leaf wherever its
+        dims divide (``tp_driver``); then one sharded ``value_and_grad``
+        against the unsharded ``loss_fn`` per leaf (``TP_GRAD_RTOL`` of
+        the leaf's norm) and two runs of one sharded step bit for bit
+        (``tp_step_checks``); ms per step beside 4d's, peak memory;
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -1870,7 +1881,7 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
     if summary["gather_bytes"] != [gather] * args.rounds:
         _fail(f"mesh driver: all-gather handed {summary['gather_bytes']} B, "
               f"expected {gather} per round")
-    return launches
+    return launches, summary
 
 
 # phase 4e: the mesh driver on stablelm-12b (parallel residual, head dim
@@ -2307,6 +2318,249 @@ def pp_driver(dev=None, argv=PP_DRIVER_ARGS, cfg=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: tensor parallelism and FSDP placement in the mesh driver
+# ---------------------------------------------------------------------------
+
+TP_ARGS = ["--arch", "opt-1.3b", "--device", "cuda", "--devices", "4",
+           "--clusters", "1", "--data", "2", "--model", "2", "--rounds", "2",
+           "--h-steps", "4", "--global-batch", "4", "--seq-len", "512",
+           "--rank", str(RANK)]
+TP_LOSS_RTOL = 1e-6     # 4i's round losses against 4d's: 6.3e-8 measured
+TP_GRAD_RTOL = 1e-4     # a sharded leaf gradient against loss_fn's
+
+
+def tp_block_shares(cfg, shards, specs):
+    """Per shard, the f32 bytes of the blocks it keeps of one copy of the
+    params (the step's ``ShardGroup.parts``), and the weight matrices
+    (the embedding aside: its rule splits d_model alone) whose block is
+    not a quarter though both their dims divide by 2."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import tensor as TP
+
+    meta = M.init_params(cfg, device="meta")
+    per_shard, off = {}, []
+    for j, m in shards.shards:
+        total = 0
+        for key, x in _items(meta):
+            a, b, _ = TP.block_index(shards, specs[key], j, m)
+            blk = shards.parts(x, specs[key])[a][b]
+            total += 4 * blk.numel()
+            body = x.shape[1:] if key.startswith("['segments']") else x.shape
+            if (j, m) == (0, 0) and len(body) >= 2 and key != "['embed']" \
+                    and body[-1] % 2 == 0 and body[-2] % 2 == 0 \
+                    and 4 * blk.numel() != x.numel():
+                off.append(key)
+        per_shard[(j, m)] = total
+    return per_shard, off
+
+
+def tp_driver(mesh_summary, mesh_launches, dev=None, argv=TP_ARGS, cfg=None):
+    """Phase 4i: ``launch/train.py``'s ``run`` at ``--data 2 --model 2``,
+    every shard in this process, beside phase 4d's run of the same
+    cluster, data and seed."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as TP
+
+    args = train_lib._parse_args(argv)
+    train_lib._check_args(args)
+    cfg = cfg or mesh_config()
+    _phase("tp driver: repro_torch.launch.train.run, every shard in one "
+           "process: " + " ".join(argv))
+    dev = dev or torch.device("cuda")
+    shards = TP.ShardGroup(args.data, args.model)
+    specs = sh.param_placements(M.init_params(cfg, device="meta"),
+                                shards.mesh, cluster_stacked=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    initial = {k: v.cpu() for k, v in _items(M.init_params(cfg, gen, dev))}
+    n_params = sum(v.numel() for v in initial.values())
+    round0 = []
+
+    def on_round(r, params, opt, outer):
+        if r == 0:
+            anchor = dict(_items(outer.anchor))
+            round0.append(all(
+                torch.equal(anchor[k], initial[k].to(dev))
+                and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
+
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    lm.cuda_matmul.routes = dict.fromkeys(lm.ROUTES, 0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = train_lib.run(args, dev, clusters=[0], on_round=on_round)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    launches.update({f"lowrank_mm_{route}": n
+                     for route, n in lm.cuda_matmul.routes.items()})
+    peak = torch.cuda.max_memory_allocated()
+    print(out.getvalue(), end="")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(summary["mean_loss"],
+                                                mesh_summary["mean_loss"])]
+    for r in range(args.rounds):
+        print(f"round {r}: mean loss {summary['mean_loss'][r]:.6f} (4d: "
+              f"{mesh_summary['mean_loss'][r]:.6f}, relative gap "
+              f"{gaps[r]:.3e}), inner {summary['inner_s'][r]:.3f} s "
+              f"({1e3 * summary['inner_s'][r] / args.h_steps:.1f} ms per "
+              f"step; 4d: "
+              f"{1e3 * mesh_summary['inner_s'][r] / args.h_steps:.1f}), "
+              f"outer {summary['outer_s'][r]:.3f} s (4d: "
+              f"{mesh_summary['outer_s'][r]:.3f}); all-gather handed "
+              f"{summary['gather_bytes'][r]} B (4d: "
+              f"{mesh_summary['gather_bytes'][r]})", flush=True)
+    per_shard, off = tp_block_shares(cfg, shards, specs)
+    whole = 4 * n_params
+    print(f"tp driver: {n_params} params, peak memory {peak / 2**30:.2f} GiB;"
+          f" one copy of the params {whole / 2**30:.3f} GiB, each shard's "
+          f"blocks " + ", ".join(f"{jm}: {b / 2**30:.3f} GiB ({b / whole:.4f})"
+                                 for jm, b in per_shard.items())
+          + f"; the round state (7 copies) a shard: "
+          f"{7 * max(per_shard.values()) / 2**30:.2f} GiB of "
+          f"{7 * whole / 2**30:.2f}; launches {launches} (4d: "
+          f"{mesh_launches}), round 0 params unchanged: {round0}", flush=True)
+    if "TRAIN-DRIVER-OK" not in out.getvalue():
+        _fail("tp driver: no TRAIN-DRIVER-OK")
+    if not all(map(math.isfinite, summary["mean_loss"])):
+        _fail(f"tp driver: non-finite losses {summary['mean_loss']}")
+    if round0 != [True]:
+        _fail("tp driver: round 0 changed the params (Delta must be 0)")
+    if max(gaps) > TP_LOSS_RTOL:
+        _fail(f"tp driver: losses {max(gaps):.3e} from 4d's, over "
+              f"{TP_LOSS_RTOL}")
+    if launches != mesh_launches:
+        _fail(f"tp driver: launches {launches}, 4d's {mesh_launches}")
+    if summary["gather_bytes"] != mesh_summary["gather_bytes"]:
+        _fail(f"tp driver: all-gather handed {summary['gather_bytes']} B, "
+              f"4d's {mesh_summary['gather_bytes']}")
+    if off:
+        _fail(f"tp driver: blocks not a quarter of their leaf: {off}")
+    return launches
+
+
+def _digest(tree):
+    """{leaf: exact integer digest of its bits} (+0.0 for -0.0), summed
+    on the device."""
+    out = {}
+    for key, x in _items(tree):
+        x = x.contiguous().reshape(-1)
+        if x.dtype.is_floating_point:
+            x = (x.float() + 0.0).view(torch.int32)
+        total = 0
+        for i in range(0, x.numel(), 1 << 26):
+            v = x[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + v.numel(), device=v.device) % 1000003 + 1
+            total += int((v * w).sum())
+        out[key] = total
+    return out
+
+
+def tp_step_checks(dev=None, argv=TP_ARGS, cfg=None):
+    """Phase 4i, continued: one sharded ``value_and_grad`` (every shard in
+    this process) against the unsharded ``loss_fn`` on the same params
+    and tokens, leaf by leaf; then two runs of one sharded AdamW step from
+    the same state, bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.core import diloco
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as TP
+
+    args = train_lib._parse_args(argv)
+    cfg = cfg or mesh_config()
+    dev = dev or torch.device("cuda")
+    _phase(f"tp step: sharded value_and_grad against loss_fn, and one step "
+           f"twice ({args.data} x {args.model} shards, {cfg.n_layers} "
+           f"layers)")
+    shards = TP.ShardGroup(args.data, args.model)
+    specs = sh.param_placements(M.init_params(cfg, device="meta"),
+                                shards.mesh, cluster_stacked=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (args.global_batch, args.seq_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen, dev)
+    p = T.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss_u, _ = M.loss_fn(p, cfg, {"tokens": toks})
+    g_u = torch.autograd.grad(loss_u, T.leaves(p))
+    loss_u = loss_u.detach()
+    del p
+    loss_fn = TP.TPLoss(cfg, shards, specs)
+    parts = {k: shards.parts(x, specs[k]) for k, x in _items(params)}
+    n = args.global_batch // shards.D
+    loss_s, g_s = loss_fn.value_and_grad(
+        parts, [toks[j * n:(j + 1) * n] for j in range(shards.D)])
+    it = iter(g_s)
+    rel = {}
+    for (key, x), gu in zip(_items(params), g_u):
+        diff = 0.0
+        for a, row in enumerate(parts[key]):
+            for b in range(len(row)):
+                blk = sh.block_slices(x.shape, specs[key], shards.mesh,
+                                      {"data": a, "model": b})
+                diff += float(torch.sum(torch.square(
+                    next(it).double() - gu[blk].double())))
+        rel[key] = math.sqrt(diff) / max(float(gu.double().norm()), 1e-30)
+    del g_s, g_u
+    rel_loss = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+    worst = max(rel, key=rel.get)
+    print(f"tp step: loss {float(loss_s):.8f} sharded, {float(loss_u):.8f} "
+          f"loss_fn (relative gap {rel_loss:.3e}); worst leaf gradient "
+          f"{worst} {rel[worst]:.3e} of its norm (gate {TP_GRAD_RTOL})",
+          flush=True)
+    del params, parts
+
+    def one_step():
+        gen.manual_seed(0)
+        params = diloco.stack_replicas(M.init_params(cfg, gen, dev), 1)
+        opt = steps.init_inner_state(params)
+        step = steps.make_train_step(cfg, inner_lr=args.inner_lr,
+                                     shards=shards)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, {"tokens": toks[None]})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return _digest({"params": params, "opt": opt}), float(loss), ms
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = one_step()
+    gc.collect()
+    torch.cuda.empty_cache()
+    second = one_step()
+    same = [k for k in first[0] if first[0][k] != second[0][k]]
+    print(f"tp step: two runs of one sharded step: losses {first[1]!r}, "
+          f"{second[1]!r}; {first[2]:.1f}, {second[2]:.1f} ms; leaves "
+          f"that differ: {len(same)}", flush=True)
+    if not math.isfinite(rel_loss) or rel_loss > TP_GRAD_RTOL:
+        _fail(f"tp step: sharded loss {float(loss_s)} against loss_fn's "
+              f"{float(loss_u)}")
+    if rel[worst] > TP_GRAD_RTOL:
+        _fail(f"tp step: gradient of {worst} {rel[worst]:.3e} from "
+              f"loss_fn's, over {TP_GRAD_RTOL}")
+    if same or first[1] != second[1]:
+        _fail(f"tp step: two runs of one step differ in {same[:4]}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -2467,16 +2721,20 @@ def main():
     torch.cuda.empty_cache()
     gqa_model()
     torch.cuda.empty_cache()
-    mesh_launches = mesh_driver()
+    mesh_launches, mesh_summary = mesh_driver()
     torch.cuda.empty_cache()
     mesh_launches_stablelm = mesh_driver(argv=MESH_ARGS_STABLELM,
-                                         cfg=stablelm_mesh_config())
+                                         cfg=stablelm_mesh_config())[0]
     torch.cuda.empty_cache()
     cocktail_ddp()
     torch.cuda.empty_cache()
     pp_train_launches = train_pp(flash_run)[0]
     torch.cuda.empty_cache()
     pp_driver_launches = pp_driver()
+    torch.cuda.empty_cache()
+    tp_launches = tp_driver(mesh_summary, mesh_launches)
+    torch.cuda.empty_cache()
+    tp_step_checks()
     torch.cuda.empty_cache()
     launches = serve()
     launches_stablelm = serve("stablelm-12b")
@@ -2506,6 +2764,7 @@ def main():
         # the pipeline-parallel trainer's (phase 4g) and driver's (4h)
         row["launches_pp_trainer"] = pp_train_launches[row["name"]]
         row["launches_pp_driver"] = pp_driver_launches[row["name"]]
+        row["launches_tp_driver"] = tp_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -2521,6 +2780,7 @@ def main():
         kernels.append(dict(row, launches=flash_run[0][name],
                             launches_pp_trainer=pp_train_launches[name]))
     kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
+                        launches_tp_driver=tp_launches["lowrank_mm"],
                         launches_by_path={
                             route: mesh_launches[f"lowrank_mm_{route}"]
                             for route in ("split", "rank", "general")},

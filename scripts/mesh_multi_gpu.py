@@ -36,6 +36,18 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    GiB, so the 2 x 2 leg compares at ``PP_EQUAL_LAYERS`` (12) and times
    the 24-layer ranks separately.
 
+4. Tensor parallelism and FSDP placement (``--tp``, in place of 1 and 2),
+   full opt-1.3b width, rank 64, H = 4, 4 rows of 512 tokens per cluster,
+   2 rounds, at (clusters x data x model) 1 x 1 x 4, 1 x 2 x 2 and
+   2 x 1 x 2 on the four cards (``--tp-legs``): each rank keeps its
+   blocks of every leaf and the cluster's shards compute each step
+   together (``parallel/tensor.py``). Each rank's digests are compared
+   with its blocks of the in-process run on one card (every cluster and
+   shard in one process), as the pp legs are; 2 clusters compare at
+   ``PP_EQUAL_LAYERS`` and time the 24-layer ranks separately. Prints
+   each round's seconds, the bytes each cluster hands to the all-gather
+   (summed over its ranks) and every card's peak memory.
+
 ``--device cpu --smoke-only`` runs the same on CPU processes (gloo) at the
 reduced size, to rehearse. Needs ``--cards`` GPUs otherwise.
 """
@@ -115,18 +127,25 @@ def timed(train, device, cards, clusters, data, smoke):
               f"{s['gather_bytes'][r]} B to the all-gather", flush=True)
 
 
-def state_digests(params, opt, outer, clusters=None, stage=None):
+_PARAM_TREES = ("['params']", "['opt'].m", "['opt'].v",
+                "['outer']['anchor']", "['outer']['outer_opt'].momentum",
+                "['outer']['delta_pending']", "['outer']['error']")
+
+
+def state_digests(params, opt, outer, clusters=None, stage=None, block=None):
     """{leaf path: exact digest} of a driver's round state (the layout of
     ``--state-out``): each leaf's f32/int32 bits (+0.0 for -0.0) as int64,
     weighted by position and summed in integer arithmetic on the device,
     so equal digests mean equal bits up to the sign of zero (what
     ``np.array_equal`` compares). With ``clusters``/``stage``: the rows of
     one cluster and one stage of an in-process state, as that rank holds
-    them."""
+    them; with ``block`` = (placements, mesh, coords): the block of each
+    param-shaped leaf that a tensor-parallel rank holds."""
     import torch
 
     from repro_torch import tree as T
     from repro_torch.parallel.pipeline import is_stage_path
+    from repro_torch.parallel.sharding import block_slices
 
     out = {}
     tree = {"params": params, "opt": opt, "outer": outer._asdict()}
@@ -138,6 +157,12 @@ def state_digests(params, opt, outer, clusters=None, stage=None):
         if stage is not None and is_stage_path(key) \
                 and "['q_state']" not in key:
             x = x.narrow(0 if unstacked else 1, stage, 1)
+        pre = [p for p in _PARAM_TREES if key.startswith(p)]
+        if block is not None and pre:
+            specs, mesh, coords = block
+            lead = () if unstacked else (None,)
+            x = x[block_slices(x.shape, lead + specs[key[len(pre[0]):]],
+                               mesh, coords)]
         x = x.contiguous().reshape(-1)
         if x.dtype.is_floating_point:
             x = (x.float() + 0.0).view(torch.int32)
@@ -150,8 +175,8 @@ def state_digests(params, opt, outer, clusters=None, stage=None):
     return out
 
 
-def _pp_rank(rank, argv, store_path, out_dir, stuck_s):
-    """One spawned rank of the pp leg: the driver's worker, with each
+def _rank(rank, argv, store_path, out_dir, stuck_s):
+    """One spawned rank of a pp or tp leg: the driver's worker, with each
     round's state digests written to ``out_dir``. A rank still running
     after ``stuck_s`` seconds prints every thread's Python stack and
     exits, which stops the others."""
@@ -191,7 +216,7 @@ def pp_argv(device, cards, clusters, stages, smoke, n_layers=0):
     return argv
 
 
-def pp_ranks(argv, cards, tmp, stuck_s=420):
+def rank_runs(argv, cards, tmp, stuck_s=420):
     """The driver's ranks, spawned here so that each writes its digests."""
     import torch.multiprocessing as mp
 
@@ -199,7 +224,7 @@ def pp_ranks(argv, cards, tmp, stuck_s=420):
     store = os.path.join(out, "store")
     print("== ranks: python -m repro_torch.launch.train " + " ".join(argv),
           flush=True)
-    mp.start_processes(_pp_rank, args=(argv, store, out, stuck_s),
+    mp.start_processes(_rank, args=(argv, store, out, stuck_s),
                        nprocs=cards, start_method="spawn", join=True)
     got = []
     for rank in range(cards):
@@ -207,21 +232,23 @@ def pp_ranks(argv, cards, tmp, stuck_s=420):
             got.append(json.load(f))
     s = got[0]["summary"]
     for r in range(len(s["round_s"])):
+        wire = (f"rank 0 hands {s['allreduce_bytes'][r]} B of f32 to the "
+                f"clusters group" if "allreduce_bytes" in s else
+                f"cluster 0 hands {s['gather_bytes'][r]} B to the all-gather")
         print(f"round {r}: mean loss {s['mean_loss'][r]:.6f}, round "
               f"{s['round_s'][r]:.3f} s, inner {s['inner_s'][r]:.3f} s "
               f"({1e3 * s['inner_s'][r] / 4:.1f} ms per step), outer "
-              f"{s['outer_s'][r]:.3f} s; rank 0 hands "
-              f"{s['allreduce_bytes'][r]} B of f32 to the clusters group",
-              flush=True)
+              f"{s['outer_s'][r]:.3f} s; {wire}", flush=True)
     peaks = s.get("peak_bytes") or []
     print(f"peak memory per card: "
           f"{[round(b / 2**30, 2) for b in peaks]} GiB", flush=True)
     return got
 
 
-def pp_reference(train, device, argv, clusters, stages):
-    """The in-process pipeline (every stage and cluster in this process,
-    one card): per round, each (cluster, stage)'s digests; its device
+def reference(train, device, argv, views):
+    """The in-process run (every stage, shard and cluster in this process,
+    one card): per round, each rank's digests of its view of the state
+    (``views``: one ``state_digests`` keyword dict per rank); its device
     memory is released afterwards for the next ranks."""
     import torch
 
@@ -230,19 +257,16 @@ def pp_reference(train, device, argv, clusters, stages):
     threads = torch.get_num_threads()
     if device == "cpu":
         torch.set_num_threads(1)
+    args = train._parse_args(argv)
     try:
-        summary = train.run(train._parse_args(argv), dev,
-                            clusters=list(range(clusters)),
+        summary = train.run(args, dev, clusters=list(range(args.clusters)),
                             on_round=lambda r, *st: want.append(
-                                {(c, s): state_digests(*st, clusters=c,
-                                                       stage=s)
-                                 for c in range(clusters)
-                                 for s in range(stages)}))
+                                [state_digests(*st, **v) for v in views]))
     finally:
         torch.set_num_threads(threads)
         if device == "cuda":
             torch.cuda.empty_cache()
-    print(f"in-process on one card ({' '.join(argv[argv.index('--clusters'):argv.index('--pp-micro')])}"
+    print(f"in-process on one card ({' '.join(argv[argv.index('--clusters'):argv.index('--rounds')])}"
           f"{' --n-layers ' + argv[argv.index('--n-layers') + 1] if '--n-layers' in argv else ''}): "
           f"mean loss {summary['mean_loss']}, peak "
           f"{[round(b / 2**30, 2) for b in summary['peak_bytes']]} GiB",
@@ -250,23 +274,21 @@ def pp_reference(train, device, argv, clusters, stages):
     return summary, want
 
 
-def pp_compare(ranks, ref, clusters, stages):
-    """Whether every rank's digests equal its rows of the reference."""
+def compare(ranks, ref, label):
+    """Whether every rank's digests equal its view of the reference."""
     summary, want = ref
     equal = ranks[0]["summary"]["mean_loss"] == summary["mean_loss"]
     for r, digests in enumerate(want):
         bad = []
         for rank, got in enumerate(ranks):
-            c, s = divmod(rank, stages)
             got = got["digests"][r]
-            bad += [f"rank {rank} {k}" for k, v in digests[(c, s)].items()
+            bad += [f"rank {rank} {k}" for k, v in digests[rank].items()
                     if got.get(k) != v]
-            if sorted(got) != sorted(digests[(c, s)]):
+            if sorted(got) != sorted(digests[rank]):
                 bad.append(f"rank {rank}: other leaves")
-        print(f"round {r}: {clusters} clusters x {stages} stages, ranks bit "
-              f"for bit the in-process pipeline: {not bad} "
-              f"({len(bad)} leaves differ{': ' + ', '.join(bad[:4]) if bad else ''})",
-              flush=True)
+        print(f"round {r}: {label}, ranks bit for bit the in-process run: "
+              f"{not bad} ({len(bad)} leaves differ"
+              f"{': ' + ', '.join(bad[:4]) if bad else ''})", flush=True)
         equal &= not bad
     return equal
 
@@ -285,15 +307,68 @@ def pp_legs(train, device, cards, legs, smoke, tmp):
         full = pp_argv(device, cards, clusters, stages, smoke)
         cut = (pp_argv(device, cards, clusters, stages, smoke,
                        PP_EQUAL_LAYERS) if clusters > 1 else None)
-        got = pp_ranks(full, cards, tmp)
+        got = rank_runs(full, cards, tmp)
         if cut is not None:
-            got = pp_ranks(cut, cards, tmp)
-        runs.append((cut or full, got, clusters, stages))
-    equal = True
-    for argv, got, clusters, stages in runs:
-        equal &= pp_compare(got, pp_reference(train, device, argv, clusters,
-                                              stages), clusters, stages)
-    return equal
+            got = rank_runs(cut, cards, tmp)
+        views = [dict(clusters=c, stage=s) for c in range(clusters)
+                 for s in range(stages)]
+        runs.append((cut or full, got, views,
+                     f"{clusters} clusters x {stages} stages"))
+    return all([compare(got, reference(train, device, argv, views), label)
+                for argv, got, views, label in runs])
+
+
+def tp_argv(device, cards, clusters, data, model, smoke, n_layers=0):
+    argv = ["--arch", "opt-1.3b", "--device", device, "--devices",
+            str(cards), "--clusters", str(clusters), "--data", str(data),
+            "--model", str(model), "--rounds", "2", "--h-steps", "4",
+            "--global-batch", str(4 * clusters), "--seq-len",
+            "32" if smoke else "512", "--rank", "64", "--join-timeout", "900"]
+    if smoke:
+        argv.append("--smoke")
+    if n_layers:
+        argv += ["--n-layers", str(n_layers)]
+    if device == "cpu":
+        argv += ["--cpu-threads", "1"]
+    return argv
+
+
+def tp_legs(train, device, cards, legs, smoke, tmp):
+    """Each leg (clusters, data, model): the ranks at full depth, and with
+    2 clusters again at ``PP_EQUAL_LAYERS``; then the one-card references,
+    after every rank run. A rank's view of the reference is its cluster's
+    row and its blocks (``parallel.sharding.param_placements``)."""
+    from repro_torch.parallel import sharding as sh
+
+    from repro_torch.parallel.tensor import check_tp
+
+    runs = []
+    for clusters, data, model in legs:
+        full = tp_argv(device, cards, clusters, data, model, smoke)
+        if smoke and model > 2:     # the reduced configs have 2 KV heads
+            try:
+                check_tp(train._model_config(train._parse_args(full)), model)
+            except ValueError as err:
+                print(f"skipped at the reduced size: {err}", flush=True)
+                continue
+        cut = (tp_argv(device, cards, clusters, data, model, smoke,
+                       PP_EQUAL_LAYERS) if clusters > 1 else None)
+        got = rank_runs(full, cards, tmp)
+        if cut is not None:
+            got = rank_runs(cut, cards, tmp)
+        cfg = train._model_config(train._parse_args(cut or full))
+        from repro_torch.models import model as M
+
+        mesh = {"data": data, "model": model}
+        specs = sh.param_placements(M.init_params(cfg, device="meta"), mesh,
+                                    cluster_stacked=False)
+        views = [dict(clusters=r // (data * model), block=(
+            specs, mesh, {"data": r // model % data, "model": r % model}))
+            for r in range(cards)]
+        runs.append((cut or full, got, views,
+                     f"{clusters} x {data} x {model}"))
+    return all([compare(got, reference(train, device, argv, views), label)
+                for argv, got, views, label in runs])
 
 
 def main():
@@ -307,6 +382,10 @@ def main():
     ap.add_argument("--pp-legs", default="1,2",
                     help="cluster counts of the pp legs (stages: cards / "
                          "clusters)")
+    ap.add_argument("--tp", action="store_true",
+                    help="the tensor-parallel legs in place of the others")
+    ap.add_argument("--tp-legs", default="1x1x4,1x2x2,2x1x2",
+                    help="clusters x data x model of each tp leg")
     args = ap.parse_args()
     if args.device == "cuda":
         if torch.cuda.device_count() < args.cards:
@@ -322,7 +401,16 @@ def main():
         __file__)), "..", "src"))
     from repro_torch.launch import train
 
-    if not args.pp:
+    if args.tp:
+        legs = [tuple(int(n) for n in leg.split("x"))
+                for leg in args.tp_legs.split(",")]
+        legs = [leg for leg in legs if leg[0] * leg[1] * leg[2] == args.cards]
+        with tempfile.TemporaryDirectory() as tmp:
+            equal = tp_legs(train, args.device, args.cards, legs,
+                            args.smoke_only, tmp)
+        if not equal:
+            sys.exit("FAIL tp: the ranks differ from the in-process run")
+    elif not args.pp:
         with tempfile.TemporaryDirectory() as tmp:
             equivalence(train, args.device, tmp)
         timed(train, args.device, args.cards, args.cards, 1, args.smoke_only)

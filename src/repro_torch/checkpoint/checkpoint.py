@@ -6,7 +6,9 @@ arrays keyed by the tree path string that ``jax.tree_util.keystr`` gives
 (``"['segments'][0]['attn']['wq']"``: dict keys sorted, list indices in
 brackets, NamedTuple fields as ``.field``) and a ``.json`` manifest (step,
 n_arrays, meta). The port builds these strings itself
-(``repro_torch.tree.keystr_items``).
+(``repro_torch.tree.keystr_items``), and writes the arrays one at a time
+(``save_items``), so a writer fed leaf by leaf never holds the whole tree;
+its zip entries carry a fixed date, so the same arrays give the same bytes.
 
 The bridge maps the JAX package's trees, as numpy arrays, 1:1 onto the
 port's tensors: ``params_from_flat`` / ``params_to_flat`` for the
@@ -28,7 +30,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+import zipfile
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,14 +52,29 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in keystr_items(tree)}
 
 
-def save(path: str, tree, *, step: int = 0, meta: Optional[dict] = None):
+def save_items(path: str, items: Iterable[Tuple[str, np.ndarray]], *,
+               step: int = 0, meta: Optional[dict] = None) -> None:
+    """Writes ``(keystr, array)`` pairs as they come into ``path.npz`` (the
+    layout ``np.savez`` writes) and the manifest into ``path.json``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = _flatten(tree)
-    np.savez(path + ".npz", **arrays)
-    manifest = {"step": int(step), "n_arrays": len(arrays),
-                "meta": meta or {}}
+    n = 0
+    with zipfile.ZipFile(path + ".npz", "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in items:
+            info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0, 0,
+                                                            0))
+            with zf.open(info, "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr),
+                                          allow_pickle=False)
+            n += 1
+    manifest = {"step": int(step), "n_arrays": n, "meta": meta or {}}
     with open(path + ".json", "w") as f:
         json.dump(manifest, f)
+
+
+def save(path: str, tree, *, step: int = 0, meta: Optional[dict] = None):
+    save_items(path, ((k, _to_numpy(v)) for k, v in keystr_items(tree)),
+               step=step, meta=meta)
 
 
 def tree_from_flat(flat: Dict[str, np.ndarray], tree_like, device=None,

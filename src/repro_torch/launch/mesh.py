@@ -7,9 +7,10 @@ group out as ("clusters", "data", "model"), row-major, with
 "clusters" group share a data index and meet only in the outer step (the
 slow links), the ranks of one "data" group share a cluster. Under the
 pipeline-parallel engine (``launch/train.py --inner pp``) the "model"
-axis holds a cluster's stages, one rank each. The production and serving
-meshes (a pod axis, the serving flattening) wait for tensor parallelism
-and multi-card serving (ROADMAP A.11b).
+axis holds a cluster's stages, one rank each; under the gspmd engine
+it holds a cluster's tensor-parallel shards (``parallel/tensor.py``). The
+production and serving meshes (a pod axis, the serving flattening) wait
+for multi-card serving (ROADMAP A.11c).
 """
 from __future__ import annotations
 

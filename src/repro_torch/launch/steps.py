@@ -6,8 +6,11 @@ that axis may hold several clusters (the stacked layout of the JAX
 package); across processes each rank holds its own clusters' rows and
 the clusters meet only in the outer step, whose one collective moves the
 packed int4 payload (``core.mesh_compression``). Within a cluster the
-weights are replicated over the data group, whose ranks each take a
-slice of the cluster's batch and average their gradients.
+(data, model) shards of ``parallel.tensor.ShardGroup`` hold blocks of
+every leaf (``parallel.sharding``): each data shard takes a slice of the
+cluster's batch, the model shards split each layer, and AdamW, the error
+feedback and Nesterov run on the blocks. With one shard a cluster is
+whole and unsharded.
 
 The JAX functions return new trees; these update the params, the
 optimizer states and the outer state in place (at opt-1.3b every copy of
@@ -46,38 +49,40 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
-                    per_cluster_h: bool = False, data_group=None,
+                    per_cluster_h: bool = False, shards=None,
                     cluster_group=None):
     """``(params_stacked, opt_stacked, batch_stacked) -> (params', opt',
     loss)``: one inner AdamW step per local cluster, no cross-cluster
     collective. Clusters run one after another (the JAX package vmaps;
     a batched product sums in another order, ROADMAP A.6).
 
-    With a ``data_group`` each rank holds a slice of its cluster's batch:
-    the gradients are averaged over the group before AdamW, so the clip
-    sees the full-batch gradient, as under GSPMD. The returned loss is
-    the mean over all clusters (local ones, and those of the
-    ``cluster_group``) of each cluster's full-batch loss.
+    With ``shards`` (a ``parallel.tensor.ShardGroup`` of more than one
+    shard) the params and AdamW state are blocks placed by
+    ``parallel.sharding.param_placements``: whole tensors whose blocks are
+    views with every shard in this process, this rank's blocks otherwise.
+    Each data shard takes its slice of the cluster's batch (in process:
+    ``batch_stacked`` holds the whole batch), the loss and gradients come
+    from ``parallel.tensor.TPLoss`` and the clip from
+    ``parallel.tensor.clip_``, both summing across shards in a fixed
+    order. The returned loss is the mean over all clusters (local ones,
+    and those of the ``cluster_group``) of each cluster's full-batch loss.
 
     ``per_cluster_h=True`` returns ``(params, opt, batch, active) ->
     (params', opt', loss)``: ``active`` is a (C_local,) bool mask;
     inactive clusters' params and optimizer state are left untouched and
     the loss is the mean over active clusters only."""
-    n_data = _group_size(data_group)
-
-    def one_cluster(params_row, opt_row, tokens):
-        p = T.tree_map(lambda x: x.detach().requires_grad_(True), params_row)
-        with torch.enable_grad():
-            loss, _ = M.loss_fn(p, cfg, {"tokens": tokens})
-            grads = list(torch.autograd.grad(loss, T.leaves(p)))
-        loss = loss.detach().float()
-        if n_data > 1:
-            for g in grads:
-                all_reduce_sum(g, data_group).div_(n_data)
-            loss = all_reduce_sum(loss.clone(), data_group) / n_data
-        _, opt_row = adamw.update(T.unflatten_like(p, grads), opt_row, p,
-                                  lr=inner_lr)
-        return opt_row.step, loss
+    if shards is not None and shards.size > 1:
+        one_cluster = _sharded_cluster_step(cfg, shards, inner_lr)
+    else:
+        def one_cluster(params_row, opt_row, tokens):
+            p = T.tree_map(lambda x: x.detach().requires_grad_(True),
+                           params_row)
+            with torch.enable_grad():
+                loss, _ = M.loss_fn(p, cfg, {"tokens": tokens})
+                grads = list(torch.autograd.grad(loss, T.leaves(p)))
+            _, opt_row = adamw.update(T.unflatten_like(p, grads), opt_row, p,
+                                      lr=inner_lr)
+            return opt_row.step, loss.detach().float()
 
     def run(params_stacked, opt_stacked, batch_stacked, active):
         tokens = batch_stacked["tokens"]
@@ -120,6 +125,36 @@ def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
     return train_step_h
 
 
+def _sharded_cluster_step(cfg: ModelConfig, shards, inner_lr: float):
+    """One cluster row's AdamW step on blocks: ``(params_row, opt_row,
+    tokens) -> (step, loss)``."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as TP
+
+    specs = sh.param_placements(M.init_params(cfg, device="meta"),
+                                shards.mesh, cluster_stacked=False)
+    loss_fn = TP.TPLoss(cfg, shards, specs)
+
+    def parts(tree):
+        return {k: shards.parts(x, specs[k]) for k, x in T.keystr_items(tree)}
+
+    def one_cluster(params_row, opt_row, tokens):
+        p = parts(params_row)
+        n = shards.D if shards.in_process else 1
+        b = tokens.shape[0] // n
+        loss, grads = loss_fn.value_and_grad(
+            p, [tokens[j * b:(j + 1) * b] for j in range(n)])
+        TP.clip_(shards, specs, TP.regroup(p, grads))
+        _, st = adamw.update(
+            grads, adamw.AdamWState(
+                step=opt_row.step, m=TP.flat_parts(parts(opt_row.m)),
+                v=TP.flat_parts(parts(opt_row.v))),
+            TP.flat_parts(p), lr=inner_lr, grad_clip=0)
+        return st.step, loss
+
+    return one_cluster
+
+
 def init_inner_state(params_stacked) -> adamw.AdamWState:
     """AdamW state of cluster-stacked params (the JAX driver's
     ``jax.vmap(adamw.init)``): a (C,) step counter and stacked m, v."""
@@ -144,13 +179,16 @@ class OuterState(NamedTuple):
 
 
 def init_outer_state(params, n_clusters: int,
-                     ccfg: mc.MeshCompressionConfig) -> OuterState:
+                     ccfg: mc.MeshCompressionConfig, q0=None) -> OuterState:
     """Round-0 outer state for ``n_clusters`` local cluster rows. The
-    anchor is ``params`` itself: the outer step updates it in place."""
+    anchor is ``params`` itself: the outer step updates it in place.
+    ``q0``: the warm starts of the whole leaves, where ``params`` are a
+    shard's blocks (default: ``params``' own)."""
     stack = lambda tree: T.tree_map(
         lambda x: torch.zeros((n_clusters,) + tuple(x.shape),
                               dtype=torch.float32, device=x.device), tree)
-    q0 = mc.init_q_state(params, ccfg)
+    if q0 is None:
+        q0 = mc.init_q_state(params, ccfg)
     q_stacked = T.tree_map(
         lambda x: x.unsqueeze(0).expand((n_clusters,) + tuple(x.shape))
         .clone(), q0)
@@ -159,9 +197,23 @@ def init_outer_state(params, n_clusters: int,
                       q_state=q_stacked)
 
 
+def _outer_leaf(Delta, p, a, v, d, e, *, outer_lr, outer_momentum):
+    """One leaf's update from its mean Delta, in place and elementwise (so
+    the same on a block as on the whole leaf)."""
+    # Alg. 2 error feedback: e = delta^{t-1} - Delta^{t-1}
+    torch.sub(d, Delta[None], out=e)
+    # next pending: (anchor - theta_inner) + e
+    torch.sub(a.float()[None], p.float(), out=d)
+    d.add_(e)
+    # delayed outer update on the anchor
+    nesterov.update_leaf(Delta, v, a, lr=outer_lr, momentum=outer_momentum)
+    # replicas restart from the outer-updated params
+    p.copy_(a[None].expand_as(p))
+
+
 def make_outer_step(cfg: ModelConfig, ccfg: mc.MeshCompressionConfig, *,
                     outer_lr: float = 0.7, outer_momentum: float = 0.9,
-                    cluster_group=None):
+                    cluster_group=None, shards=None):
     """``(params_stacked_postH, outer_state, rank_scalar) ->
     (params_stacked_next, outer_state')``: Alg. 2's communicate + delayed
     outer update with the one-step-delay schedule.
@@ -172,7 +224,20 @@ def make_outer_step(cfg: ModelConfig, ccfg: mc.MeshCompressionConfig, *,
     anchor, momentum and replicas are updated in place, so no second
     full-size tree exists at any time (the JAX function's tree-at-once
     form holds about six). ``outer_step.gather_bytes`` is the byte count
-    this rank handed to the last all-gather."""
+    this rank's clusters handed to the last all-gather (summed over each
+    cluster's shards).
+
+    With ``shards`` of one rank each (``parallel.tensor.ShardGroup`` with
+    groups), each leaf j has one owner, group rank j mod D * M: it gathers
+    the leaf's delta blocks, compresses the whole leaf with the same code
+    as one shard, meets the owners of the other clusters in the clusters
+    group's all-gather, reconstructs the mean and scatters each rank's
+    block of it; the warm starts are broadcast from the owner. The rest is
+    elementwise on the blocks. In process the leaves are whole and the
+    step is the unsharded one."""
+    kw = dict(outer_lr=outer_lr, outer_momentum=outer_momentum)
+    if shards is not None and not shards.in_process and shards.size > 1:
+        return _sharded_outer_step(cfg, ccfg, shards, cluster_group, kw)
 
     @torch.no_grad()
     def outer_step(params_stacked, st: OuterState, rank_scalar):
@@ -189,22 +254,60 @@ def make_outer_step(cfg: ModelConfig, ccfg: mc.MeshCompressionConfig, *,
         for rows, p, a, v, d, e, q in leaves:
             Delta = mc.decompress_mean_leaf(rows, a.shape, mc.factor_width(q),
                                             ccfg).to(d.dtype)
-            # Alg. 2 error feedback: e = delta^{t-1} - Delta^{t-1}
-            torch.sub(d, Delta[None], out=e)
-            # next pending: (anchor - theta_inner) + e
-            torch.sub(a.float()[None], p.float(), out=d)
-            d.add_(e)
-            # delayed outer update on the anchor
-            nesterov.update_leaf(Delta, v, a, lr=outer_lr,
-                                 momentum=outer_momentum)
+            _outer_leaf(Delta, p, a, v, d, e, **kw)
             del Delta
-            # replicas restart from the outer-updated params
-            p.copy_(a[None].expand_as(p))
         outer_opt = nesterov.NesterovState(step=st.outer_opt.step + 1,
                                            momentum=st.outer_opt.momentum)
         return params_stacked, OuterState(
             anchor=st.anchor, outer_opt=outer_opt,
             delta_pending=st.delta_pending, error=st.error, q_state=q_new)
+
+    outer_step.gather_bytes = 0
+    return outer_step
+
+
+def _sharded_outer_step(cfg, ccfg, shards, cluster_group, kw):
+    from repro_torch.parallel import sharding as sh
+
+    specs = list(sh.param_placements(M.init_params(cfg, device="meta"),
+                                     shards.mesh,
+                                     cluster_stacked=False).values())
+
+    @torch.no_grad()
+    def outer_step(params_stacked, st: OuterState, rank_scalar):
+        n, me = shards.size, shards.index
+        leaves = list(zip(specs, T.leaves(params_stacked), T.leaves(st.anchor),
+                          T.leaves(st.outer_opt.momentum),
+                          T.leaves(st.delta_pending), T.leaves(st.error),
+                          T.leaves(st.q_state)))
+        payloads = []
+        for j, (spec, p, a, v, d, e, q) in enumerate(leaves):
+            whole = shards.gather_to(j % n, d, (None,) + spec)
+            if whole is not None:
+                pay, (q_new,) = mc.compress_local([whole], [q], rank_scalar,
+                                                  ccfg)
+                q.copy_(q_new)
+                payloads.append(pay[0])
+            del whole
+        outer_step.gather_bytes = shards.sum_int(mc.gather_bytes(payloads),
+                                                 leaves[0][2].device)
+        gathered = iter(mc.gather_payloads(payloads, cluster_group)
+                        if payloads else [])
+        del payloads
+        for j, (spec, p, a, v, d, e, q) in enumerate(leaves):
+            owner = j % n
+            shards.broadcast_from(owner, q)
+            Delta = None
+            if owner == me:
+                Delta = mc.decompress_mean_leaf(
+                    next(gathered), shards.whole_shape(a.shape, spec),
+                    mc.factor_width(q), ccfg).to(d.dtype)
+            Delta = shards.scatter_from(owner, Delta, spec, like=d[0])
+            _outer_leaf(Delta, p, a, v, d, e, **kw)
+            del Delta
+        outer_opt = nesterov.NesterovState(step=st.outer_opt.step + 1,
+                                           momentum=st.outer_opt.momentum)
+        return params_stacked, st._replace(outer_opt=outer_opt)
 
     outer_step.gather_bytes = 0
     return outer_step

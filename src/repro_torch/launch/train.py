@@ -8,18 +8,32 @@ gspmd path of ``repro.launch.train``).
 
 ``--devices`` = clusters x data x model processes, one card each (one CPU
 process each with ``--device cpu``), laid out as a ("clusters", "data",
-"model") ``DeviceMesh``. Rank (c, j) trains cluster c on its j-th slice
-of the cluster's batch; the data group averages gradients every step; the
-clusters group meets once per round, in the outer step's all-gather of
-the packed int4 payload. NCCL on the card, gloo on the CPU, rendezvous
-through a ``FileStore`` in a temporary directory. ``--devices 1`` runs in
-this process (still through a process group of size 1); more devices
-spawn one process per rank.
+"model") ``DeviceMesh``. Rank (c, j, m) holds block (j, m) of every leaf
+of cluster c's round state, placed by ``parallel/sharding.py`` (FSDP over
+"data", tensor parallelism over "model"), and trains on the j-th slice
+of the cluster's batch, the cluster's data and model shards computing
+each step together (``parallel/tensor.py``); the clusters group meets
+once per round, in the outer step's all-gather of the packed int4
+payload. NCCL on the card, gloo on the CPU, rendezvous through a
+``FileStore`` in a temporary directory. ``--devices 1`` runs in this
+process (still through a process group of size 1); more devices spawn
+one process per rank. ``run`` called with no groups runs every cluster
+and every shard in this process, bit for bit the ranks (``--cpu-threads
+1`` on the CPU).
 
-Usage (2 CPU processes, one cluster each):
+Usage (2 CPU processes, one cluster each; 4 processes, one cluster in
+2 x 2 shards; the JAX driver's documented 8):
   python -m repro_torch.launch.train --arch granite-3-8b --smoke \\
       --device cpu --devices 2 --clusters 2 --data 1 --model 1 \\
       --rounds 2 --h-steps 2
+  python -m repro_torch.launch.train --smoke --device cpu --devices 4 \\
+      --clusters 1 --data 2 --model 2
+  python -m repro_torch.launch.train --smoke --device cpu --devices 8 \\
+      --clusters 2 --data 2 --model 2
+
+``--ckpt-dir`` writes the one-device layout (cluster-stacked whole leaves,
+``{"params", "outer"}``; ``{"params"}`` under ``--inner pp``) from rank 0,
+each leaf gathered from the ranks as it is written.
 
 ``--inner pp`` switches the inner loop to the pipeline-parallel engine
 (``parallel/inner_engine.py``, ``run_pp``): the mesh becomes (clusters,
@@ -31,13 +45,6 @@ cluster's batch:
   python -m repro_torch.launch.train --arch granite-3-8b --smoke \\
       --inner pp --device cpu --devices 4 --clusters 2 --data 1 \\
       --pp-stages 2
-
-Not ported: ``--model`` > 1 under ``--inner gspmd``, i.e. tensor
-parallelism and FSDP placement (``parallel/sharding.py``, ROADMAP A.11b):
-within a cluster the weights are replicated over the data group;
-``--ckpt-dir`` with more than one device (A.11b). The JAX driver's
-activation sharder has no counterpart: constraints have no effect on a
-data-parallel runtime.
 
 Parameters come from a ``torch.Generator`` seeded 0 and batches from the
 port's ``SyntheticLM`` streams, so a run of this driver and one of the
@@ -117,10 +124,6 @@ def _check_args(args) -> None:
     starts. ``--inner pp`` ignores ``--model`` (default 2), as the JAX
     driver does, so its checks come first."""
     C = args.clusters
-    if args.ckpt_dir and args.devices > 1:
-        raise NotImplementedError("--ckpt-dir with more than one device (a "
-                                  "checkpoint gathered across ranks) is not "
-                                  "ported yet (ROADMAP A.11b)")
     if args.inner == "pp":
         if args.adaptive or args.h_policy != "global":
             raise SystemExit("--inner pp supports the static round schedule "
@@ -136,12 +139,10 @@ def _check_args(args) -> None:
                              f"into {C} clusters x {args.data} data ranks x "
                              f"{args.pp_micro} microbatches")
         return
-    if args.model > 1:
-        raise NotImplementedError("--model > 1 (tensor parallelism and FSDP "
-                                  "placement, parallel/sharding.py) is not "
-                                  "ported yet (ROADMAP A.11b)")
     assert C * args.data * args.model == args.devices, (
         "--devices must equal clusters * data * model")
+    from repro_torch.parallel.tensor import check_tp
+    check_tp(_model_config(args), args.model)
     if args.global_batch % C or (args.global_batch // C) % args.data:
         raise ValueError(f"--global-batch {args.global_batch} must split "
                          f"into {C} clusters x {args.data} data ranks")
@@ -168,19 +169,24 @@ def _setup_obs(args, rank: int):
     return log, tracer, span
 
 
-def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
-        data_group=None, rank: int = 0, on_round=None):
+def run(args, device, *, clusters, cluster_group=None, shards=None,
+        rank: int = 0, on_round=None):
     """The gspmd round loop for this rank's ``clusters`` (cluster indices;
-    all of them with no ``cluster_group``: the in-process stacked run) on
-    its ``data_rank``-th slice of each cluster's batch. Returns a summary
-    dict (per round: mean loss, executed H, rank, wire bytes, gathered
-    bytes, synchronized round/inner/outer seconds). ``on_round(r, params,
-    opt, outer_state)`` sees the state after each round. ``--inner pp``
-    runs ``run_pp`` with every stage in this process."""
+    all of them with no ``cluster_group``: the in-process stacked run).
+    ``shards``: this rank's shard of a ``parallel.tensor.ShardGroup`` of
+    the cluster's ``--data`` x ``--model`` ranks; with none, every shard
+    of each cluster runs in this process (whole tensors, whose blocks are
+    views). Returns a summary dict (per round: mean loss, executed H,
+    rank, wire bytes, the bytes this rank's clusters handed to the
+    all-gather, summed over their shards, synchronized round/inner/outer
+    seconds; every rank's peak device memory).
+    ``on_round(r, params, opt, outer_state)`` sees the state after each
+    round (this rank's blocks). ``--inner pp`` runs ``run_pp`` with every
+    stage in this process."""
     if args.inner == "pp":
-        return run_pp(args, device, clusters=clusters, data_rank=data_rank,
-                      cluster_group=cluster_group, data_group=data_group,
-                      rank=rank, on_round=on_round)
+        return run_pp(args, device, clusters=clusters,
+                      cluster_group=cluster_group, rank=rank,
+                      on_round=on_round)
     import numpy as np
     import torch
 
@@ -191,20 +197,37 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     from repro_torch.launch import steps
     from repro_torch.launch.steps import all_reduce_sum
     from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as TP
     from repro_torch import tree as T
 
     cfg = _model_config(args)
     C = args.clusters
     CL = len(clusters)
+    if shards is None and args.data * args.model > 1:
+        shards = TP.ShardGroup(args.data, args.model)
+    ranked = shards is not None and not shards.in_process
+    meta = M.init_params(cfg, device="meta")
+    specs = sh.param_placements(meta, {"data": args.data,
+                                       "model": args.model},
+                                cluster_stacked=False)
 
+    # the whole model drawn on every rank (generator seeded 0), then this
+    # rank's blocks kept
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params1 = M.init_params(cfg, gen, device)
+    ccfg = mc.MeshCompressionConfig(rank=args.rank)
+    q0 = None
+    if ranked:
+        j, m = shards.shards[0]
+        q0 = mc.init_q_state(params1, ccfg)
+        params1 = sh.shard_tree(params1, specs, shards.mesh,
+                                {"data": j, "model": m})
     params = diloco.stack_replicas(params1, CL)
     opt = steps.init_inner_state(params)
-    ccfg = mc.MeshCompressionConfig(rank=args.rank)
     # the anchor is params1 itself, updated in place by the outer step
-    outer_state = steps.init_outer_state(params1, CL, ccfg)
+    outer_state = steps.init_outer_state(params1, CL, ccfg, q0=q0)
 
     balance_h = args.h_policy == "balance"
     step_times = ([float(s) for s in args.step_times.split(",")]
@@ -220,18 +243,22 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     # uniform-at-budget rounds run the plain train step; only genuinely
     # heterogeneous rounds use the masked variant (the JAX driver's rule)
     train_step = steps.make_train_step(cfg, inner_lr=args.inner_lr,
-                                       data_group=data_group,
+                                       shards=shards,
                                        cluster_group=cluster_group)
     train_step_h = (steps.make_train_step(
         cfg, inner_lr=args.inner_lr, per_cluster_h=True,
-        data_group=data_group, cluster_group=cluster_group)
+        shards=shards, cluster_group=cluster_group)
         if balance_h else None)
     outer_step = steps.make_outer_step(
         cfg, ccfg, outer_lr=args.outer_lr,
-        outer_momentum=args.outer_momentum, cluster_group=cluster_group)
+        outer_momentum=args.outer_momentum, cluster_group=cluster_group,
+        shards=shards)
 
+    # in process the step takes each cluster's whole batch and splits it
+    # over the data shards; a rank takes its own slice
     Bc = args.global_batch // C
-    n_data = 1 if data_group is None else args.data
+    n_data, data_rank = ((args.data, shards.shards[0][0]) if ranked
+                         else (1, 0))
     rows = slice(data_rank * Bc // n_data, (data_rank + 1) * Bc // n_data)
     data = [SyntheticLM(cfg.vocab_size, args.seq_len, Bc, seed=0,
                         data_shard=c) for c in clusters]
@@ -240,16 +267,28 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
     ada = adaptive.AdaGradCmpState.create(ada_cfg)
 
     def cluster_mean(stacked):
-        """f32 mean over all clusters of a cluster-stacked tree: a
-        full-size sum across the clusters group (the JAX driver's
-        ``x.mean(0)`` under GSPMD)."""
-        return T.tree_map(
-            lambda x: all_reduce_sum(x.float().sum(0), cluster_group) / C,
-            stacked)
+        """f32 mean over all clusters of a cluster-stacked tree, each leaf
+        whole: a sum across the clusters group (the JAX driver's
+        ``x.mean(0)`` under GSPMD), the blocks gathered on every rank."""
+        return T.unflatten_like(stacked, [
+            (shards.gather_whole if ranked else lambda x, _: x)(
+                all_reduce_sum(x.float().sum(0), cluster_group) / C,
+                specs[k]) for k, x in T.keystr_items(stacked)])
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    def state_spec(key):
+        """The placement of a checkpoint leaf, by keystr."""
+        for pre, lead in (("['params']", ("clusters",)),
+                          ("['outer']['anchor']", ()),
+                          ("['outer']['outer_opt'].momentum", ()),
+                          ("['outer']['delta_pending']", ("clusters",)),
+                          ("['outer']['error']", ("clusters",))):
+            if key.startswith(pre):
+                return lead + specs[key[len(pre):]]
+        return ("clusters",) if "['q_state']" in key else ()
 
     log, tracer, span = _setup_obs(args, rank)
     summary = {k: [] for k in ("mean_loss", "h", "rank", "wire_bytes",
@@ -287,7 +326,7 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
                 params, outer_state = outer_step(params, outer_state, r_exec)
                 sync()
         t2 = time.perf_counter()
-        wire = mc.wire_bytes_tree(params1, ccfg,
+        wire = mc.wire_bytes_tree(meta, ccfg,
                                   rank=r_exec if args.adaptive else None)
         h_str = (f"H={h_t}" if not het_round
                  else "H=" + "/".join(str(hc) for hc in h_vec))
@@ -307,18 +346,20 @@ def run(args, device, *, clusters, data_rank: int = 0, cluster_group=None,
             ada = adaptive.observe_mean_pseudo_grad(
                 ada, cluster_mean(outer_state.delta_pending), ada_cfg)
         if args.ckpt_dir:
-            ckpt_lib.save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
-                          {"params": params, "outer": outer_state._asdict()},
-                          step=r, meta={"arch": args.arch})
+            _save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
+                  {"params": params, "outer": outer_state._asdict()},
+                  state_spec, args, rank, step=r, meta={"arch": args.arch})
         if args.state_out:
             ckpt_lib.save(os.path.join(args.state_out,
                                        f"round_{r:04d}.rank{rank}"),
                           {"params": params, "opt": opt,
                            "outer": outer_state._asdict()},
                           step=r, meta={"clusters": list(clusters),
-                                        "data_rank": data_rank})
+                                        "shard": list(shards.shards[0])
+                                        if ranked else [0, 0]})
         if on_round is not None:
             on_round(r, params, opt, outer_state)
+    summary["peak_bytes"] = _peak_bytes(device)
     log.info("TRAIN-DRIVER-OK")
     if tracer is not None:
         tracer.write(args.trace)
@@ -414,6 +455,7 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
         delta_pending=zeros(), error=zeros(),
         q_state=T.tree_map(lambda q: diloco.stack_replicas(q, CL), q1))
     allreduce_bytes = 4 * sum(x.numel() for x in T.leaves(params1))
+    pp_specs = PP.pp_param_specs(params, cluster_stacked=True)
 
     train_step = IE.make_pp_train_step(
         cfg, pcfg, inner_lr=args.inner_lr, transport=transport,
@@ -497,9 +539,11 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
                          ("outer_s", t2 - t1)):
             summary[key].append(val)
         if args.ckpt_dir:
-            ckpt_lib.save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
-                          {"params": params}, step=r,
-                          meta={"arch": args.arch, "inner": "pp"})
+            _save(os.path.join(args.ckpt_dir, f"round_{r:04d}"),
+                  {"params": params},
+                  lambda key: pp_specs[key[len("['params']"):]],
+                  args, rank, step=r, meta={"arch": args.arch,
+                                            "inner": "pp"})
         if args.state_out:
             ckpt_lib.save(os.path.join(args.state_out,
                                        f"round_{r:04d}.rank{rank}"),
@@ -516,6 +560,50 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
         tracer.write(args.trace)
         log.info(f"wrote {args.trace}")
     return summary
+
+
+def _save(path, tree, spec_of, args, rank: int, *, step: int, meta):
+    """The checkpoint of a run's state: the whole tree as this process
+    holds it, or across ranks rank 0 writing each leaf (cluster-stacked,
+    whole) as it gathers the ranks' blocks, placed on the ("clusters",
+    "data", "model") mesh by ``spec_of(keystr)``. Every rank calls it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.parallel import sharding as sh
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        ckpt_lib.save(path, tree, step=step, meta=meta)
+        return
+    world = dist.get_world_size()
+    model = args.pp_stages if args.inner == "pp" else args.model
+    mesh = {"clusters": args.clusters, "data": args.data, "model": model}
+    coords = [{"clusters": r // (args.data * model),
+               "data": r // model % args.data, "model": r % model}
+              for r in range(world)]
+
+    def items():
+        for key, x in T.keystr_items(tree):
+            spec = spec_of(key)
+            if not any(spec):           # the same on every rank
+                yield key, ckpt_lib._to_numpy(x)
+                continue
+            x = x.contiguous()
+            got = ([torch.empty_like(x) for _ in range(world)] if rank == 0
+                   else None)
+            dist.gather(x, got, dst=0)
+            yield key, (sh.unshard_leaf(
+                [(c, ckpt_lib._to_numpy(b)) for c, b in zip(coords, got)],
+                spec, mesh) if rank == 0 else None)
+            del got
+
+    if rank == 0:
+        ckpt_lib.save_items(path, items(), step=step, meta=meta)
+    else:
+        for _ in items():
+            pass
 
 
 def _peak_bytes(device):
@@ -563,21 +651,40 @@ def _worker(rank: int, args, store_path: str, on_round=None,
                                  args.pp_stages if pp else args.model,
                                  device_type=device.type)
         c, j, s = mesh.get_coordinate()
-        groups = dict(cluster_group=mesh.get_group("clusters"),
-                      data_group=mesh.get_group("data"))
         if pp:
             summary = run_pp(args, device, clusters=[c], data_rank=j,
                              stage=s, model_group=mesh.get_group("model"),
-                             rank=rank, on_round=on_round, **groups)
+                             cluster_group=mesh.get_group("clusters"),
+                             data_group=mesh.get_group("data"), rank=rank,
+                             on_round=on_round)
         else:
-            summary = run(args, device, clusters=[c], data_rank=j,
-                          rank=rank, on_round=on_round, **groups)
+            summary = run(args, device, clusters=[c],
+                          cluster_group=mesh.get_group("clusters"),
+                          shards=_shard_group(args, mesh, c, j, s),
+                          rank=rank, on_round=on_round)
     finally:
         dist.destroy_process_group()
     if summary_path and rank == 0:
         with open(summary_path, "w") as f:
             json.dump(summary, f)
     return summary
+
+
+def _shard_group(args, mesh, c: int, j: int, m: int):
+    """Rank (c, j, m)'s shard of its cluster's ``ShardGroup`` (None for one
+    shard a cluster). Every rank makes every cluster's group, in order."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.tensor import ShardGroup
+
+    D, M = args.data, args.model
+    if D * M == 1:
+        return None
+    groups = [dist.new_group(list(range(cc * D * M, (cc + 1) * D * M)))
+              for cc in range(args.clusters)]
+    return ShardGroup(D, M, data_group=mesh.get_group("data"),
+                      model_group=mesh.get_group("model"), group=groups[c],
+                      coords=(j, m))
 
 
 def _spawn(args, store_path: str, summary_path: str) -> None:

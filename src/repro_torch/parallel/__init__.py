@@ -1,2 +1,3 @@
-"""Pipeline parallelism (port of ``repro.parallel``'s pipeline and inner
-engine; the GSPMD sharding rules are ROADMAP A.11b)."""
+"""Parallelism within a cluster (port of ``repro.parallel``): the pipeline
+and its inner engine, the placement rules (``sharding``) and the
+tensor-parallel and FSDP compute split they imply (``tensor``)."""

@@ -54,7 +54,9 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.launch.steps", "repro_torch.launch.mesh",
               "repro_torch.launch.train", "repro_torch.launch.dryrun",
               "repro_torch.parallel.pipeline",
-              "repro_torch.parallel.inner_engine"):
+              "repro_torch.parallel.inner_engine",
+              "repro_torch.parallel.sharding",
+              "repro_torch.parallel.tensor"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -28,8 +28,9 @@ gradients reach 3e-4 in round 2.
 Across processes the driver must equal the in-process run bit for bit
 with one cluster per rank (the same arithmetic per cluster, the payload
 moved as bytes), and match one process within the same round-state gate
-when a cluster's batch is split over two data ranks (the gradient mean
-of two half batches sums in another order)."""
+when a cluster's batch is split over two data ranks, each holding its
+FSDP blocks of the state (the gradient mean of two half batches sums in
+another order)."""
 import math
 
 import jax
@@ -56,6 +57,7 @@ from repro_torch.kernels import quant4
 from repro_torch.launch import steps as S
 from repro_torch.launch import train as TR
 from repro_torch.models import model as M
+from repro_torch.parallel import sharding as sh
 
 CPU = torch.device("cpu")
 STATE_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -450,13 +452,34 @@ def test_driver_data_ranks_match_one_process(tmp_path):
     tcfg = get_config("granite-3-8b").reduced()
     like = S.init_outer_state(M.init_params(tcfg, torch.Generator(), CPU), 1,
                               MC.MeshCompressionConfig(rank=16))
+    # each data rank holds its FSDP blocks (parallel/sharding.py) of the
+    # param-shaped leaves: held against the same blocks of one process
+    mesh = {"data": 2, "model": 1}
+    specs = sh.param_placements(M.init_params(tcfg, device="meta"), mesh,
+                                cluster_stacked=False)
+    trees = ("['params']", "['opt'].m", "['opt'].v", "['outer']['anchor']",
+             "['outer']['outer_opt'].momentum", "['outer']['delta_pending']",
+             "['outer']['error']")
+
+    def blocks(flat, k):
+        out = {}
+        for key, arr in flat.items():
+            pre = [t for t in trees if key.startswith(t)]
+            if pre:
+                lead = (() if key.startswith(trees[3:5]) else (None,))
+                arr = arr[sh.block_slices(arr.shape, lead + specs[
+                    key[len(pre[0]):]], mesh, {"data": k, "model": 0})]
+            out[key] = arr
+        return out
+
     int4 = None
     for r in range(2):
         one = _rank_state(tmp_path / "one" / f"round_{r:04d}", 0)
         atol = _atol_for(_adam_atol(2 * (r + 1)), int4)
         for k in range(2):
             two = _rank_state(tmp_path / "two" / f"round_{r:04d}", k)
-            _assert_state_close(two, one, atol, f"round {r} rank {k}",
+            _assert_state_close(two, blocks(one, k), atol,
+                                f"round {r} rank {k}",
                                 min_tight=0.999 if int4 is None
                                 else INT4_TIGHT)
         # the next outer step compresses this round's pending deltas
@@ -466,35 +489,48 @@ def test_driver_data_ranks_match_one_process(tmp_path):
         int4 = _int4_steps(prev["delta_pending"], prev["q_state"], 16)
 
 
-def test_driver_refusals_and_checkpoint_format(tmp_path):
+def test_driver_refusals_and_checkpoint_format(tmp_path, capfd):
     base = DRIVER + ["--data", "1"]
-    # --inner pp is ported: it keeps JAX's refusals and the A.11b one
+    # --inner pp keeps JAX's refusal
     with pytest.raises(SystemExit, match="static round schedule"):
         TR.main(base + ["--devices", "2", "--clusters", "2", "--inner",
                         "pp", "--pp-stages", "1", "--adaptive"])
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        TR.main(base + ["--devices", "2", "--clusters", "2", "--inner",
-                        "pp", "--pp-stages", "1", "--ckpt-dir",
-                        str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        TR.main(DRIVER[:-6] + ["--devices", "2", "--clusters", "1",
-                               "--data", "1", "--model", "2"])
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        TR.main(base + ["--devices", "2", "--clusters", "2", "--ckpt-dir",
-                        str(tmp_path)])
     with pytest.raises(AssertionError):
         TR.main(base + ["--devices", "3", "--clusters", "2"])
-    # one device: the JAX driver's checkpoint keys, cluster-stacked params
-    TR.main(base + ["--devices", "1", "--clusters", "1", "--rounds", "1",
-                    "--h-steps", "1", "--ckpt-dir", str(tmp_path / "ck")],
-            store_dir=str(tmp_path))
     jcfg = jax_get_config("granite-3-8b").reduced()
     p1 = jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.PRNGKey(0)))
     p1 = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), p1)
-    stacked = jax.tree.map(lambda x: x[None], p1)
-    want = jflatten({"params": stacked, "outer": JSteps.init_outer_state(
-        p1, 1, JMC.MeshCompressionConfig(rank=16))._asdict()})
-    with np.load(tmp_path / "ck" / "round_0000.npz") as z:
-        assert sorted(z.files) == sorted(want)
-        for k in want:
-            assert z[k].shape == want[k].shape, k
+
+    def want(C):
+        stacked = jax.tree.map(lambda x: jnp.stack([x] * C), p1)
+        return jflatten({"params": stacked, "outer": JSteps.init_outer_state(
+            p1, C, JMC.MeshCompressionConfig(rank=16))._asdict()})
+
+    def check(ck, C):
+        with np.load(ck / "round_0000.npz") as z:
+            w = want(C)
+            assert sorted(z.files) == sorted(w)
+            for k in w:
+                assert z[k].shape == w[k].shape, k
+
+    one = ["--rounds", "1", "--h-steps", "1"]
+    # one device: the JAX driver's checkpoint keys, cluster-stacked params
+    TR.main(base + one + ["--devices", "1", "--clusters", "1", "--ckpt-dir",
+                          str(tmp_path / "ck")], store_dir=str(tmp_path))
+    check(tmp_path / "ck", 1)
+    # the former refusals run: --ckpt-dir across ranks writes the same
+    # layout with every cluster's rows, --model > 1 trains, and --inner pp
+    # across ranks writes its {"params"} tree
+    TR.main(base + one + ["--devices", "2", "--clusters", "2", "--ckpt-dir",
+                          str(tmp_path / "ck2")], store_dir=str(tmp_path))
+    check(tmp_path / "ck2", 2)
+    TR.main(base + one + ["--devices", "2", "--clusters", "1", "--model",
+                          "2"], store_dir=str(tmp_path))
+    assert capfd.readouterr().out.rstrip().endswith("TRAIN-DRIVER-OK")
+    TR.main(base + one + ["--devices", "2", "--clusters", "2", "--inner",
+                          "pp", "--pp-stages", "1", "--pp-micro", "1",
+                          "--ckpt-dir", str(tmp_path / "pp")],
+            store_dir=str(tmp_path))
+    with np.load(tmp_path / "pp" / "round_0000.npz") as z:
+        assert "['params']['stages']['attn']['wq']" in z.files
+        assert z["['params']['embed']"].shape[0] == 2
