@@ -2452,20 +2452,9 @@ def tp_driver(mesh_summary, mesh_launches, dev=None, argv=TP_ARGS, cfg=None):
 
 
 def _digest(tree):
-    """{leaf: exact integer digest of its bits} (+0.0 for -0.0), summed
-    on the device."""
-    out = {}
-    for key, x in _items(tree):
-        x = x.contiguous().reshape(-1)
-        if x.dtype.is_floating_point:
-            x = (x.float() + 0.0).view(torch.int32)
-        total = 0
-        for i in range(0, x.numel(), 1 << 26):
-            v = x[i:i + (1 << 26)].to(torch.int64)
-            w = torch.arange(i, i + v.numel(), device=v.device) % 1000003 + 1
-            total += int((v * w).sum())
-        out[key] = total
-    return out
+    """{leaf: ``tree.bit_digest`` of its bits}, summed on the device."""
+    from repro_torch.tree import bit_digest
+    return {key: bit_digest(x) for key, x in _items(tree)}
 
 
 def tp_step_checks(dev=None, argv=TP_ARGS, cfg=None):

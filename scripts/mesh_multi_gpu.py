@@ -39,7 +39,7 @@ one rank per card, NCCL, against the same clusters stacked on one card.
 4. Tensor parallelism and FSDP placement (``--tp``, in place of 1 and 2),
    full opt-1.3b width, rank 64, H = 4, 4 rows of 512 tokens per cluster,
    2 rounds, at (clusters x data x model) 1 x 1 x 4, 1 x 2 x 2 and
-   2 x 1 x 2 on the four cards (``--tp-legs``): each rank keeps its
+   2 x 1 x 2 on the four cards (``TP_LEGS``): each rank keeps its
    blocks of every leaf and the cluster's shards compute each step
    together (``parallel/tensor.py``). Each rank's digests are compared
    with its blocks of the in-process run on one card (every cluster and
@@ -133,16 +133,11 @@ _PARAM_TREES = ("['params']", "['opt'].m", "['opt'].v",
 
 
 def state_digests(params, opt, outer, clusters=None, stage=None, block=None):
-    """{leaf path: exact digest} of a driver's round state (the layout of
-    ``--state-out``): each leaf's f32/int32 bits (+0.0 for -0.0) as int64,
-    weighted by position and summed in integer arithmetic on the device,
-    so equal digests mean equal bits up to the sign of zero (what
-    ``np.array_equal`` compares). With ``clusters``/``stage``: the rows of
+    """{leaf path: ``tree.bit_digest``} of a driver's round state (the
+    layout of ``--state-out``). With ``clusters``/``stage``: the rows of
     one cluster and one stage of an in-process state, as that rank holds
     them; with ``block`` = (placements, mesh, coords): the block of each
     param-shaped leaf that a tensor-parallel rank holds."""
-    import torch
-
     from repro_torch import tree as T
     from repro_torch.parallel.pipeline import is_stage_path
     from repro_torch.parallel.sharding import block_slices
@@ -163,15 +158,7 @@ def state_digests(params, opt, outer, clusters=None, stage=None, block=None):
             lead = () if unstacked else (None,)
             x = x[block_slices(x.shape, lead + specs[key[len(pre[0]):]],
                                mesh, coords)]
-        x = x.contiguous().reshape(-1)
-        if x.dtype.is_floating_point:
-            x = (x.float() + 0.0).view(torch.int32)
-        total = 0
-        for i in range(0, x.numel(), 1 << 26):
-            v = x[i:i + (1 << 26)].to(torch.int64)
-            w = torch.arange(i, i + v.numel(), device=v.device) % 1000003 + 1
-            total += int((v * w).sum())
-        out[key] = total
+        out[key] = T.bit_digest(x)
     return out
 
 
@@ -318,6 +305,9 @@ def pp_legs(train, device, cards, legs, smoke, tmp):
                 for argv, got, views, label in runs])
 
 
+TP_LEGS = ((1, 1, 4), (1, 2, 2), (2, 1, 2))  # clusters x data x model
+
+
 def tp_argv(device, cards, clusters, data, model, smoke, n_layers=0):
     argv = ["--arch", "opt-1.3b", "--device", device, "--devices",
             str(cards), "--clusters", str(clusters), "--data", str(data),
@@ -384,9 +374,10 @@ def main():
                          "clusters)")
     ap.add_argument("--tp", action="store_true",
                     help="the tensor-parallel legs in place of the others")
-    ap.add_argument("--tp-legs", default="1x1x4,1x2x2,2x1x2",
-                    help="clusters x data x model of each tp leg")
     args = ap.parse_args()
+    if args.tp and any(c * d * m != args.cards for c, d, m in TP_LEGS):
+        sys.exit(f"mesh_multi_gpu: the --tp legs (clusters x data x model "
+                 f"{TP_LEGS}) each need 4 cards; got --cards {args.cards}")
     if args.device == "cuda":
         if torch.cuda.device_count() < args.cards:
             sys.exit(f"mesh_multi_gpu: needs {args.cards} GPUs, "
@@ -402,11 +393,8 @@ def main():
     from repro_torch.launch import train
 
     if args.tp:
-        legs = [tuple(int(n) for n in leg.split("x"))
-                for leg in args.tp_legs.split(",")]
-        legs = [leg for leg in legs if leg[0] * leg[1] * leg[2] == args.cards]
         with tempfile.TemporaryDirectory() as tmp:
-            equal = tp_legs(train, args.device, args.cards, legs,
+            equal = tp_legs(train, args.device, args.cards, TP_LEGS,
                             args.smoke_only, tmp)
         if not equal:
             sys.exit("FAIL tp: the ranks differ from the in-process run")

@@ -107,4 +107,5 @@ def init_gelu_mlp(gen, d: int, d_ff: int, *, lead=(), dtype=torch.float32,
 def apply_gelu_mlp(p, x):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    # a row-parallel shard holds no b_out: it is added once after the sum
+    return h @ p["w_out"] + p["b_out"] if "b_out" in p else h @ p["w_out"]

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
@@ -60,31 +61,35 @@ def _rle(specs: List[str]) -> List[Tuple[str, int]]:
     return out
 
 
-def apply_ffn_unit(p, x, cfg: ModelConfig):
+def apply_ffn_unit(p, x, cfg: ModelConfig, mlp=None):
     """FFN half of a dense transformer unit: ln2 + MLP (the layernorm/gelu
     family, swiglu, and the mlp-less variant). Shared by the decode unit
     here and the paged engine, which must stay bitwise-identical to this
-    path. (The JAX function also returns the MoE aux loss, always 0.0 for
-    the dense family.)"""
+    path. ``mlp``, where given, computes the MLP from ln2's output in
+    place of ``p["mlp"]`` (the tensor-parallel split). (The JAX function
+    also returns the MoE aux loss, always 0.0 for the dense family.)"""
     if "mlp" not in p:
         return torch.zeros_like(x)
     h = apply_norm(p["ln2"], x, cfg.norm)
+    if mlp is not None:
+        return mlp(h)
     if "w_gate" in p["mlp"]:
         return apply_swiglu(p["mlp"], h)
     return apply_gelu_mlp(p["mlp"], h)
 
 
-def add_residual(p, x, a, cfg: ModelConfig):
+def add_residual(p, x, a, cfg: ModelConfig, mlp=None):
     """The unit's output from its input ``x`` and its attention output
     ``a``: sequential (``x + a``, then the FFN of that), or under
     ``cfg.parallel_residual`` (stablelm-2) the FFN of ``x`` itself and
     ``x + a + f``, summed left to right as the JAX package does. Shared
-    by the training and decode units and the paged engine, which must
+    by the training and decode units, the paged engine and the
+    tensor-parallel unit (``mlp`` as in ``apply_ffn_unit``), which must
     stay bitwise-identical to them."""
     if cfg.parallel_residual:
-        return x + a + apply_ffn_unit(p, x, cfg)
+        return x + a + apply_ffn_unit(p, x, cfg, mlp)
     x = x + a
-    return x + apply_ffn_unit(p, x, cfg)
+    return x + apply_ffn_unit(p, x, cfg, mlp)
 
 
 def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
@@ -195,12 +200,20 @@ def params_device(params) -> torch.device:
 # embedding / logits
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg, tokens):
-    cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"].to(cd)[tokens.long()]
+def embed_rows(table, cfg, tokens):
+    """``tokens``' rows of ``table`` (the embedding, or a block of its
+    d_model columns) in the compute dtype, scaled as the family wants.
+    ``F.embedding``: its backward sums each row's contributions in a fixed
+    order, where indexing's ``index_put_`` summed them in another order
+    from run to run."""
+    x = F.embedding(tokens.long(), table.to(torch_dtype(cfg.compute_dtype)))
     if cfg.name.startswith("gemma"):
         x = x * (cfg.d_model ** 0.5)
     return x
+
+
+def embed_tokens(params, cfg, tokens):
+    return embed_rows(params["embed"], cfg, tokens)
 
 
 def logits_fn(params, cfg, x):
@@ -272,8 +285,11 @@ def _ce_from_hidden(params, cfg, h_c, tgt_c, mask_c):
     return nll.sum(), mask_c.sum()
 
 
+LOSS_CHUNK = 1024      # loss_fn's chunk of the sequence for the head + CE
+
+
 def loss_fn(params, cfg, batch, *, remat: bool = True,
-            loss_chunk: int = 1024, flash: bool = False):
+            loss_chunk: int = LOSS_CHUNK, flash: bool = False):
     """Next-token CE. When ``loss_chunk`` divides S and is smaller, the
     head + CE goes chunk by chunk over the sequence, so the (B,S,V) f32
     logits never exist at once; backward recomputes each chunk. ``flash``

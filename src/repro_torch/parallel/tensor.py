@@ -44,14 +44,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree as T
-from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
-from repro_torch.models.layers import apply_norm
+from repro_torch.models.layers import apply_gelu_mlp, apply_norm, apply_swiglu
 from repro_torch.parallel import sharding as sh
 
 
@@ -323,7 +321,6 @@ class ShardGroup:
 
 _COLUMN = ("wq", "wk", "wv", "w_in", "w_gate", "w_up", "b_in")
 _ROW = ("wo", "w_out", "w_down")
-LOSS_CHUNK = 1024       # models.model.loss_fn's chunk of the sequence
 
 
 class TPLoss:
@@ -340,7 +337,6 @@ class TPLoss:
         nm = shards.M
         self.split_attn = nm > 1 and cfg.n_heads % nm == 0
         self.split_mlp = nm > 1 and cfg.d_ff > 0 and cfg.d_ff % nm == 0
-        self.cd = torch_dtype(cfg.compute_dtype)
 
     # -- weights -------------------------------------------------------------
     def _split(self, key: str, spec) -> Optional[int]:
@@ -404,50 +400,37 @@ class TPLoss:
                  for i, hm in enumerate(model.fanout(h))]
         return model.reduce(parts)
 
-    def _ffn(self, W, x):
-        """``models.model.apply_ffn_unit``: ln2 and the MLP, its row-split
-        partials summed and the output bias added once."""
-        cfg, model = self.cfg, self.shards.model
-        if "mlp" not in W or not self.split_mlp:
-            return M.apply_ffn_unit({k: {n: v[1] for n, v in W[k].items()}
-                                     for k in ("ln2", "mlp") if k in W},
-                                    x, cfg)
-        h = apply_norm({k: v[1] for k, v in W["ln2"].items()}, x, cfg.norm)
-        mlp = W["mlp"]
-        parts = []
-        for i, hm in enumerate(model.fanout(h)):
-            p = {k: v[1][i] for k, v in mlp.items() if v[0] == "shard"}
-            if "w_gate" in mlp:
-                parts.append((F.silu(hm @ p["w_gate"]) * (hm @ p["w_up"]))
-                             @ p["w_down"])
-            else:
-                parts.append(F.gelu(hm @ p["w_in"] + p["b_in"],
-                                    approximate="tanh") @ p["w_out"])
+    def _mlp(self, mlp, h):
+        """The MLP split over "model": each shard's column and row blocks,
+        the partial outputs summed and the output bias added once."""
+        model = self.shards.model
+        apply = apply_swiglu if "w_gate" in mlp else apply_gelu_mlp
+        parts = [apply({k: v[1][i] for k, v in mlp.items()
+                        if v[0] == "shard"}, hm)
+                 for i, hm in enumerate(model.fanout(h))]
         y = model.reduce(parts)
         return y + mlp["b_out"][1] if "b_out" in mlp else y
 
     def _unit(self, W, x, ctx, window):
-        """``models.model``'s unit: ln1, attention, and the residual
-        (``add_residual``'s order) with the FFN."""
-        cfg = self.cfg
-        h = apply_norm({k: v[1] for k, v in W["ln1"].items()}, x, cfg.norm)
+        """``models.model``'s unit: ln1, attention, and ``add_residual``
+        with the FFN, its MLP split where ``split_mlp``."""
+        rep = {k: {n: v[1] for n, v in W[k].items() if v[0] == "rep"}
+               for k in ("ln1", "ln2", "mlp") if k in W}
+        h = apply_norm(rep["ln1"], x, self.cfg.norm)
         a = self._attention(W["attn"], h, ctx, window)
-        if cfg.parallel_residual:
-            return x + a + self._ffn(W, x)
-        x = x + a
-        return x + self._ffn(W, x)
+        mlp = (lambda y: self._mlp(W["mlp"], y)) \
+            if "mlp" in W and self.split_mlp else None
+        return M.add_residual(rep, x, a, self.cfg, mlp)
 
     # -- head + CE -----------------------------------------------------------
     def _nll(self, W_norm, W_head, tied, h, tgt, mask):
         """Summed NLL of one chunk: the final norm, the head, the CE."""
         model = self.shards.model
-        h = apply_norm(W_norm, h, self.cfg.norm)
         kind, w = W_head
         if kind == "rep":
-            lg = (h @ (w.T if tied else w).to(h.dtype)).float()
-            lse = torch.logsumexp(lg, dim=-1)
-            tl = torch.gather(lg, -1, tgt.long()[..., None])[..., 0]
-            return ((lse - tl) * mask).sum()
+            p = {"final_norm": W_norm, "embed" if tied else "head": w}
+            return M._ce_from_hidden(p, self.cfg, h, tgt, mask)[0]
+        h = apply_norm(W_norm, h, self.cfg.norm)
         lgs = [(hm @ wm.to(hm.dtype)).float()
                for hm, wm in zip(model.fanout(h), w)]
         nv = w[0].shape[-1]
@@ -481,15 +464,9 @@ class TPLoss:
         xs = []
         for jj, tok in enumerate(toks):
             kind, e = emb[jj]
-            if kind == "shard":
-                x = self.shards.model.gather(
-                    [F.embedding(tok.long(), em.to(self.cd)) for em in e],
-                    2)
-            else:
-                x = F.embedding(tok.long(), e.to(self.cd))
-            if cfg.name.startswith("gemma"):
-                x = x * (cfg.d_model ** 0.5)
-            xs.append(x)
+            xs.append(self.shards.model.gather(
+                [M.embed_rows(em, cfg, tok) for em in e], 2)
+                if kind == "shard" else M.embed_rows(e, cfg, tok))
         ctxs = [M.make_ctx(cfg, t.shape[0], t.shape[1], dev) for t in toks]
         # the units, each remat'd with its weights' gathers
         for s, seg in enumerate(self.segs):
@@ -523,7 +500,8 @@ class TPLoss:
             mask = torch.cat([torch.ones((B, S - 1), device=dev),
                               torch.zeros((B, 1), device=dev)], 1)
             wn = {k: v[jj][1] for k, v in norm_w.items()}
-            lc = LOSS_CHUNK if S % LOSS_CHUNK == 0 and S > LOSS_CHUNK else S
+            lc = M.LOSS_CHUNK if S % M.LOSS_CHUNK == 0 \
+                and S > M.LOSS_CHUNK else S
             total = None
             for c0 in range(0, S, lc):
                 sl = slice(c0, c0 + lc)

@@ -70,3 +70,22 @@ def unflatten_like(tree, flat: List[Any]):
         return by_key[prefix]
 
     return build(tree)
+
+
+def bit_digest(x) -> int:
+    """An exact integer digest of a tensor's bits: its f32 (or integer)
+    values (+0.0 for -0.0) as int64, weighted by position and summed in
+    integer arithmetic on the tensor's device. Equal digests mean equal
+    bits up to the sign of zero (what ``np.array_equal`` compares), without
+    copying the tensor to the host."""
+    import torch
+
+    x = x.contiguous().reshape(-1)
+    if x.dtype.is_floating_point:
+        x = (x.float() + 0.0).view(torch.int32)
+    total = 0
+    for i in range(0, x.numel(), 1 << 26):
+        v = x[i:i + (1 << 26)].to(torch.int64)
+        w = torch.arange(i, i + v.numel(), device=v.device) % 1000003 + 1
+        total += int((v * w).sum())
+    return total
