@@ -126,6 +126,17 @@ continues:
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
      device steps x layers;
+     c. the same driver's tensor-parallel shards, all in this process on
+        the card (``serve.run`` with no shards): opt-1.3b at ``--data 2
+        --model 2`` and ``--data 1 --model 4``, stablelm-12b at ``--model
+        4``: greedy tokens and admission fingerprint those of 5 / 5b, the
+        kernel launched device steps x layers x shards times; per-token ms
+        and peak memory beside 5's (``serve_tp``);
+     d. the paged kernel on each model shard's query heads and KV heads
+        (KV/M, or gemma3-1b's one head replicated) at 2,048 tokens, bit for
+        bit those heads of the whole-cache launch: opt-1.3b, stablelm-12b
+        and qwen1.5-107b shapes at M = 2 and 4, gemma3-1b at M = 2
+        (``paged_shards``);
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
      dense decode loop (plain attention) at full width must agree: opt-1.3b,
      then (6b) stablelm-12b (40 layers) and qwen1.5-107b cut to 2 of 78
@@ -2594,7 +2605,130 @@ def serve(arch="opt-1.3b"):
         g = req.generated
         if len(g) != 64 or min(g) < 0 or max(g) >= cfg.vocab_size:
             raise SystemExit(f"FAIL serve: request {req.rid} generated {g}")
+    st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return launches, st
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the serve driver's tensor-parallel shards, all on the card
+# ---------------------------------------------------------------------------
+
+SERVE_TP_LEGS = (("opt-1.3b", 2, 2), ("opt-1.3b", 1, 4),
+                 ("stablelm-12b", 1, 4))     # arch, --data, --model
+
+
+def serve_tp(ref, arch="opt-1.3b", data=2, model=2):
+    """Phase 5c: ``launch/serve.py``'s in-process entry (``run`` with no
+    shards: every (data, model) shard in this process) on phase 5's
+    requests at ``--data`` x ``--model``: the greedy tokens and the
+    admission fingerprint of the one-card run ``ref`` (phase 5 or 5b's
+    stats), the paged kernel launched once a unit and step on every
+    shard's pool. Returns the launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serve import attention_paged as ap
+
+    argv = (["--arch", arch] + SERVE_ARGS[2:]
+            + ["--devices", str(data * model), "--data", str(data),
+               "--model", str(model)])
+    _phase("serve tp: repro_torch.launch.serve.run, every shard on the "
+           "card: " + " ".join(argv))
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ap.cuda_paged_attention.launches = 0
+    st = serve_lib.run(serve_lib._parse_args(argv), torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = ap.cuda_paged_attention.launches
+    want = st["device_steps"] * cfg.n_layers * data * model
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve tp {data} x {model}: {st['requests_done']} requests, "
+          f"{st['device_steps']} device steps, paged_attention launches "
+          f"{launches} (device steps x {cfg.n_layers} x {data * model} "
+          f"shards = {want})")
+    print(f"serve tp {data} x {model}: per-token p50/p99 "
+          f"{st['per_token_ms_p50']:.3f}/{st['per_token_ms_p99']:.3f} ms "
+          f"(one card: {ref['per_token_ms_p50']:.3f}/"
+          f"{ref['per_token_ms_p99']:.3f}), decode {st['decode_tok_s']:.1f} "
+          f"tok/s (one card: {ref['decode_tok_s']:.1f}), peak memory "
+          f"{peak:.2f} GiB (one card: {ref['peak_gib']:.2f})")
+    same = [a == b for a, b in zip(st["tokens"], ref["tokens"])]
+    print(f"serve tp {data} x {model}: {sum(same)} of {len(same)} requests' "
+          f"tokens equal the one card's; admission fingerprint "
+          f"{st['admission_fingerprint']} (one card: "
+          f"{ref['admission_fingerprint']})")
+    if not all(same) or len(st["tokens"]) != len(ref["tokens"]):
+        bad = same.index(False) if False in same else len(same)
+        _fail(f"serve tp {arch} {data} x {model}: request {bad}'s tokens "
+              f"differ from the one-card run's")
+    if st["admission_fingerprint"] != ref["admission_fingerprint"]:
+        _fail(f"serve tp {arch} {data} x {model}: admission fingerprint "
+              f"differs")
+    if launches != want:
+        _fail(f"serve tp {arch} {data} x {model}: {launches} kernel "
+              f"launches, expected {want}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the paged kernel on KV-head shards against the whole cache
+# ---------------------------------------------------------------------------
+
+SHARD_CASES = [
+    # name, shape kw, window, model shards
+    ("opt-1.3b", dict(KV=32, G=1, dh=64), 0, (2, 4)),
+    ("stablelm-12b", dict(KV=8, G=4, dh=160), 0, (2, 4)),
+    ("qwen1.5-107b", dict(KV=8, G=8, dh=128), 0, (2, 4)),
+    ("gemma3-1b (replicated KV head)", dict(KV=1, G=4, dh=256), 512, (2,)),
+    ("gemma3-1b global (replicated KV head)", dict(KV=1, G=4, dh=256), 0,
+     (2,)),
+]
+
+
+def paged_shards():
+    """Phase 5d: one decode step's paged attention at 2,048 tokens, the
+    kernel launched on each model shard's query heads and its KV heads
+    (``parallel.tensor.kv_heads``: KV/M, or the one head a shard
+    replicates), must be bit for bit those heads of the whole-cache
+    launch: the plan (``_plan.paged_plan``) reads neither the heads nor G,
+    and each head's sums run in the same order."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.parallel.tensor import kv_heads
+    from repro_torch.serve import attention_paged as ap
+
+    _phase("paged attention on KV-head shards vs the whole cache")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for name, kw, window, ms in SHARD_CASES:
+        q, cache, table, lengths = paged_case(
+            gen, S=8, P=128, ps=16, max_len=2048, n_inactive=1, dev=dev,
+            **kw)
+        whole = ap.cuda_paged_attention(q, cache, table, lengths,
+                                        window=window)
+        H = q.shape[2]
+        cfg = ModelConfig(n_heads=H, n_kv_heads=kw["KV"], head_dim=kw["dh"])
+        for nm in ms:
+            hl = H // nm
+            equal = True
+            for m in range(nm):
+                lo, hi = kv_heads(cfg, nm, m)
+                part = {k: v[:, :, lo:hi].contiguous()
+                        for k, v in cache.items()}
+                got = ap.cuda_paged_attention(
+                    q[:, :, m * hl:(m + 1) * hl].contiguous(), part, table,
+                    lengths, window=window)
+                equal &= bool(torch.equal(got,
+                                          whole[:, :, m * hl:(m + 1) * hl]))
+            torch.cuda.synchronize()
+            print(f"paged shards: {name} (H {H}, KV {kw['KV']}, dh "
+                  f"{kw['dh']}, window {window}) at M = {nm}, "
+                  f"{hi - lo} KV head(s) a shard: bit for bit the whole "
+                  f"launch's heads: {equal}")
+            if not equal:
+                _fail(f"paged shards: {name} at M = {nm} differs from the "
+                      f"whole-cache launch")
 
 
 # ---------------------------------------------------------------------------
@@ -2725,8 +2859,16 @@ def main():
     torch.cuda.empty_cache()
     tp_step_checks()
     torch.cuda.empty_cache()
-    launches = serve()
-    launches_stablelm = serve("stablelm-12b")
+    launches, serve_ref = serve()
+    launches_stablelm, serve_ref_stablelm = serve("stablelm-12b")
+    launches_tp = {}
+    for arch, data, model in SERVE_TP_LEGS:
+        ref = serve_ref if arch == "opt-1.3b" else serve_ref_stablelm
+        launches_tp[f"{arch} {data}x{model}"] = serve_tp(ref, arch, data,
+                                                         model)
+    del serve_ref, serve_ref_stablelm
+    torch.cuda.empty_cache()
+    paged_shards()
     paged_vs_dense()
     paged_vs_dense("stablelm-12b")
     paged_vs_dense("qwen1.5-107b", n_layers=2)
@@ -2743,6 +2885,7 @@ def main():
         "library_ms": main_row["library_ms"], "plan": main_row["plan"],
         "blocks": main_row["blocks"],
         "launches_serve_stablelm_12b": launches_stablelm,
+        "launches_serve_tp": launches_tp,
         "cases": {row["case"]: {k: row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "plan", "blocks")} for row in rows}}]

@@ -48,6 +48,21 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    each round's seconds, the bytes each cluster hands to the all-gather
    (summed over its ranks) and every card's peak memory.
 
+5. Serving across cards (``--serve``, in place of 1 and 2): the serve
+   driver (``repro_torch.launch.serve``, paged engine, 8 slots, 12
+   requests of 32 prompt and 32 generated tokens) one rank per card,
+   weights and KV cache split over "model" (``parallel/tensor.py::
+   TPDecode``), slots over "data" (``SERVE_LEGS``): opt-1.3b at data x
+   model 1 x 4 and 2 x 2, stablelm-12b at 1 x 4 (40 layers) and
+   qwen1.5-107b at 1 x 4 cut to 8 of 78 layers. Each rank's digest
+   (``tree.bit_digest``) of its head outputs at every step must equal its
+   shard's in the in-process run (every shard in one process on one card),
+   and its tokens and admission fingerprint those of the one-card run.
+   Then qwen1.5-107b at 40 of 78 layers, 1 x 4 (``SERVE_BIG``: ~53 GiB a
+   card, ~212 GiB on one), ranks only: finite logits and the same tokens
+   on every rank. Rank runs come before the one-card references. Prints
+   per-token ms p50/p99 and every card's peak memory.
+
 ``--device cpu --smoke-only`` runs the same on CPU processes (gloo) at the
 reduced size, to rehearse. Needs ``--cards`` GPUs otherwise.
 """
@@ -361,6 +376,124 @@ def tp_legs(train, device, cards, legs, smoke, tmp):
                 for argv, got, views, label in runs])
 
 
+SERVE_LEGS = (("opt-1.3b", 0, 1, 4), ("opt-1.3b", 0, 2, 2),
+              ("stablelm-12b", 0, 1, 4), ("qwen1.5-107b", 8, 1, 4))
+SERVE_BIG = ("qwen1.5-107b", 40, 1, 4)      # arch, layers, data, model
+
+
+def serve_argv(device, arch, n_layers, data, model, smoke):
+    argv = ["--arch", arch, "--device", device, "--paged", "--batch", "8",
+            "--requests", "12", "--prompt-len", "32", "--gen-len", "32",
+            "--page-size", "16", "--eos", "-1", "--devices",
+            str(data * model), "--data", str(data), "--model", str(model),
+            "--join-timeout", "900"]
+    if smoke:
+        argv.append("--smoke")
+    if n_layers:
+        argv += ["--n-layers", str(n_layers)]
+    if device == "cpu":
+        argv += ["--cpu-threads", "1"]
+    return argv
+
+
+def serve_ranks(serve, argv, cards, tmp):
+    """The driver's ranks (``serve.main``), each writing its head outputs'
+    digests and its tokens (``--digests-out``): rank 0's summary and
+    every rank's record."""
+    out = tempfile.mkdtemp(dir=tmp)
+    print("== ranks: python -m repro_torch.launch.serve " + " ".join(argv),
+          flush=True)
+    s = serve.main(argv + ["--digests-out", out], store_dir=tmp)
+    got = []
+    for rank in range(cards):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            got.append(json.load(f))
+    print(f"{s['requests_done']} requests, {s['device_steps']} device steps, "
+          f"per-token p50/p99 {s['per_token_ms_p50']:.3f}/"
+          f"{s['per_token_ms_p99']:.3f} ms, decode {s['decode_tok_s']:.1f} "
+          f"tok/s, wall {s['wall_s']:.3f} s; peak memory per card "
+          f"{[round(b / 2**30, 2) for b in s['peak_bytes']]} GiB", flush=True)
+    return s, got
+
+
+def serve_reference(serve, device, argv, shards, tmp):
+    """The one-card run (``shards`` False: --data 1 --model 1) or the
+    in-process shard run of ``argv`` (every shard in this process, its
+    digests recorded); device memory is released afterwards."""
+    import torch
+
+    args = serve._parse_args(argv)
+    if not shards:
+        args.data = args.model = args.devices = 1
+    args.digests_out = tempfile.mkdtemp(dir=tmp) if shards else ""
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)
+    try:
+        st = serve.run(args, torch.device(device))
+    finally:
+        torch.set_num_threads(threads)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"{'in-process shards' if shards else 'one card'}: "
+          f"per-token p50/p99 {st['per_token_ms_p50']:.3f}/"
+          f"{st['per_token_ms_p99']:.3f} ms", flush=True)
+    digests = []
+    if shards:
+        with open(os.path.join(args.digests_out, "rank0.json")) as f:
+            digests = json.load(f)["digests"]
+    return {"tokens": st["tokens"], "digests": digests,
+            "admission_fingerprint": st["admission_fingerprint"]}
+
+
+def serve_compare(summary, ranks, one, inproc, model, label):
+    """Every rank's digests against its shard's in the in-process run, and
+    the tokens and fingerprint against the one-card run's."""
+    ok = (summary["admission_fingerprint"] == one["admission_fingerprint"])
+    print(f"{label}: admission fingerprint equal: {ok}", flush=True)
+    for rank, got in enumerate(ranks):
+        mine = got["digests"]
+        keys = {(tuple(r), m) for r, m, _, _ in mine}
+        want = [d for d in inproc["digests"] if (tuple(d[0]), d[1]) in keys]
+        same_bits = len(mine) > 0 and [d[2] for d in mine] == [
+            d[2] for d in want]
+        same_tokens = got["tokens"] == one["tokens"]
+        print(f"{label}: rank {rank} (data {rank // model}, model "
+              f"{rank % model}): {len(mine)} head outputs bit for bit the "
+              f"in-process shard run's: {same_bits}; tokens equal the "
+              f"one-card run's: {same_tokens}", flush=True)
+        ok &= same_bits and same_tokens
+    return ok
+
+
+def serve_legs(device, cards, smoke, tmp):
+    """The serve legs' ranks first, then the ranks-only leg, then the
+    references (one card, and every shard in one process)."""
+    from repro_torch.launch import serve
+
+    runs = []
+    for arch, n_layers, data, model in SERVE_LEGS:
+        argv = serve_argv(device, arch, n_layers, data, model, smoke)
+        label = (f"{arch}{f' {n_layers} layers' if n_layers else ''} "
+                 f"{data} x {model}")
+        runs.append((argv, model, label) + serve_ranks(serve, argv, cards,
+                                                       tmp))
+    arch, n_layers, data, model = SERVE_BIG
+    _, big = serve_ranks(serve, serve_argv(device, arch, n_layers, data,
+                                           model, smoke), cards, tmp)
+    finite = all(d[3] for r in big for d in r["digests"])
+    same = all(r["tokens"] == big[0]["tokens"] for r in big)
+    print(f"{arch} {n_layers} layers {data} x {model}: head outputs finite "
+          f"on every rank: {finite}; the same tokens on every rank: {same}",
+          flush=True)
+    ok = finite and same
+    for argv, model, label, summary, ranks in runs:
+        one = serve_reference(serve, device, argv, False, tmp)
+        inproc = serve_reference(serve, device, argv, True, tmp)
+        ok &= serve_compare(summary, ranks, one, inproc, model, label)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cards", type=int, default=4)
@@ -374,6 +507,8 @@ def main():
                          "clusters)")
     ap.add_argument("--tp", action="store_true",
                     help="the tensor-parallel legs in place of the others")
+    ap.add_argument("--serve", action="store_true",
+                    help="the serving legs in place of the others")
     args = ap.parse_args()
     if args.tp and any(c * d * m != args.cards for c, d, m in TP_LEGS):
         sys.exit(f"mesh_multi_gpu: the --tp legs (clusters x data x model "
@@ -392,7 +527,15 @@ def main():
         __file__)), "..", "src"))
     from repro_torch.launch import train
 
-    if args.tp:
+    if args.serve:
+        if args.cards != 4:
+            sys.exit(f"mesh_multi_gpu: the --serve legs need 4 cards; got "
+                     f"--cards {args.cards}")
+        with tempfile.TemporaryDirectory() as tmp:
+            equal = serve_legs(args.device, args.cards, args.smoke_only, tmp)
+        if not equal:
+            sys.exit("FAIL serve: the ranks differ from the references")
+    elif args.tp:
         with tempfile.TemporaryDirectory() as tmp:
             equal = tp_legs(train, args.device, args.cards, TP_LEGS,
                             args.smoke_only, tmp)

@@ -14,7 +14,7 @@ give an f32 tree congruent with the params, and the placement rule
 ``PP-INNER-SMOKE-OK arch=... stages=... layers_per_stage=... params=...``
 and a JSON summary.
 
-Not ported (ROADMAP A.11c): the rest of the JAX dry-run, i.e. lowering the
+Not ported (ROADMAP A.11d): the rest of the JAX dry-run, i.e. lowering the
 mesh step through XLA, parsing its HLO for collectives and the TPU
 roofline (``--mode``, ``--shape``, ``--all``).
 """
@@ -107,7 +107,7 @@ def main(argv=None) -> None:
     ap.add_argument("--inner", default="pp", choices=["pp"],
                     help="the pipeline-parallel inner engine's shape check "
                          "on the meta device (the JAX dry-run's other "
-                         "modes are not ported yet, ROADMAP A.11c)")
+                         "modes are not ported yet, ROADMAP A.11d)")
     ap.add_argument("--pp-stages", type=int, default=8)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)

@@ -317,8 +317,11 @@ def _sharded_outer_step(cfg, ccfg, shards, cluster_group, kw):
 # serving step
 # ---------------------------------------------------------------------------
 
-def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None):
+def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None,
+                    tp=None):
     """One decode step: token + caches -> next token (greedy) + caches.
+    With ``tp`` (a ``parallel.tensor.TPDecode``) ``params`` is the local
+    model shards' blocks and ``state`` ``tp.init_decode_state``'s.
 
     With ``eos_id`` set the returned function takes and returns a
     per-sequence ``finished`` bool mask: rows already finished keep
@@ -328,6 +331,8 @@ def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None):
     outputs are prompt-forced and must not trip EOS."""
 
     def serve_step(params, state, tokens):
+        if tp is not None:
+            return tp.decode_next(params, state, tokens)
         logits, state = M.decode_step(params, cfg, state, tokens)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         return nxt, state

@@ -687,17 +687,21 @@ def _shard_group(args, mesh, c: int, j: int, m: int):
                       coords=(j, m))
 
 
-def _spawn(args, store_path: str, summary_path: str) -> None:
-    """One process per rank (spawn start method); waits at most
-    ``--join-timeout`` seconds, stops every rank if one fails or time
-    runs out, and raises naming the ranks that did not finish."""
+def _spawn(args, store_path: str, summary_path: str, worker=None) -> None:
+    """One process per rank (spawn start method) running ``worker(rank,
+    args, store_path, summary_path=summary_path)`` (default: this
+    driver's);
+    waits at most ``--join-timeout`` seconds, stops every rank if one
+    fails or time runs out, and raises naming the ranks that did not
+    finish."""
     import multiprocessing.connection as mpc
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_worker,
-                         args=(rank, args, store_path, None, summary_path))
+    procs = [ctx.Process(target=worker or _worker,
+                         args=(rank, args, store_path),
+                         kwargs={"summary_path": summary_path})
              for rank in range(args.devices)]
     for p in procs:
         p.start()
@@ -720,7 +724,7 @@ def _spawn(args, store_path: str, summary_path: str) -> None:
                 p.join()
     bad = {rank: p.exitcode for rank, p in enumerate(procs) if p.exitcode}
     if bad:
-        raise RuntimeError(f"training ranks failed or timed out after "
+        raise RuntimeError(f"ranks failed or timed out after "
                            f"{args.join_timeout} s: exit codes {bad}")
 
 

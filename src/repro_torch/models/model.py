@@ -92,6 +92,19 @@ def add_residual(p, x, a, cfg: ModelConfig, mlp=None):
     return x + apply_ffn_unit(p, x, cfg, mlp)
 
 
+def decode_attention(p, h, cache, index: int, cfg: ModelConfig, *,
+                     window: int, n_heads: int = 0, n_kv: int = 0):
+    """A decode unit's attention output ``o @ wo`` (B,1,d) for its normed
+    input ``h``, the cache (ring buffer or full length) written in place
+    at ``index``. ``n_heads`` / ``n_kv`` (default: the config's) are a
+    tensor-parallel shard's heads, ``p`` its column and row blocks."""
+    kw = dict(n_heads=n_heads or cfg.n_heads, n_kv=n_kv or cfg.n_kv_heads,
+              head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+    if "pos" in cache:
+        return attn.decode_gqa_ring(p, h, cache, index, **kw)[0]
+    return attn.decode_gqa(p, h, cache, index, window=window, **kw)[0]
+
+
 def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
     """Builds a Segment unit for one dense transformer layer."""
     d, dt = cfg.d_model, torch_dtype(cfg.param_dtype)
@@ -127,14 +140,8 @@ def _mk_attn_layer(cfg: ModelConfig, *, window: int, kind: str) -> Segment:
 
     def decode_unit(p, x1, cache, index):
         h = apply_norm(p["ln1"], x1, cfg.norm)
-        kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
-                  rope_theta=cfg.rope_theta)
-        if "pos" in cache["self"]:
-            a, _ = attn.decode_gqa_ring(p["attn"], h, cache["self"], index,
-                                        **kw)
-        else:
-            a, _ = attn.decode_gqa(p["attn"], h, cache["self"], index,
-                                   window=window, **kw)
+        a = decode_attention(p["attn"], h, cache["self"], index, cfg,
+                             window=window)
         return add_residual(p, x1, a, cfg), cache
 
     return Segment(kind, 1, window, init_unit, apply_unit, init_cache,
@@ -190,6 +197,56 @@ def init_params(cfg: ModelConfig, generator=None, device=None
                                     dtype=dt, device=device)
     params["segments"] = [s.init_unit(generator, s.n, device) for s in segs]
     return params
+
+
+def _seeded(device, seed: int, *key: int):
+    g = torch.Generator(device=device)
+    for k in key:
+        seed = (seed * 1_000_003 + k) % (1 << 62)
+    g.manual_seed(seed)
+    return g
+
+
+def draw_params(cfg: ModelConfig, seed: int, device=None, index_of=None
+                ) -> Dict[str, Any]:
+    """Random parameters with ``init_params``' distributions and tree, drawn
+    unit by unit: the embedding, final norm and head from a generator seeded
+    (seed, 0), unit i of segment s (``init_unit`` of one unit) from one
+    seeded (seed, s + 1, i). Each leaf is cut to ``index_of(keystr, whole
+    shape)`` (a tuple of slices, the unit dim first for segment leaves;
+    default: all of it) as it is drawn, so no whole stacked leaf exists on
+    ``device`` and a shard's blocks hold the same values as the whole tree
+    from the same seed. (Another stream from ``init_params``'.)"""
+    dt = torch_dtype(cfg.param_dtype)
+    meta = init_params(cfg, device="meta")
+    if index_of is None:
+        def index_of(key, shape):
+            return tuple(slice(None) for _ in shape)
+    g = _seeded(device, seed, 0)
+    top = {"embed": embed_init(g, cfg.vocab_size, cfg.d_model, dtype=dt,
+                               device=device),
+           "final_norm": init_norm(cfg.norm, cfg.d_model, dtype=dt,
+                                   device=device)}
+    if not cfg.tie_embeddings:
+        top["head"] = dense_init(g, cfg.d_model, cfg.vocab_size, dtype=dt,
+                                 device=device)
+    out = {key: x[index_of(key, tuple(x.shape))].clone()
+           for key, x in T.keystr_items(top)}
+    del top
+    for s, seg in enumerate(build_segments(cfg)):
+        pre = f"['segments'][{s}]"
+        whole = dict(T.keystr_items(meta["segments"][s]))
+        idx = {k: index_of(pre + k, tuple(x.shape)) for k, x in whole.items()}
+        blocks = {k: torch.empty(x[idx[k]].shape, dtype=x.dtype,
+                                 device=device) for k, x in whole.items()}
+        for i in range(seg.n):
+            u = dict(T.keystr_items(seg.init_unit(
+                _seeded(device, seed, s + 1, i), 1, device)))
+            for k, b in blocks.items():
+                b[i] = u[k][0][idx[k][1:]]
+            del u
+        out.update({pre + k: b for k, b in blocks.items()})
+    return T.unflatten_like(meta, [out[k] for k, _ in T.keystr_items(meta)])
 
 
 def params_device(params) -> torch.device:

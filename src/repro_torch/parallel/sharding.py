@@ -30,6 +30,14 @@ name are the ones it computes in:
     head's stored placement splits V (the vocab-parallel cross entropy);
   - "head_w" (d,V): the head's own placement;
   - "ctx3", "ctx4", "moe_buf": no dense-family counterpart.
+
+``decode_state_placements`` stays the JAX rule, which puts "model" on the
+last divisible dim of a (units, B, S, KV, hd) cache, i.e. ``hd``. The
+serving path (``parallel/tensor.py::TPDecode``) stores the cache split by
+KV head instead, the split its attention and the paged kernel read, so
+no cache is gathered per token: the same 1/M of the bytes a card.
+``serve_blocks`` cuts a whole tree, or a checkpoint's arrays leaf by
+leaf, into one rank's serving blocks.
 """
 from __future__ import annotations
 
@@ -255,3 +263,42 @@ def unshard_tree(blocks: List[Tuple[Mapping[str, int], Any]],
     leaves = [unshard_leaf([(c, x) for (c, _), (_, x) in zip(blocks, row)],
                            placements[row[0][0]], mesh) for row in items]
     return T.unflatten_like(blocks[0][1], leaves)
+
+
+def serve_blocks(flat: Mapping[str, Any], index_of, like, device, *,
+                 allow_stacked: bool = False):
+    """One rank's serving blocks of a whole parameter tree given as
+    ``{keystr: array}`` (a tree's ``tree.keystr_items``, or a JAX
+    checkpoint's arrays, which may be an ``np.load`` archive read leaf by
+    leaf): each leaf cut to ``index_of(keystr, whole shape)`` (e.g.
+    ``parallel.tensor.serve_index``) where it lies, then carried to
+    ``device``, so no whole stacked leaf is ever on the card. ``like``
+    (e.g. ``init_params(cfg, device="meta")``) gives the tree, its shapes
+    and dtypes. NumPy blocks cross through the weight bridge
+    (``checkpoint.tree_from_flat``, which ``params_from_flat`` is), with
+    ``allow_stacked`` taking row 0 of a cluster-stacked leaf."""
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    out, shapes = {}, {}
+    for key, ref in T.keystr_items(like):
+        shape = tuple(ref.shape)
+        x = flat[key]
+        if allow_stacked and tuple(x.shape) != shape \
+                and tuple(x.shape[1:]) == shape:
+            x = x[0]
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{key}: array shape {tuple(x.shape)} vs model "
+                             f"{shape}")
+        blk = x[index_of(key, shape)]
+        out[key] = (blk.to(device=device, dtype=ref.dtype, copy=True)
+                    .contiguous() if isinstance(blk, torch.Tensor)
+                    else np.ascontiguousarray(blk))
+        shapes[key] = torch.empty(blk.shape, dtype=ref.dtype, device="meta")
+        del x
+    if any(isinstance(v, torch.Tensor) for v in out.values()):
+        return T.unflatten_like(like, [out[k] for k, _ in
+                                       T.keystr_items(like)])
+    return ckpt.tree_from_flat(out, T.unflatten_like(
+        like, [shapes[k] for k, _ in T.keystr_items(like)]), device)

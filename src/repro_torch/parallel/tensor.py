@@ -33,6 +33,12 @@ the clip norm's squares and the loss. The collectives are autograd
 Functions with explicit backwards, issued by every rank in the same
 order.
 
+Serving (``TPDecode``, ``launch/serve.py --data/--model``) places the
+weights over "model" only (``serve_index``), keeps each shard's KV heads
+of the cache, splits the batch or the engine's slots over "data", and
+sums and gathers the same way; there M may also be a multiple of the KV
+heads, each shard keeping a copy of the one KV head it reads.
+
 Two forms, one arithmetic: ``ShardGroup(D, M)`` holds every shard of a
 cluster in this process, its blocks views of whole tensors (the tests and
 one card), and ``ShardGroup(D, M, data_group=..., ...)`` one shard per
@@ -41,7 +47,8 @@ on the same shapes in both, and the sums are taken in the same order.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -53,15 +60,22 @@ from repro_torch.models.layers import apply_gelu_mlp, apply_norm, apply_swiglu
 from repro_torch.parallel import sharding as sh
 
 
-def check_tp(cfg: ModelConfig, n_model: int) -> None:
+def check_tp(cfg: ModelConfig, n_model: int, *, serve: bool = False
+             ) -> None:
     """Refuses a "model" size that would split a KV group: the shards of a
-    GQA layer hold whole groups of query heads and their KV head."""
-    if n_model > 1 and cfg.n_heads % n_model == 0 \
-            and cfg.n_kv_heads % n_model:
-        raise ValueError(
-            f"{cfg.name}: --model {n_model} would split a KV group "
-            f"({cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads); "
-            f"the model size must divide the KV heads")
+    GQA layer hold whole groups of query heads and their KV head. Serving
+    (``serve``) also takes a multiple of the KV heads: each shard then
+    keeps a replicated copy of the one KV head its query heads read
+    (training refuses it: that head's gradient would need its own sum)."""
+    if n_model <= 1 or cfg.n_heads % n_model or cfg.n_kv_heads % n_model == 0:
+        return
+    if serve and n_model % cfg.n_kv_heads == 0:
+        return
+    raise ValueError(
+        f"{cfg.name}: --model {n_model} would split a KV group "
+        f"({cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads); "
+        f"the model size must divide the KV heads"
+        + (" or be a multiple of them" if serve else ""))
 
 
 def ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -123,6 +137,10 @@ class LocalAxis:
 
     def max(self, parts):
         return _max(parts)
+
+    def collect(self, parts) -> List[torch.Tensor]:
+        """Every index's value, in index order."""
+        return list(parts)
 
 
 def _all_gather(x, axis) -> List[torch.Tensor]:
@@ -205,6 +223,9 @@ class GroupAxis:
 
     def max(self, parts):
         return _max(_all_gather(parts[0], self))
+
+    def collect(self, parts) -> List[torch.Tensor]:
+        return _all_gather(parts[0], self)
 
 
 # ---------------------------------------------------------------------------
@@ -596,3 +617,235 @@ def regroup(parts, flat: List[torch.Tensor]):
     it = iter(flat)
     return {k: [[next(it) for _ in row] for row in rows]
             for k, rows in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# serving: greedy decode over the model shards
+# ---------------------------------------------------------------------------
+
+def kv_heads(cfg: ModelConfig, n_model: int, m: int) -> Tuple[int, int]:
+    """``[lo, hi)``: the KV heads that model shard m's query heads ``[m H/M,
+    (m+1) H/M)`` read (``h // G``): its KV/M heads, or the one head it
+    replicates where M is a multiple of KV; all of them where M does not
+    divide H (attention then runs whole on every shard)."""
+    if n_model == 1 or cfg.n_heads % n_model:
+        return 0, cfg.n_kv_heads
+    hl, g = cfg.n_heads // n_model, cfg.n_heads // cfg.n_kv_heads
+    return m * hl // g, ((m + 1) * hl - 1) // g + 1
+
+
+def _head_split(cfg: ModelConfig, n_model: int, key: str, shape) -> Tuple:
+    """The serving placement of the embedding or the head, and whether it
+    splits the dim ``TPLoss._split`` splits (the embedding's d_model
+    columns, the head's vocab). A tied head is computed whole, as
+    ``TPLoss._nll`` computes it, so the tied table stays whole."""
+    spec = sh.param_placements(
+        {key[2:-2]: torch.empty(shape, device="meta")},
+        {"data": 1, "model": n_model}, cluster_stacked=False,
+        serve=True)[key]
+    return spec, spec[1] == "model" and not cfg.tie_embeddings
+
+
+def serve_index(cfg: ModelConfig, n_model: int, m: int) -> Callable:
+    """``index_of(keystr, whole shape)``: what model shard m keeps of each
+    leaf to decode (for ``sharding.serve_blocks`` and
+    ``models.model.draw_params``). Weights are placed over "model" only
+    (``param_placements(..., serve=True)``, no FSDP dim). Where a leaf's
+    "model" dim is the one its layer splits, that is its block
+    (``sharding.block_slices``); where not (wo at square shapes, wk/wv
+    under GQA, the KV head a shard replicates) the layer's own cut, made
+    once at load and never gathered per token. A layer whose heads or d_ff
+    do not divide M stays whole, as do norms, the output bias and a tied
+    embedding."""
+    M.check_ported(cfg)
+    check_tp(cfg, n_model, serve=True)
+    hd = cfg.resolved_head_dim
+    split_attn = n_model > 1 and cfg.n_heads % n_model == 0
+    split_mlp = n_model > 1 and cfg.d_ff > 0 and cfg.d_ff % n_model == 0
+    hl = cfg.n_heads // n_model
+    lo, hi = kv_heads(cfg, n_model, m)
+    q = (m * hl * hd, (m + 1) * hl * hd)
+    f = cfg.d_ff // n_model
+    cuts = {"attn": {"wq": (-1,) + q, "wk": (-1, lo * hd, hi * hd),
+                     "wv": (-1, lo * hd, hi * hd), "wo": (1,) + q},
+            "mlp": {**{n: (-1, m * f, (m + 1) * f) for n in _COLUMN},
+                    **{n: (1, m * f, (m + 1) * f) for n in _ROW}}}
+
+    def index_of(key: str, shape) -> Tuple[slice, ...]:
+        out = [slice(None)] * len(shape)
+        name = key.rsplit("['", 1)[-1][:-2]
+        if key in ("['embed']", "['head']") and n_model > 1:
+            spec, split = _head_split(cfg, n_model, key, shape)
+            if split:
+                return sh.block_slices(shape, spec, {"data": 1,
+                                                     "model": n_model},
+                                       {"data": 0, "model": m})
+        for part, on in (("attn", split_attn), ("mlp", split_mlp)):
+            if on and f"['{part}']" in key and name in cuts[part]:
+                dim, a, b = cuts[part][name]
+                out[dim] = slice(a, b)
+        return tuple(out)
+
+    return index_of
+
+
+class TPDecode:
+    """Greedy decode (``models.model.decode_step`` and the paged engine's
+    step) over a ``ShardGroup``, from each local model shard's blocks
+    (``serve_index``): a list ``blocks``, one tree per index of
+    ``shards.model.local``.
+
+    Over "model", Megatron-style as ``TPLoss`` splits training: attention
+    on the shard's query heads and the KV heads they read, its cache
+    holding only those heads (``kv_heads``); the MLP's column and row
+    blocks; the row-parallel outputs (wo, w_out / w_down), (B, 1, d) a
+    layer, all-gathered and summed in shard order, the bias added once
+    after the sum; the embedding looked up on the shard's d_model columns
+    and gathered; the head vocab-split where its placement splits V, the
+    next token the largest of the gathered per-shard (max, index) pairs,
+    the lower vocab index on an exact tie (what ``torch.argmax`` of the
+    whole row gives). Over "data", a batch whose size D divides splits
+    into D contiguous blocks, each data shard running its own and the
+    tokens all-gathered in shard order; any other batch runs whole on
+    every data shard. In process every block and shard runs in turn with
+    the shapes a rank gives it, so the ranks give the same bits."""
+
+    def __init__(self, cfg: ModelConfig, shards: ShardGroup):
+        M.check_ported(cfg)
+        check_tp(cfg, shards.M, serve=True)
+        self.cfg, self.shards = cfg, shards
+        nm = shards.M
+        self.split_attn = nm > 1 and cfg.n_heads % nm == 0
+        self.split_mlp = nm > 1 and cfg.d_ff > 0 and cfg.d_ff % nm == 0
+        self.n_heads = cfg.n_heads // nm if self.split_attn else cfg.n_heads
+        lo, hi = kv_heads(cfg, nm, 0)
+        self.n_kv = hi - lo
+        self.vocab_split = nm > 1 and _head_split(
+            cfg, nm, "['head']", (cfg.d_model, cfg.vocab_size))[1]
+        self.segs = M.build_segments(cfg)
+        # caches a process keeps per data block: one per local model shard,
+        # one where attention runs whole
+        self.n_caches = len(shards.model.local) if self.split_attn else 1
+        # on_logits(rows, [(model index or None, logits (B, 1, V_i))]):
+        # sees each data block's head outputs (None: the whole row)
+        self.on_logits: Optional[Callable] = None
+
+    def shard_config(self) -> ModelConfig:
+        """The config whose caches hold one shard's KV heads."""
+        return dataclasses.replace(self.cfg, n_kv_heads=self.n_kv)
+
+    def rows(self, n: int) -> List[Tuple[int, int]]:
+        """``[lo, hi)`` of the rows of an n-row batch that each local data
+        index runs (one block of all n where D does not divide n)."""
+        D = self.shards.D
+        if n % D:
+            return [(0, n)]
+        w = n // D
+        return [(j * w, (j + 1) * w) for j in self.shards.data.local]
+
+    # -- the model's pieces over the shards ----------------------------------
+    def embed(self, blocks, tokens):
+        cfg = self.cfg
+        if blocks[0]["embed"].shape[1] == cfg.d_model:
+            return M.embed_rows(blocks[0]["embed"], cfg, tokens)
+        return self.shards.model.gather(
+            [M.embed_rows(b["embed"], cfg, tokens) for b in blocks], 2)
+
+    def unit(self, Ws, x, attend):
+        """``models.model``'s decode unit (ln1, attention, ``add_residual``
+        with the FFN, its MLP split where ``split_mlp``) over the local
+        shards' unit blocks ``Ws``; ``attend(i, p_attn, h)`` is local shard
+        i's ``o @ wo`` partial, its cache written."""
+        cfg, model = self.cfg, self.shards.model
+        p = Ws[0]
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        if self.split_attn:
+            a = model.reduce([attend(i, W["attn"], h)
+                              for i, W in enumerate(Ws)])
+        else:
+            a = attend(0, p["attn"], h)
+        mlp = None
+        if self.split_mlp and "mlp" in p:
+            apply = apply_swiglu if "w_gate" in p["mlp"] else apply_gelu_mlp
+
+            def mlp(y):
+                out = model.reduce([apply({k: v for k, v in W["mlp"].items()
+                                           if k != "b_out"}, y) for W in Ws])
+                return out + p["mlp"]["b_out"] if "b_out" in p["mlp"] \
+                    else out
+        return M.add_residual(p, x, a, cfg, mlp)
+
+    def logits(self, blocks, x) -> List[Tuple[Optional[int], torch.Tensor]]:
+        """The head's outputs: each local shard's vocab block, or the whole
+        row (``models.model.logits_fn`` on a shard's blocks)."""
+        if not self.vocab_split:
+            return [(None, M.logits_fn(blocks[0], self.cfg, x))]
+        return [(m, M.logits_fn(b, self.cfg, x))
+                for m, b in zip(self.shards.model.local, blocks)]
+
+    def argmax(self, parts) -> torch.Tensor:
+        """The next token (B,) from ``logits``' last position."""
+        if not self.vocab_split:
+            return torch.argmax(parts[0][1][:, -1], dim=-1)
+        vals, idx = [], []
+        for m, lg in parts:
+            lg = lg[:, -1]
+            j = torch.argmax(lg, dim=-1)
+            vals.append(torch.gather(lg, -1, j[:, None])[:, 0])
+            idx.append(j + m * lg.shape[-1])
+        vals = self.shards.model.collect(vals)
+        idx = self.shards.model.collect(idx)
+        best, arg = vals[0], idx[0]
+        for v, k in zip(vals[1:], idx[1:]):
+            take = v > best                 # a tie keeps the lower index
+            best, arg = torch.where(take, v, best), torch.where(take, k, arg)
+        return arg
+
+    def next_tokens(self, blocks, tokens, attend) -> torch.Tensor:
+        """One decode step of the batch ``tokens`` (B, 1): each local data
+        block through every unit and the head. ``attend(c, i, p_attn, h)``
+        gives local model shard i's attention partial in context ``c``
+        (``rows``, block index ``jj``, segment ``s``, unit ``u``,
+        ``window``). Returns every row's next token (B,) int32."""
+        B = tokens.shape[0]
+        rows = self.rows(B)
+        xs = [self.embed(blocks, tokens[lo:hi]) for lo, hi in rows]
+        for s, seg in enumerate(self.segs):
+            for u in range(seg.n):
+                Ws = [M.unit(b["segments"][s], u) for b in blocks]
+                xs = [self.unit(Ws, x, lambda i, p, h, _c=dict(
+                    rows=rows[jj], jj=jj, s=s, u=u, window=seg.window):
+                    attend(_c, i, p, h)) for jj, x in enumerate(xs)]
+        out = []
+        for r, x in zip(rows, xs):
+            parts = self.logits(blocks, x)
+            if self.on_logits is not None:
+                self.on_logits(r, parts)
+            out.append(self.argmax(parts).to(torch.int32))
+        return self.shards.data.gather(out, 0) if B % self.shards.D == 0 \
+            else out[0]
+
+    # -- the dense loop -------------------------------------------------------
+    def init_decode_state(self, batch: int, s_max: int, device=None):
+        """``models.model.init_decode_state`` per local data block and
+        cache, each holding the shard's KV heads."""
+        scfg = self.shard_config()
+        return {"caches": [[M.init_decode_state(scfg, hi - lo, s_max,
+                                                device)["caches"]
+                            for _ in range(self.n_caches)]
+                           for lo, hi in self.rows(batch)], "index": 0}
+
+    def decode_next(self, blocks, state, tokens):
+        """``models.model.decode_step`` and the greedy pick: (next tokens
+        (B, 1) int32, state); the caches are written in place."""
+        index = int(state["index"])
+
+        def attend(c, i, p, h):
+            cache = M.unit(state["caches"][c["jj"]][i][c["s"]], c["u"])
+            return M.decode_attention(p, h, cache["self"], index, self.cfg,
+                                      window=c["window"],
+                                      n_heads=self.n_heads, n_kv=self.n_kv)
+
+        nxt = self.next_tokens(blocks, tokens, attend)
+        state["index"] = index + 1
+        return nxt[:, None], state

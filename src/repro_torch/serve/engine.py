@@ -10,6 +10,10 @@ The per-unit math mirrors ``model.decode_step`` + ``attention.decode_gqa``
 operation for operation, which makes paged and dense greedy tokens
 bitwise equal on the CPU on matching shapes (``max_pages_per_seq *
 page_size == s_max``). On the GPU, attention runs the CUDA kernel.
+
+Given a ``parallel.tensor.ShardGroup`` the step runs tensor-parallel: each
+model shard's pool holds its KV heads of every page (page ids stay
+global), and the kernel runs on it with the shard's query heads.
 """
 from __future__ import annotations
 
@@ -72,26 +76,43 @@ def dense_kv_bytes(cfg: ModelConfig, *, n_seqs: int, s_max: int) -> int:
             * cfg.resolved_head_dim * 2 * _itemsize(cfg))
 
 
-def make_paged_decode_step(cfg: ModelConfig):
+def paged_attention_unit(p, h, cache, lengths, active, page_tables, *,
+                         cfg: ModelConfig, window: int, n_heads: int = 0,
+                         n_kv: int = 0):
+    """A unit's attention output ``o @ wo`` (S,1,d) for its normed input
+    ``h``: ``attention.decode_gqa``'s projections and RoPE at each slot's
+    length, this step's K/V written into its page before attention (so a
+    token sees itself), the paged kernel over the slots' pages.
+    ``n_heads`` / ``n_kv`` (default: the config's) are a tensor-parallel
+    shard's heads, ``p`` its blocks and ``cache`` its KV heads' pool."""
+    n_heads, n_kv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
+    q, k_new, v_new = attn._qkv(p, h, n_heads, n_kv, cfg.resolved_head_dim)
+    pos = lengths[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    pa.write_kv(cache, k_new[:, 0], v_new[:, 0], page_tables, lengths,
+                active)
+    o = pa.paged_attention(q, cache, page_tables, lengths, window=window)
+    return o.reshape(h.shape[0], 1, -1) @ p["wo"]
+
+
+def make_paged_decode_step(cfg: ModelConfig, tp=None):
+    """The engine's device step. With ``tp`` (a ``parallel.tensor.
+    TPDecode``) ``params`` is the local shards' blocks and ``caches`` one
+    pool per local model shard (``TPDecode.n_caches``), each holding that
+    shard's KV heads of every page; each data shard runs its block of the
+    slots (``TPDecode.rows``), the kernel launched on its pool with the
+    shard's query heads."""
     ok, why = supports_paged(cfg)
     if not ok:
         raise NotImplementedError(f"{cfg.name}: {why}")
-    hd = cfg.resolved_head_dim
     segs = M.build_segments(cfg)
 
     def unit_step(p, x1, cache, lengths, active, page_tables, *, window):
-        # mirrors model decode_unit / attention.decode_gqa op for op;
-        # the K/V write comes before attention, so a token sees itself
+        # mirrors model decode_unit / attention.decode_gqa op for op
         h = apply_norm(p["ln1"], x1, cfg.norm)
-        q, k_new, v_new = attn._qkv(p["attn"], h, cfg.n_heads,
-                                    cfg.n_kv_heads, hd)
-        pos = lengths[:, None]
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos, cfg.rope_theta)
-        pa.write_kv(cache, k_new[:, 0], v_new[:, 0], page_tables, lengths,
-                    active)
-        o = pa.paged_attention(q, cache, page_tables, lengths, window=window)
-        a = o.reshape(x1.shape[0], 1, -1) @ p["attn"]["wo"]
+        a = paged_attention_unit(p["attn"], h, cache, lengths, active,
+                                 page_tables, cfg=cfg, window=window)
         return M.add_residual(p, x1, a, cfg)
 
     def step(params, caches, tokens, lengths, active, page_tables):
@@ -104,7 +125,20 @@ def make_paged_decode_step(cfg: ModelConfig):
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, caches
 
-    return step
+    if tp is None:
+        return step
+
+    def tp_step(params, caches, tokens, lengths, active, page_tables):
+        def attend(c, i, p, h):
+            lo, hi = c["rows"]
+            return paged_attention_unit(
+                p, h, M.unit(caches[i][c["s"]], c["u"]), lengths[lo:hi],
+                active[lo:hi], page_tables[lo:hi], cfg=cfg,
+                window=c["window"], n_heads=tp.n_heads, n_kv=tp.n_kv)
+
+        return tp.next_tokens(params, tokens[:, None], attend), caches
+
+    return tp_step
 
 
 def _pct(vals, q):
@@ -118,20 +152,37 @@ class ServeEngine:
 
     ``eos_id`` defaults to ``cfg.eos_id``; pass ``None`` to disable EOS.
     ``device`` defaults to CUDA and raises when there is none; the
-    parameters must already be on it.
+    parameters must already be on it. With ``shards`` (a
+    ``parallel.tensor.ShardGroup``) ``params`` is a list of the local
+    model shards' blocks (``tensor.serve_index``) and the step runs
+    tensor-parallel (``make_paged_decode_step``); every rank runs the same
+    page manager and scheduler, host code that reads only the tokens all
+    ranks share, so the admissions are the one-card engine's.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seqs: int,
                  page_size: int, n_pages: int, max_pages_per_seq: int,
                  eos_id: Any = "cfg", policy: str = "continuous",
-                 metrics=None, span=None, device=None):
+                 metrics=None, span=None, device=None, shards=None):
         ok, why = supports_paged(cfg)
         if not ok:
             raise NotImplementedError(f"{cfg.name}: {why}")
         self.device = resolve_device(device)
-        if M.params_device(params).type != self.device.type:
-            raise ValueError(f"params are on {M.params_device(params)}, "
-                             f"the engine on {self.device}")
+        self.tp = None
+        self.kv_cfg, n_pools = cfg, 1
+        if shards is not None:
+            from repro_torch.parallel.tensor import TPDecode
+
+            self.tp = TPDecode(cfg, shards)
+            self.kv_cfg, n_pools = self.tp.shard_config(), self.tp.n_caches
+            if len(params) != len(shards.model.local):
+                raise ValueError(f"{len(params)} block trees for "
+                                 f"{len(shards.model.local)} model shards")
+        self.n_pools = n_pools
+        at = M.params_device(params[0] if self.tp else params)
+        if at.type != self.device.type:
+            raise ValueError(f"params are on {at}, the engine on "
+                             f"{self.device}")
         self.params = params
         self.cfg = cfg
         self.page_size = int(page_size)
@@ -142,9 +193,11 @@ class ServeEngine:
                                eos_id=(cfg.eos_id if eos_id == "cfg"
                                        else eos_id),
                                policy=policy)
-        self.caches = init_kv_pages(cfg, n_pages=n_pages,
-                                    page_size=page_size, device=self.device)
-        self._fn = make_paged_decode_step(cfg)
+        pools = [init_kv_pages(self.kv_cfg, n_pages=n_pages,
+                               page_size=page_size, device=self.device)
+                 for _ in range(n_pools)]
+        self.caches = pools if self.tp else pools[0]
+        self._fn = make_paged_decode_step(cfg, self.tp)
         self.step_count = 0
         self.device_steps = 0
         self.prefill_tokens = 0
@@ -256,15 +309,16 @@ class ServeEngine:
             "dense_equiv_bytes": self.dense_equiv_bytes(),
         }
 
+    # (the bytes this process holds: its shards' pools)
     def kv_pool_bytes(self) -> int:
-        return kv_pool_bytes(self.cfg, n_pages=self.n_pages,
-                             page_size=self.page_size)
+        return self.n_pools * kv_pool_bytes(
+            self.kv_cfg, n_pages=self.n_pages, page_size=self.page_size)
 
     def kv_resident_bytes(self, n_used: int) -> int:
-        return kv_pool_bytes(self.cfg, n_pages=n_used,
-                             page_size=self.page_size)
+        return self.n_pools * kv_pool_bytes(
+            self.kv_cfg, n_pages=n_used, page_size=self.page_size)
 
     def dense_equiv_bytes(self) -> int:
-        return dense_kv_bytes(
-            self.cfg, n_seqs=self.pages.max_seqs,
+        return self.n_pools * dense_kv_bytes(
+            self.kv_cfg, n_seqs=self.pages.max_seqs,
             s_max=self.pages.max_pages_per_seq * self.page_size)

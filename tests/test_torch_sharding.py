@@ -251,3 +251,58 @@ def test_shard_tree_roundtrip(mesh):
                       coords[-1])
     assert all(isinstance(x, torch.Tensor) and x.is_contiguous()
                for x in T.leaves(t))
+
+
+# ---------------------------------------------------------------------------
+# serving blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_serve_blocks_are_shard_tree_where_the_placement_splits(n_model):
+    """``serve_blocks`` with ``block_slices`` of the serving placements is
+    ``shard_tree``; from numpy arrays (a checkpoint's) it gives the same
+    tensors as from the whole tree, and a cluster-stacked array's row 0."""
+    cfg = get_config("opt-1.3b").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(n_model)
+    params = M.init_params(cfg, gen, torch.device("cpu"))
+    mesh = {"data": 1, "model": n_model}
+    specs = sh.param_placements(params, mesh, cluster_stacked=False,
+                                serve=True)
+    like = M.init_params(cfg, device="meta")
+    for m in range(n_model):
+        coords = {"data": 0, "model": m}
+
+        def index_of(key, shape):
+            return sh.block_slices(shape, specs[key], mesh, coords)
+
+        want = sh.shard_tree(params, specs, mesh, coords)
+        flat = dict(T.keystr_items(params))
+        for got in (sh.serve_blocks(flat, index_of, like, "cpu"),
+                    sh.serve_blocks({k: v.numpy() for k, v in flat.items()},
+                                    index_of, like, "cpu"),
+                    sh.serve_blocks({k: np.stack([v.numpy()] * 2)
+                                     for k, v in flat.items()}, index_of,
+                                    like, "cpu", allow_stacked=True)):
+            for (k, a), (_, b) in zip(T.keystr_items(got),
+                                      T.keystr_items(want)):
+                assert a.is_contiguous() and torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("arch,n_model", [("granite-3-8b", 2),
+                                          ("gemma3-1b", 4),
+                                          ("stablelm-12b", 4)])
+def test_draw_params_blocks_are_the_whole_draws_blocks(arch, n_model):
+    """``models.model.draw_params`` cut as it draws (one unit at a time)
+    holds the values of the whole draw's blocks, so every layout serves
+    the same weights."""
+    from repro_torch.parallel.tensor import serve_index
+
+    cfg = get_config(arch).reduced()
+    whole = M.draw_params(cfg, 3, "cpu")
+    for m in range(n_model):
+        index_of = serve_index(cfg, n_model, m)
+        got = M.draw_params(cfg, 3, "cpu", index_of)
+        for (k, a), (_, b) in zip(T.keystr_items(got),
+                                  T.keystr_items(whole)):
+            assert torch.equal(a, b[index_of(k, tuple(b.shape))]), k
