@@ -122,6 +122,18 @@ continues:
         against the unsharded ``loss_fn`` per leaf (``TP_GRAD_RTOL`` of
         the leaf's norm) and two runs of one sharded step bit for bit
         (``tp_step_checks``); ms per step beside 4d's, peak memory;
+     j. the dry-run against the card: ``launch/dryrun.py``'s ``lower_one``
+        on the ``meta`` device at 4d's layout (opt-1.3b, one cluster, 1 x
+        1, 4 x 512, rank 64, f32): its state bytes 4d's round state's and
+        its cross-cluster bytes 4d's all-gather's, exactly, its peak
+        within 20 % of 4d's measured one (the ratio printed), beside the
+        H100 peaks it divides by and the card's SM count and max SM clock
+        (``dryrun_vs_card``); then a replicated KV head in training:
+        gemma3-1b at full width, 6 of 26 layers (one global), ``--data 1
+        --model 2`` with ``--flash`` (d = 256), every shard in process:
+        round 0 bitwise, losses within ``TP_LOSS_RTOL`` of the unsharded
+        run's, flash, ``lowrank_mm`` and the int4 kernels launched
+        (``tp_replicated_kv``);
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -137,6 +149,13 @@ continues:
         bit those heads of the whole-cache launch: opt-1.3b, stablelm-12b
         and qwen1.5-107b shapes at M = 2 and 4, gemma3-1b at M = 2
         (``paged_shards``);
+     e. phase 5's opt-1.3b paged run through ``TPDecode``'s 2-D placement
+        (weights placed as for training, each unit's gathered over "data"
+        before it runs) at 2 x 2, every shard on the card: tokens and
+        admission fingerprint 5's, the kernel launched device steps x
+        layers x 4 times; then the sharded prefill's last logits against
+        the one-card ``make_prefill_step``, within 1e-4 of their largest
+        (``serve_2d``);
   6. paged vs dense: greedy tokens of the paged engine (kernel) and of the
      dense decode loop (plain attention) at full width must agree: opt-1.3b,
      then (6b) stablelm-12b (40 layers) and qwen1.5-107b cut to 2 of 78
@@ -1806,11 +1825,13 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import dryrun as DR
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as M
 
     cfg = cfg or mesh_config()
+    held = []
     _phase("mesh driver: python -m repro_torch.launch.train "
            + " ".join(argv))
     dev = dev or torch.device("cuda")
@@ -1828,6 +1849,9 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
             round0.append(all(
                 torch.equal(anchor[k], initial[k].to(dev))
                 and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
+            # the round state the driver holds (phase 4j's arg_bytes)
+            held.append(DR.state_bytes({"params": params, "opt": opt,
+                                        "outer": outer}))
         if r == args.rounds - 1:
             torch.cuda.synchronize()
             launches.update({name: w.launches for name, w in wrappers.items()})
@@ -1892,6 +1916,7 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
     if summary["gather_bytes"] != [gather] * args.rounds:
         _fail(f"mesh driver: all-gather handed {summary['gather_bytes']} B, "
               f"expected {gather} per round")
+    summary["state_bytes"], summary["peak_bytes"] = held[0], peak
     return launches, summary
 
 
@@ -2561,6 +2586,175 @@ def tp_step_checks(dev=None, argv=TP_ARGS, cfg=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: the dry-run against the card; a replicated KV head in training
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_RTOL = 0.2  # the meta run's peak against 4d's measured one
+
+
+def dryrun_vs_card(mesh_summary, argv=MESH_ARGS, cfg=None):
+    """Phase 4j: ``launch/dryrun.py``'s ``lower_one`` on the ``meta``
+    device at phase 4d's layout (one cluster, 1 x 1, 4 x 512, rank 64,
+    f32): its state bytes the bytes of the round state 4d held, exactly;
+    its cross-cluster bytes what 4d handed the all-gather
+    (``mesh_gather_bytes``), exactly; its peak within
+    ``DRYRUN_PEAK_RTOL`` of 4d's measured peak. Prints the H100 peaks the
+    dry-run divides by, beside the SM count and the max SM clock the card
+    reports."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as train_lib
+
+    args = train_lib._parse_args(argv)
+    cfg = cfg or mesh_config()
+    _phase("dry-run against the card: launch.dryrun.lower_one at 4d's "
+           "layout, on the meta device")
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"dry-run peaks (NVIDIA H100 80GB HBM3 SXM5 datasheet): bf16 "
+          f"{DR.BF16_FLOPS_PER_S:.4g}, TF32 {DR.TF32_FLOPS_PER_S:.4g}, f32 "
+          f"{DR.F32_FLOPS_PER_S:.4g} FLOP/s ({DR.SMS} SMs), HBM "
+          f"{DR.HBM_BYTES_PER_S:.4g} B/s, NVLink {DR.NVLINK_BYTES_PER_S:.4g} "
+          f"B/s a direction, clusters {DR.DCN_BYTES_PER_S:.4g} B/s; the card "
+          f"reports {props.multi_processor_count} SMs, max SM clock {clock}",
+          flush=True)
+    t0 = time.monotonic()
+    res = DR.lower_one(args.arch, mesh={"clusters": 1, "data": 1,
+                                        "model": 1},
+                       shape=ShapeConfig("mesh", args.seq_len,
+                                         args.global_batch, "train"),
+                       rank=args.rank, production=False, cfg=cfg,
+                       verbose=False)
+    if res["status"] != "ok":
+        _fail(f"dry-run: {res.get('error')}")
+    gather = mesh_gather_bytes(cfg, args.rank)
+    ratio = res["per_device_memory_bytes"] / mesh_summary["peak_bytes"]
+    print(f"dry-run ({time.monotonic() - t0:.1f} s on the host): arg_bytes "
+          f"{res['arg_bytes']} (4d held {mesh_summary['state_bytes']}), "
+          f"cross-cluster {res['cross_cluster_bytes']} B (4d's all-gather "
+          f"{gather}), peak {res['per_device_memory_bytes'] / 2**30:.3f} GiB"
+          f" (4d measured {mesh_summary['peak_bytes'] / 2**30:.3f}: ratio "
+          f"{ratio:.4f}), phases' peaks " + ", ".join(
+              f"{k} {v['peak_bytes'] / 2**30:.3f}"
+              for k, v in res["phases"].items())
+          + f" GiB; {res['flops_per_device']:.4g} FLOP, "
+          f"{res['bytes_per_device']:.4g} B moved (no fusion), t_compute "
+          f"{res['t_compute']:.4f} s, t_memory {res['t_memory']:.4f} s, "
+          f"t_collective_dcn_1gbps {res['t_collective_dcn_1gbps']:.4f} s; "
+          f"4d's step {1e3 * mesh_summary['inner_s'][-1] / args.h_steps:.1f}"
+          f" ms", flush=True)
+    if res["arg_bytes"] != mesh_summary["state_bytes"]:
+        _fail(f"dry-run: arg_bytes {res['arg_bytes']}, 4d held "
+              f"{mesh_summary['state_bytes']}")
+    if res["cross_cluster_bytes"] != gather:
+        _fail(f"dry-run: cross-cluster bytes {res['cross_cluster_bytes']}, "
+              f"4d's all-gather {gather}")
+    if abs(ratio - 1) > DRYRUN_PEAK_RTOL:
+        _fail(f"dry-run: peak {ratio:.4f} of 4d's, outside "
+              f"{DRYRUN_PEAK_RTOL}")
+    return res
+
+
+# gemma3-1b at full width, 6 of 26 layers (layer 5 is its first global
+# one), its one KV head replicated over 2 model shards, flash at d = 256
+KV_LAYERS = 6
+TP_KV_ARGS = ["--arch", "gemma3-1b", "--n-layers", str(KV_LAYERS),
+              "--device", "cuda", "--devices", "2", "--clusters", "1",
+              "--data", "1", "--model", "2", "--rounds", "2", "--h-steps",
+              "4", "--global-batch", "4", "--seq-len", "512", "--rank",
+              str(RANK), "--flash"]
+
+
+def tp_replicated_kv(dev=None, argv=TP_KV_ARGS, cfg=None):
+    """Phase 4j, continued: ``launch/train.py``'s ``run`` on gemma3-1b at
+    ``--data 1 --model 2`` (each shard a copy of the one KV head, its
+    wk/wv gradient summed over the two), every shard in this process, as
+    4i, with the flash kernels on; against the unsharded ``--model 1``
+    run of the same seed and data: round 0 leaves the params bit for bit,
+    round losses within ``TP_LOSS_RTOL``. Counts reset before the sharded
+    run and read after: flash, ``lowrank_mm`` and the int4 kernels must
+    each launch."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as M
+
+    args = train_lib._parse_args(argv)
+    train_lib._check_args(args)
+    unsharded = train_lib._parse_args(argv[:argv.index("--devices")] + [
+        "--devices", "1", "--clusters", "1", "--data", "1", "--model", "1"]
+        + argv[argv.index("--rounds"):])
+    cfg = cfg or train_lib._model_config(args)
+    dev = dev or torch.device("cuda")
+    _phase("tp driver, a replicated KV head: repro_torch.launch.train.run, "
+           "every shard in one process: " + " ".join(argv))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    initial = {k: v.cpu() for k, v in _items(M.init_params(cfg, gen, dev))}
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    runs = {}
+    for name, a in (("unsharded", unsharded), ("sharded", args)):
+        round0 = []
+
+        def on_round(r, params, opt, outer, round0=round0):
+            if r == 0:
+                anchor = dict(_items(outer.anchor))
+                round0.append(all(
+                    torch.equal(anchor[k], initial[k].to(dev))
+                    and torch.equal(v[0], anchor[k])
+                    for k, v in _items(params)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            summary = train_lib.run(a, dev, clusters=[0], on_round=on_round)
+        torch.cuda.synchronize()
+        runs[name] = dict(summary=summary, round0=round0,
+                          peak=torch.cuda.max_memory_allocated(),
+                          launches={k: w.launches
+                                    for k, w in wrappers.items()},
+                          ok="TRAIN-DRIVER-OK" in out.getvalue())
+    tp, one = runs["sharded"], runs["unsharded"]
+    gaps = [abs(x - y) / abs(y) for x, y in zip(
+        tp["summary"]["mean_loss"], one["summary"]["mean_loss"])]
+    for r in range(args.rounds):
+        print(f"round {r}: mean loss {tp['summary']['mean_loss'][r]:.6f} "
+              f"(unsharded {one['summary']['mean_loss'][r]:.6f}, relative gap"
+              f" {gaps[r]:.3e}), inner {tp['summary']['inner_s'][r]:.3f} s "
+              f"(unsharded {one['summary']['inner_s'][r]:.3f})", flush=True)
+    print(f"tp driver, replicated KV head: launches {tp['launches']} "
+          f"(unsharded {one['launches']}), peak {tp['peak'] / 2**30:.2f} GiB "
+          f"(unsharded {one['peak'] / 2**30:.2f}), round 0 params unchanged: "
+          f"{tp['round0']}", flush=True)
+    if not (tp["ok"] and one["ok"]):
+        _fail("tp driver, replicated KV head: no TRAIN-DRIVER-OK")
+    if not all(map(math.isfinite, tp["summary"]["mean_loss"])):
+        _fail("tp driver, replicated KV head: non-finite losses")
+    if tp["round0"] != [True] or one["round0"] != [True]:
+        _fail("tp driver, replicated KV head: round 0 changed the params")
+    if max(gaps) > TP_LOSS_RTOL:
+        _fail(f"tp driver, replicated KV head: losses {max(gaps):.3e} from "
+              f"the unsharded run's, over {TP_LOSS_RTOL}")
+    unused = [k for k in ("flash_attention", "flash_attention_bwd",
+                          "lowrank_mm", "quant4_pack", "quant4_unpack")
+              if tp["launches"][k] == 0]
+    if unused:
+        _fail(f"tp driver, replicated KV head: {unused} never launched")
+    return tp["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -2732,6 +2926,86 @@ def paged_shards():
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the 2-D serving placement (the JAX dry-run's default)
+# ---------------------------------------------------------------------------
+
+PREFILL_RTOL = 1e-4     # the sharded prefill's last logits, of their max
+
+
+def serve_2d(ref, arch="opt-1.3b", data=2, model=2):
+    """Phase 5e: phase 5's requests through ``TPDecode``'s 2-D placement
+    (weights placed as for training, FSDP over "data" too, each unit's
+    gathered before it runs; ``serve.run(..., placement="2d")``), every
+    shard in this process: tokens and admission fingerprint phase 5's,
+    the paged kernel launched device steps x layers x shards times
+    (counts reset before, read after). Then the sharded prefill
+    (``TPLoss.prefill``) of phase 5's first 8 prompts against the one-card
+    ``make_prefill_step``: last logits within ``PREFILL_RTOL`` of their
+    largest magnitude."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as TP
+    from repro_torch.serve import attention_paged as ap
+
+    argv = (["--arch", arch] + SERVE_ARGS[2:]
+            + ["--devices", str(data * model), "--data", str(data),
+               "--model", str(model)])
+    _phase("serve 2-D: repro_torch.launch.serve.run(placement=\"2d\"), "
+           "every shard on the card: " + " ".join(argv))
+    cfg = get_config(arch)
+    args = serve_lib._parse_args(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ap.cuda_paged_attention.launches = 0
+    st = serve_lib.run(args, torch.device("cuda"), placement="2d")
+    torch.cuda.synchronize()
+    launches = ap.cuda_paged_attention.launches
+    want = st["device_steps"] * cfg.n_layers * data * model
+    same = [a == b for a, b in zip(st["tokens"], ref["tokens"])]
+    print(f"serve 2-D {data} x {model}: {sum(same)} of {len(same)} "
+          f"requests' tokens equal phase 5's; admission fingerprint "
+          f"{st['admission_fingerprint']} (5: {ref['admission_fingerprint']})"
+          f"; paged_attention launches {launches} (device steps x "
+          f"{cfg.n_layers} x {data * model} = {want}); per-token p50/p99 "
+          f"{st['per_token_ms_p50']:.3f}/{st['per_token_ms_p99']:.3f} ms "
+          f"(5: {ref['per_token_ms_p50']:.3f}/{ref['per_token_ms_p99']:.3f})"
+          f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if not all(same) or len(st["tokens"]) != len(ref["tokens"]):
+        _fail("serve 2-D: tokens differ from phase 5's")
+    if st["admission_fingerprint"] != ref["admission_fingerprint"]:
+        _fail("serve 2-D: admission fingerprint differs")
+    if launches != want or launches == 0:
+        _fail(f"serve 2-D: {launches} kernel launches, expected {want}")
+    # the sharded prefill against one card's
+    dev = torch.device("cuda")
+    params = M.draw_params(cfg, 0, dev)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (8, args.prompt_len),
+                         generator=gen, dtype=torch.int32).to(dev)
+    one = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+    shards = TP.ShardGroup(data, model)
+    specs = sh.param_placements(params, shards.mesh, cluster_stacked=False)
+    parts = {k: shards.parts(x, specs[k]) for k, x in T.keystr_items(params)}
+    n = toks.shape[0] // data
+    got = torch.cat(TP.TPLoss(cfg, shards, specs).prefill(
+        parts, [toks[j * n:(j + 1) * n] for j in range(data)]))
+    err = float((got - one).abs().max() / one.abs().max())
+    print(f"sharded prefill {data} x {model} (8 x {args.prompt_len}): last "
+          f"logits {err:.3e} of their max from one card's", flush=True)
+    if not err <= PREFILL_RTOL:
+        _fail(f"sharded prefill: {err:.3e} of the max, over {PREFILL_RTOL}")
+    del params, parts
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: paged (kernel) vs dense (plain attention) greedy tokens
 # ---------------------------------------------------------------------------
 
@@ -2859,6 +3133,9 @@ def main():
     torch.cuda.empty_cache()
     tp_step_checks()
     torch.cuda.empty_cache()
+    dryrun_vs_card(mesh_summary)
+    kv_launches = tp_replicated_kv()
+    torch.cuda.empty_cache()
     launches, serve_ref = serve()
     launches_stablelm, serve_ref_stablelm = serve("stablelm-12b")
     launches_tp = {}
@@ -2866,9 +3143,12 @@ def main():
         ref = serve_ref if arch == "opt-1.3b" else serve_ref_stablelm
         launches_tp[f"{arch} {data}x{model}"] = serve_tp(ref, arch, data,
                                                          model)
-    del serve_ref, serve_ref_stablelm
+    del serve_ref_stablelm
     torch.cuda.empty_cache()
     paged_shards()
+    launches_2d = serve_2d(serve_ref)
+    del serve_ref
+    torch.cuda.empty_cache()
     paged_vs_dense()
     paged_vs_dense("stablelm-12b")
     paged_vs_dense("qwen1.5-107b", n_layers=2)
@@ -2886,6 +3166,7 @@ def main():
         "blocks": main_row["blocks"],
         "launches_serve_stablelm_12b": launches_stablelm,
         "launches_serve_tp": launches_tp,
+        "launches_serve_2d": launches_2d,
         "cases": {row["case"]: {k: row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "plan", "blocks")} for row in rows}}]
@@ -2897,6 +3178,7 @@ def main():
         row["launches_pp_trainer"] = pp_train_launches[row["name"]]
         row["launches_pp_driver"] = pp_driver_launches[row["name"]]
         row["launches_tp_driver"] = tp_launches[row["name"]]
+        row["launches_tp_kv_replicated"] = kv_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -2910,9 +3192,11 @@ def main():
         kernels.append(row)
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name],
-                            launches_pp_trainer=pp_train_launches[name]))
+                            launches_pp_trainer=pp_train_launches[name],
+                            launches_tp_kv_replicated=kv_launches[name]))
     kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
                         launches_tp_driver=tp_launches["lowrank_mm"],
+                        launches_tp_kv_replicated=kv_launches["lowrank_mm"],
                         launches_by_path={
                             route: mesh_launches[f"lowrank_mm_{route}"]
                             for route in ("split", "rank", "general")},

@@ -46,7 +46,10 @@ one rank per card, NCCL, against the same clusters stacked on one card.
    shard in one process), as the pp legs are; 2 clusters compare at
    ``PP_EQUAL_LAYERS`` and time the 24-layer ranks separately. Prints
    each round's seconds, the bytes each cluster hands to the all-gather
-   (summed over its ranks) and every card's peak memory.
+   (summed over its ranks) and every card's peak memory, beside the
+   dry-run's (``launch/dryrun.py`` on the ``meta`` device) predicted
+   per-card peak and collective bytes by axis (``parallel/comm.py``'s
+   counts of the rank the dry-run picks).
 
 5. Serving across cards (``--serve``, in place of 1 and 2): the serve
    driver (``repro_torch.launch.serve``, paged engine, 8 slots, 12
@@ -193,13 +196,20 @@ def _rank(rank, argv, store_path, out_dir, stuck_s):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.parallel import comm
+
     digests = []
+    comm.reset()
     summary = train._worker(
         rank, train._parse_args(argv), store_path,
         on_round=lambda r, *st: digests.append(state_digests(*st)))
     faulthandler.cancel_dump_traceback_later()
+    by_axis = {}
+    for (axis, _), (_, n) in comm.counts.items():
+        by_axis[axis] = by_axis.get(axis, 0) + n
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump({"digests": digests, "summary": summary}, f)
+        json.dump({"digests": digests, "summary": summary,
+                   "collective_bytes_by_axis": by_axis}, f)
 
 
 def pp_argv(device, cards, clusters, stages, smoke, n_layers=0):
@@ -338,6 +348,48 @@ def tp_argv(device, cards, clusters, data, model, smoke, n_layers=0):
     return argv
 
 
+def predicted(train, argv, clusters, data, model):
+    """The dry-run's (``launch/dryrun.py``, the ``meta`` device) per-card
+    peak and per-axis collective bytes of the driver's run ``argv``: one
+    round's step and outer step, times the run's steps and rounds, for
+    the rank the dry-run picks (the outer step's heaviest owner)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+
+    args = train._parse_args(argv)
+    res = DR.lower_one(args.arch, mesh={"clusters": clusters, "data": data,
+                                        "model": model},
+                       shape=ShapeConfig("mesh", args.seq_len,
+                                         args.global_batch, "train"),
+                       rank=args.rank, production=False,
+                       cfg=train._model_config(args), verbose=False)
+    if res["status"] != "ok":
+        sys.exit(f"mesh_multi_gpu: dry-run {res.get('error')}")
+    ph = res["phases"]
+    axes = set(ph["train"]["collective_bytes_by_axis"]) | set(
+        ph["outer"]["collective_bytes_by_axis"])
+    by_axis = {a: args.rounds * (
+        args.h_steps * ph["train"]["collective_bytes_by_axis"].get(a, 0)
+        + ph["outer"]["collective_bytes_by_axis"].get(a, 0)) for a in axes}
+    c = res["rank_coords"]
+    rank = (c["clusters"] * data + c["data"]) * model + c["model"]
+    return {"peak": res["per_device_memory_bytes"], "by_axis": by_axis,
+            "rank": rank}
+
+
+def beside_prediction(want, got):
+    """Prints the dry-run's prediction beside rank ``want["rank"]``'s
+    measured per-axis bytes and every card's peak."""
+    meas = got[want["rank"]]["collective_bytes_by_axis"]
+    print(f"dry-run vs rank {want['rank']}: per-card peak predicted "
+          f"{want['peak'] / 2**30:.2f} GiB, measured "
+          f"{[round(b / 2**30, 2) for b in got[0]['summary'].get('peak_bytes') or []]}"
+          f" GiB; collective bytes by axis (predicted / measured): "
+          + ", ".join(f"{a} {want['by_axis'].get(a, 0)} / {meas.get(a, 0)}"
+                      for a in sorted(set(want["by_axis"]) | set(meas))),
+          flush=True)
+
+
 def tp_legs(train, device, cards, legs, smoke, tmp):
     """Each leg (clusters, data, model): the ranks at full depth, and with
     2 clusters again at ``PP_EQUAL_LAYERS``; then the one-card references,
@@ -345,20 +397,14 @@ def tp_legs(train, device, cards, legs, smoke, tmp):
     row and its blocks (``parallel.sharding.param_placements``)."""
     from repro_torch.parallel import sharding as sh
 
-    from repro_torch.parallel.tensor import check_tp
-
     runs = []
     for clusters, data, model in legs:
         full = tp_argv(device, cards, clusters, data, model, smoke)
-        if smoke and model > 2:     # the reduced configs have 2 KV heads
-            try:
-                check_tp(train._model_config(train._parse_args(full)), model)
-            except ValueError as err:
-                print(f"skipped at the reduced size: {err}", flush=True)
-                continue
         cut = (tp_argv(device, cards, clusters, data, model, smoke,
                        PP_EQUAL_LAYERS) if clusters > 1 else None)
+        want = predicted(train, full, clusters, data, model)
         got = rank_runs(full, cards, tmp)
+        beside_prediction(want, got)
         if cut is not None:
             got = rank_runs(cut, cards, tmp)
         cfg = train._model_config(train._parse_args(cut or full))

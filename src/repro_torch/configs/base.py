@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -40,6 +41,7 @@ class ModelConfig:
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    sub_quadratic: bool = False   # eligible for long_500k (shape table)
 
     # ------------------------------------------------------------------
     @property
@@ -73,6 +75,16 @@ ARCH_IDS = ["opt-1.3b", "granite-3-8b", "gemma3-1b", "hundred-m",
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
                for a in ARCH_IDS}
 
+# every architecture of the JAX package, in its order (the dry-run's
+# matrix)
+JAX_ARCH_IDS = [
+    "granite-3-8b", "deepseek-v2-236b", "arctic-480b", "stablelm-12b",
+    "phi3-medium-14b", "zamba2-1.2b", "seamless-m4t-large-v2",
+    "qwen2-vl-7b", "xlstm-1.3b", "gemma3-1b",
+    # the paper's own models
+    "opt-1.3b", "qwen1.5-107b",
+]
+
 # architectures of the JAX package that the port does not carry yet: the
 # non-dense families (A.16)
 _NOT_PORTED = {
@@ -95,3 +107,35 @@ def torch_dtype(name: str):
     """``"float32"`` -> ``torch.float32`` (configs name dtypes as strings)."""
     import torch
     return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the JAX package's shape table)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Which (arch x shape) pairs run (the JAX package's skip table)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: long_500k needs "
+                       "sub-quadratic attention (DESIGN.md)")
+    return True, ""

@@ -9,4 +9,5 @@ CONFIG = ModelConfig(
     d_ff=6912, vocab_size=262144, head_dim=256,
     sliding_window=512, global_every=6,      # layer idx % 6 == 5 -> global
     rope_theta=1_000_000.0, tie_embeddings=True,
+    sub_quadratic=True,   # sliding-window locals; 4 global layers keep full cache
 )

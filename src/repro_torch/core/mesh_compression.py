@@ -161,16 +161,16 @@ def gather_payloads(payloads, group=None):
     payloads are all there is."""
     if group is None:
         return payloads
-    import torch.distributed as dist
+    from repro_torch.parallel import comm
 
     order = _wire_order(payloads)
     buf = torch.cat([t.reshape(-1).view(torch.uint8) for *_, t in order])
     # one storage for all ranks' buffers, so that a leaf's chunks lie at
     # a row stride inside each rank's buffer and a buffer apart across
     # ranks: the batched unpack reads them in place
-    recv = torch.empty((dist.get_world_size(group), buf.numel()),
+    recv = torch.empty((comm.size(group), buf.numel()),
                        dtype=torch.uint8, device=buf.device)
-    dist.all_gather_into_tensor(recv.view(-1), buf, group=group)
+    comm.all_gather_into(recv.view(-1), buf, group, "clusters")
     sizes = [t.numel() * t.element_size() for *_, t in order]
     out = [[] for _ in payloads]
     for rb in recv:

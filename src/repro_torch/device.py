@@ -23,9 +23,11 @@ def resolve_device(device=None) -> torch.device:
 def on_device(t, cuda_fn, plain_fn, *args, **kw):
     """The kernel wrappers' one dispatch rule: ``cuda_fn`` (which launches
     the hand-written kernel or raises) when ``t`` lies on a GPU,
-    ``plain_fn`` (the plain PyTorch version) when it lies on the CPU."""
+    ``plain_fn`` (the plain PyTorch version) when it lies on the CPU or on
+    the ``meta`` device, where it computes only shapes (the dry-run,
+    ``launch/dryrun.py``)."""
     if t.device.type == "cuda":
         return cuda_fn(*args, **kw)
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return plain_fn(*args, **kw)
     raise ValueError(f"{cuda_fn.__name__}: unsupported device {t.device}")

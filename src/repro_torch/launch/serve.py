@@ -113,7 +113,7 @@ def _check_args(args) -> None:
         raise ValueError(f"--devices {args.devices} must equal --data "
                          f"{args.data} x --model {args.model}")
     from repro_torch.parallel.tensor import check_tp
-    check_tp(_model_config(args), args.model, serve=True)
+    check_tp(_model_config(args), args.model)
 
 
 def _ckpt_file(path):
@@ -203,6 +203,25 @@ def _load(args, cfg, shards, device, log):
     return blocks if shards else blocks[0]
 
 
+def _load_2d(args, cfg, shards, device, log):
+    """The weights in the training placement: ``{keystr: [[block]]}``,
+    the whole tree's blocks in process, this rank's block otherwise."""
+    from repro_torch import tree as T
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+
+    whole = (_load_params(args.ckpt, cfg, device, log) if args.ckpt
+             else M.draw_params(cfg, 0, device))
+    specs = sh.param_placements(whole, shards.mesh, cluster_stacked=False)
+    if shards.in_process:
+        return {k: shards.parts(x, specs[k])
+                for k, x in T.keystr_items(whole)}
+    j, m = shards.shards[0]
+    blocks = sh.shard_tree(whole, specs, shards.mesh,
+                           {"data": j, "model": m})
+    return {k: [[x]] for k, x in T.keystr_items(blocks)}
+
+
 def _digests(record):
     """A ``TPDecode.on_logits`` hook appending ``[rows, model index,
     bit_digest, finite]`` to ``record`` for each data block's head
@@ -218,13 +237,16 @@ def _digests(record):
     return hook
 
 
-def run(args, device, *, shards=None, rank: int = 0):
+def run(args, device, *, shards=None, rank: int = 0,
+        placement: str = "serve"):
     """The driver's work in this process. ``shards``: this rank's shard of
     a ``parallel.tensor.ShardGroup`` of the ``--data`` x ``--model`` ranks;
     with none, every shard runs in this process (``--data 1 --model 1``:
-    the one-card model). Returns the paged engine's stats dict
-    (``--paged``) or the dense loop's summary; both hold ``tokens``, each
-    request's or row's generated ids."""
+    the one-card model). ``placement="2d"``: the weights placed as for
+    training (``TPDecode``'s 2-D form, the JAX dry-run's default decode
+    layout) in place of "model" only. Returns the paged engine's stats
+    dict (``--paged``) or the dense loop's summary; both hold ``tokens``,
+    each request's or row's generated ids."""
     import torch
 
     from repro_torch.models import model as M
@@ -251,7 +273,9 @@ def run(args, device, *, shards=None, rank: int = 0):
     if shards is None and args.data * args.model > 1:
         shards = ShardGroup(args.data, args.model)
     record = [] if args.digests_out and shards is not None else None
-    params = _load(args, cfg, shards, device, log)
+    params = (_load_2d(args, cfg, shards, device, log)
+              if placement == "2d" and shards is not None
+              else _load(args, cfg, shards, device, log))
 
     prompt_gen = torch.Generator()
     prompt_gen.manual_seed(1)
@@ -261,12 +285,13 @@ def run(args, device, *, shards=None, rank: int = 0):
                            dtype=torch.int32)
 
     hook = _digests(record) if record is not None else None
+    kw = dict(placement=placement) if shards is not None else {}
     if args.paged:
         out = _run_paged(args, cfg, params, prompt.numpy(), eos, log, span,
-                         metrics, device, shards, hook)
+                         metrics, device, shards, hook, **kw)
     else:
         out = _run_dense(args, cfg, params, prompt.to(device), eos, log,
-                         span, metrics, device, shards, hook)
+                         span, metrics, device, shards, hook, **kw)
 
     if record is not None:
         os.makedirs(args.digests_out, exist_ok=True)
@@ -375,7 +400,7 @@ def _sync(device):
 
 
 def _run_dense(args, cfg, params, prompt, eos, log, span, metrics, device,
-               shards=None, on_logits=None):
+               shards=None, on_logits=None, placement="serve"):
     import torch
 
     from repro_torch.launch import steps
@@ -384,7 +409,7 @@ def _run_dense(args, cfg, params, prompt, eos, log, span, metrics, device,
 
     tp = None
     if shards is not None:
-        tp = TPDecode(cfg, shards)
+        tp = TPDecode(cfg, shards, placement=placement)
         tp.on_logits = on_logits
 
     B = args.batch
@@ -446,7 +471,7 @@ def _run_dense(args, cfg, params, prompt, eos, log, span, metrics, device,
 
 
 def _run_paged(args, cfg, params, prompts, eos, log, span, metrics, device,
-               shards=None, on_logits=None):
+               shards=None, on_logits=None, placement="serve"):
     from repro_torch.serve.engine import ServeEngine, supports_paged
 
     ok, why = supports_paged(cfg)
@@ -461,7 +486,8 @@ def _run_paged(args, cfg, params, prompts, eos, log, span, metrics, device,
     engine = ServeEngine(params, cfg, max_seqs=args.batch, page_size=ps,
                          n_pages=n_pages, max_pages_per_seq=max_pages,
                          eos_id=eos, policy=args.policy, metrics=metrics,
-                         span=span, device=device, shards=shards)
+                         span=span, device=device, shards=shards,
+                         placement=placement)
     if shards is not None:
         engine.tp.on_logits = on_logits
     n_req = args.requests or args.batch

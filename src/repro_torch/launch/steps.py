@@ -18,29 +18,23 @@ the model is 5.7 GB) and return the same tensors.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import mesh_compression as mc
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, nesterov
-
-
-def _group_size(group) -> int:
-    if group is None:
-        return 1
-    import torch.distributed as dist
-    return dist.get_world_size(group)
+from repro_torch.parallel import comm
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum of ``x`` over ``group`` (in place; ``x`` itself without one)."""
-    if _group_size(group) > 1:
-        import torch.distributed as dist
-        dist.all_reduce(x, group=group)
+    """Sum of ``x`` over the clusters ``group`` (in place; ``x`` itself
+    without one)."""
+    if comm.size(group) > 1:
+        comm.all_reduce(x, group, "clusters")
     return x
 
 
@@ -50,7 +44,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
                     per_cluster_h: bool = False, shards=None,
-                    cluster_group=None):
+                    cluster_group=None, flash: bool = False):
     """``(params_stacked, opt_stacked, batch_stacked) -> (params', opt',
     loss)``: one inner AdamW step per local cluster, no cross-cluster
     collective. Clusters run one after another (the JAX package vmaps;
@@ -67,18 +61,21 @@ def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
     order. The returned loss is the mean over all clusters (local ones,
     and those of the ``cluster_group``) of each cluster's full-batch loss.
 
+    ``flash`` routes plain causal attention to the flash kernels
+    (``models.model.make_ctx``).
+
     ``per_cluster_h=True`` returns ``(params, opt, batch, active) ->
     (params', opt', loss)``: ``active`` is a (C_local,) bool mask;
     inactive clusters' params and optimizer state are left untouched and
     the loss is the mean over active clusters only."""
     if shards is not None and shards.size > 1:
-        one_cluster = _sharded_cluster_step(cfg, shards, inner_lr)
+        one_cluster = _sharded_cluster_step(cfg, shards, inner_lr, flash)
     else:
         def one_cluster(params_row, opt_row, tokens):
             p = T.tree_map(lambda x: x.detach().requires_grad_(True),
                            params_row)
             with torch.enable_grad():
-                loss, _ = M.loss_fn(p, cfg, {"tokens": tokens})
+                loss, _ = M.loss_fn(p, cfg, {"tokens": tokens}, flash=flash)
                 grads = list(torch.autograd.grad(loss, T.leaves(p)))
             _, opt_row = adamw.update(T.unflatten_like(p, grads), opt_row, p,
                                       lr=inner_lr)
@@ -125,7 +122,8 @@ def make_train_step(cfg: ModelConfig, *, inner_lr: float = 1e-4,
     return train_step_h
 
 
-def _sharded_cluster_step(cfg: ModelConfig, shards, inner_lr: float):
+def _sharded_cluster_step(cfg: ModelConfig, shards, inner_lr: float,
+                          flash: bool = False):
     """One cluster row's AdamW step on blocks: ``(params_row, opt_row,
     tokens) -> (step, loss)``."""
     from repro_torch.parallel import sharding as sh
@@ -133,7 +131,7 @@ def _sharded_cluster_step(cfg: ModelConfig, shards, inner_lr: float):
 
     specs = sh.param_placements(M.init_params(cfg, device="meta"),
                                 shards.mesh, cluster_stacked=False)
-    loss_fn = TP.TPLoss(cfg, shards, specs)
+    loss_fn = TP.TPLoss(cfg, shards, specs, flash=flash)
 
     def parts(tree):
         return {k: shards.parts(x, specs[k]) for k, x in T.keystr_items(tree)}
@@ -195,6 +193,20 @@ def init_outer_state(params, n_clusters: int,
     return OuterState(anchor=params, outer_opt=nesterov.init(params),
                       delta_pending=stack(params), error=stack(params),
                       q_state=q_stacked)
+
+
+def init_round_state(params, n_clusters: int, ccfg: mc.MeshCompressionConfig,
+                     q0=None):
+    """A rank's round state from its unstacked ``params`` (whole, or its
+    blocks, with ``q0`` the whole leaves' warm starts: the sharded outer
+    step compresses whole leaves): (params stacked over its
+    ``n_clusters`` local clusters, their AdamW state, the outer state,
+    whose anchor is ``params`` themselves)."""
+    from repro_torch.core import diloco
+
+    stacked = diloco.stack_replicas(params, n_clusters)
+    return (stacked, init_inner_state(stacked),
+            init_outer_state(params, n_clusters, ccfg, q0=q0))
 
 
 def _outer_leaf(Delta, p, a, v, d, e, *, outer_lr, outer_momentum):
@@ -314,8 +326,21 @@ def _sharded_outer_step(cfg, ccfg, shards, cluster_group, kw):
 
 
 # ---------------------------------------------------------------------------
-# serving step
+# serving steps (no cluster dim)
 # ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig):
+    """Forward over the full sequence, returns the last position's logits
+    (B, V) (the inference-prefill workload). ``parallel.tensor.TPLoss.
+    prefill`` is its sharded form."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        h, _ = M.forward_hidden(params, cfg, batch, remat=True)
+        return M.logits_fn(params, cfg, h[:, -1:])[:, 0]
+
+    return prefill_step
+
 
 def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None,
                     tp=None):
@@ -348,3 +373,59 @@ def make_serve_step(cfg: ModelConfig, *, eos_id: Optional[int] = None,
         return nxt, state, finished
 
     return serve_step_eos
+
+
+# ---------------------------------------------------------------------------
+# input and state specs: ``meta`` trees (no allocation), the JAX package's
+# ShapeDtypeStruct stand-ins
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def input_specs(cfg: ModelConfig, shape, *, n_clusters: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """The model inputs of this (arch, ``configs.base.ShapeConfig``):
+    training tokens (n_clusters, B / n_clusters, S), prefill tokens
+    (B, S), decode tokens (B, 1), int32."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        if B % n_clusters:
+            raise ValueError(f"batch {B} over {n_clusters} clusters")
+        dims = (n_clusters, B // n_clusters, S)
+    elif shape.kind == "prefill":
+        dims = (B, S)
+    else:
+        dims = (B, 1)
+    return {"tokens": torch.empty(dims, dtype=torch.int32, device=META)}
+
+
+def decode_state_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """``models.model.init_decode_state`` at the shape's batch and length,
+    in the compute dtype, its index an int32 scalar."""
+    st = M.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                             device=META,
+                             dtype=torch_dtype(cfg.compute_dtype))
+    st["index"] = torch.zeros((), dtype=torch.int32, device=META)
+    return st
+
+
+def params_specs(cfg: ModelConfig, *, n_clusters: int = 0):
+    """``init_params`` on ``meta`` (cluster-stacked with ``n_clusters``)."""
+    p = M.init_params(cfg, device=META)
+    if n_clusters:
+        p = T.tree_map(lambda x: x.new_empty((n_clusters,) + tuple(x.shape)),
+                       p)
+    return p
+
+
+def opt_specs(params_stacked_specs) -> adamw.AdamWState:
+    """Per-cluster step counters (C,) and stacked f32 m, v."""
+    return init_inner_state(params_stacked_specs)
+
+
+def outer_state_specs(cfg: ModelConfig, n_clusters: int,
+                      ccfg: mc.MeshCompressionConfig) -> OuterState:
+    """``init_outer_state`` of the unstacked params, on ``meta``."""
+    p = params_specs(cfg)
+    return init_outer_state(p, n_clusters, ccfg)

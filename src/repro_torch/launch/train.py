@@ -100,6 +100,9 @@ def _parse_args(argv=None):
                          "stages a cluster, one per rank")
     ap.add_argument("--pp-stages", type=int, default=2)
     ap.add_argument("--pp-micro", type=int, default=4)
+    ap.add_argument("--flash", action="store_true",
+                    help="plain causal attention through the flash kernels "
+                         "(f32; S a multiple of 128)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--trace", default="",
                     help="write a wall-clock Chrome-trace JSON of the "
@@ -191,7 +194,7 @@ def run(args, device, *, clusters, cluster_group=None, shards=None,
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt_lib
-    from repro_torch.core import adaptive, diloco
+    from repro_torch.core import adaptive
     from repro_torch.core import mesh_compression as mc
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.launch import steps
@@ -224,10 +227,9 @@ def run(args, device, *, clusters, cluster_group=None, shards=None,
         q0 = mc.init_q_state(params1, ccfg)
         params1 = sh.shard_tree(params1, specs, shards.mesh,
                                 {"data": j, "model": m})
-    params = diloco.stack_replicas(params1, CL)
-    opt = steps.init_inner_state(params)
     # the anchor is params1 itself, updated in place by the outer step
-    outer_state = steps.init_outer_state(params1, CL, ccfg, q0=q0)
+    params, opt, outer_state = steps.init_round_state(params1, CL, ccfg,
+                                                      q0=q0)
 
     balance_h = args.h_policy == "balance"
     step_times = ([float(s) for s in args.step_times.split(",")]
@@ -244,10 +246,11 @@ def run(args, device, *, clusters, cluster_group=None, shards=None,
     # heterogeneous rounds use the masked variant (the JAX driver's rule)
     train_step = steps.make_train_step(cfg, inner_lr=args.inner_lr,
                                        shards=shards,
-                                       cluster_group=cluster_group)
+                                       cluster_group=cluster_group,
+                                       flash=args.flash)
     train_step_h = (steps.make_train_step(
         cfg, inner_lr=args.inner_lr, per_cluster_h=True,
-        shards=shards, cluster_group=cluster_group)
+        shards=shards, cluster_group=cluster_group, flash=args.flash)
         if balance_h else None)
     outer_step = steps.make_outer_step(
         cfg, ccfg, outer_lr=args.outer_lr,
@@ -421,13 +424,14 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
     from repro_torch.launch import steps
     from repro_torch.launch.steps import all_reduce_sum
     from repro_torch.optim import nesterov
+    from repro_torch.parallel import comm
     from repro_torch.parallel import inner_engine as IE
     from repro_torch.parallel import pipeline as PP
 
     cfg = _model_config(args)
     C, CL = args.clusters, len(clusters)
     pcfg = PP.PipelineConfig(n_stages=args.pp_stages, n_micro=args.pp_micro)
-    if model_group is not None and steps._group_size(model_group) > 1:
+    if comm.size(model_group) > 1:
         transport = PP.StageGroup(model_group, stage, args.pp_stages)
     else:
         transport = PP.InProcess(args.pp_stages)
@@ -458,8 +462,8 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
     pp_specs = PP.pp_param_specs(params, cluster_stacked=True)
 
     train_step = IE.make_pp_train_step(
-        cfg, pcfg, inner_lr=args.inner_lr, transport=transport,
-        data_group=data_group, cluster_stacked=True)
+        cfg, pcfg, inner_lr=args.inner_lr, flash=args.flash,
+        transport=transport, data_group=data_group, cluster_stacked=True)
 
     @torch.no_grad()
     def outer_round(params, st, rank_r):
@@ -493,7 +497,7 @@ def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,
             step=st.outer_opt.step + 1, momentum=st.outer_opt.momentum))
 
     Bc = args.global_batch // C
-    n_data = steps._group_size(data_group) if data_group is not None else 1
+    n_data = comm.size(data_group)
     rows = slice(data_rank * Bc // n_data, (data_rank + 1) * Bc // n_data)
     data = [SyntheticLM(cfg.vocab_size, args.seq_len, Bc, seed=0,
                         data_shard=c) for c in clusters]

@@ -376,8 +376,10 @@ def loss_fn(params, cfg, batch, *, remat: bool = True,
 # ---------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
-                      device=None) -> Dict[str, Any]:
-    dt = torch_dtype(cfg.param_dtype)
+                      device=None, dtype=None) -> Dict[str, Any]:
+    """Every segment's caches (``dtype``: default the param dtype) and
+    the write index 0."""
+    dt = dtype or torch_dtype(cfg.param_dtype)
     caches = [s.init_cache(batch, s_max, s.n, dt, device)
               for s in build_segments(cfg)]
     return {"caches": caches, "index": 0}

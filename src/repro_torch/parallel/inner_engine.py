@@ -36,6 +36,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import diloco
 from repro_torch.optim import adamw, nesterov
+from repro_torch.parallel import comm
 from repro_torch.parallel import pipeline as PP
 
 
@@ -173,20 +174,15 @@ def make_pp_train_step(cfg: ModelConfig, pcfg: PP.PipelineConfig, *,
     sum over clusters."""
     loss_fn = PP.make_pp_loss(cfg, pcfg, flash=flash, transport=transport)
     tr = loss_fn.transport
-    n_data = 1
-    if data_group is not None:
-        import torch.distributed as dist
-        n_data = dist.get_world_size(data_group)
+    n_data = comm.size(data_group)
 
     def one(params, opt, tokens):
         loss, grads = loss_fn.value_and_grad(params, tokens)
         if n_data > 1:
-            import torch.distributed as dist
             for g in T.leaves(grads):
-                dist.all_reduce(g, group=data_group)
+                comm.all_reduce(g, data_group, "data")
                 g.div_(n_data)
-            loss = loss.clone()
-            dist.all_reduce(loss, group=data_group)
+            loss = comm.all_reduce(loss.clone(), data_group, "data")
             loss = loss / n_data
         _clip(grads, tr)
         _, st = adamw.update(_trainable(grads), adamw.AdamWState(

@@ -50,8 +50,10 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import model as M
 from repro_torch.models.layers import dense_init, embed_init, init_norm
+from repro_torch.parallel import comm
 
 REPLICATED = ("embed", "final_norm", "head")
+AXIS = "model"          # the mesh axis that holds a cluster's stages
 
 
 @dataclass(frozen=True)
@@ -233,35 +235,26 @@ class StageGroup:
     """One stage per rank of ``group`` (the mesh's "model" group, whose
     group rank is the stage index): handoffs are point-to-point sends,
     the replicated leaves' gradients an all-reduce (sum), the gradient
-    norm's per-stage parts an all-gather summed in stage order."""
+    norm's per-stage parts an all-gather summed in stage order. ``group``
+    may be a ``comm.MetaGroup``: stage ``stage`` on the ``meta``
+    device."""
 
     def __init__(self, group, stage: int, n_stages: int):
-        import torch.distributed as dist
-
-        if dist.get_world_size(group) != n_stages:
-            raise ValueError(f"the stage group has "
-                             f"{dist.get_world_size(group)} ranks for "
-                             f"{n_stages} stages")
+        if comm.size(group) != n_stages:
+            raise ValueError(f"the stage group has {comm.size(group)} "
+                             f"ranks for {n_stages} stages")
         self.group, self.n_stages = group, n_stages
         self.stages = [stage]
-        self._ranks = [dist.get_global_rank(group, s)
-                       for s in range(n_stages)]
         self._pending: List[Tuple[Any, torch.Tensor]] = []
 
     def send(self, x, src: int, dst: int) -> None:
-        import torch.distributed as dist
-
         x = x.contiguous()
         # the tensor stays referenced until its send has completed
-        self._pending.append((dist.isend(x, self._ranks[dst],
-                                         group=self.group), x))
+        self._pending.append((comm.isend(x, dst, self.group, AXIS), x))
 
     def recv(self, src: int, dst: int, shape, dtype, device):
-        import torch.distributed as dist
-
         buf = torch.empty(shape, dtype=dtype, device=device)
-        dist.irecv(buf, self._ranks[src], group=self.group).wait()
-        return buf
+        return comm.recv(buf, src, self.group, AXIS)
 
     def finish(self) -> None:
         for work, _ in self._pending:
@@ -269,22 +262,15 @@ class StageGroup:
         self._pending.clear()
 
     def reduce_replicated(self, by_stage: Dict[int, List], like: List):
-        import torch.distributed as dist
-
         out = []
         for j, ref in enumerate(like):
             g = by_stage[self.stages[0]][j]
             g = torch.zeros_like(ref) if g is None else g
-            dist.all_reduce(g, group=self.group)
-            out.append(g)
+            out.append(comm.all_reduce(g, self.group, AXIS))
         return out
 
     def stage_scalars(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
-        import torch.distributed as dist
-
-        got = [torch.empty_like(parts[0]) for _ in range(self.n_stages)]
-        dist.all_gather(got, parts[0].contiguous(), group=self.group)
-        return got
+        return comm.all_gather(parts[0], self.group, AXIS)
 
     def on_owner(self, j: int, x: torch.Tensor, split: bool, fn,
                  shared=()) -> torch.Tensor:
@@ -296,38 +282,34 @@ class StageGroup:
         replicated one (``x`` the same on every rank) is the owner's, and
         the result is broadcast. ``fn`` may update the tensors in
         ``shared`` in place on the owner; they are broadcast after it."""
-        import torch.distributed as dist
-
         n, own = self.n_stages, j % self.n_stages
-        src, mine = self._ranks[own], self.stages[0] == own
+        mine = self.stages[0] == own
         x = x.contiguous()
         if split:
             whole = (x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
                      if mine else None)
-            dist.gather(x, list(whole.chunk(n)) if mine else None, dst=src,
-                        group=self.group)
+            comm.gather(x, list(whole.chunk(n)) if mine else None, own,
+                        self.group, AXIS)
         else:
             whole = x if mine else None
         out = fn(whole) if mine else None
         del whole
         if split:
-            rows = torch.empty_like(x)
-            dist.scatter(rows, [r.contiguous() for r in out.chunk(n)]
-                         if mine else None, src=src, group=self.group)
+            rows = comm.scatter(torch.empty_like(x),
+                                [r.contiguous() for r in out.chunk(n)]
+                                if mine else None, own, self.group, AXIS)
         else:
             rows = out.contiguous() if mine else torch.empty_like(x)
-            dist.broadcast(rows, src, group=self.group)
+            comm.broadcast(rows, own, self.group, AXIS)
         for t in shared:
             if t.numel():
-                dist.broadcast(t, src, group=self.group)
+                comm.broadcast(t, own, self.group, AXIS)
         return rows
 
     def share_loss(self, loss: Optional[torch.Tensor], like) -> torch.Tensor:
         """The last stage's loss on every rank (the others add zero)."""
-        import torch.distributed as dist
-
         loss = torch.zeros_like(like) if loss is None else loss.clone()
-        dist.all_reduce(loss, group=self.group)
+        comm.all_reduce(loss, self.group, AXIS)
         return loss
 
 

@@ -15,9 +15,14 @@ backward gathers again):
     by columns, wo, w_out and w_down by rows, their partial outputs summed
     and the bias added once after the sum. Attention runs on the shard's
     query heads ``[m H/M, (m+1) H/M)`` and the KV heads they read
-    (``h // G``), so M must divide the KV heads (``check_tp``). A weight
-    whose stored "model" dim is not the dim the layer splits (wo at square
-    shapes, wk/wv under GQA) is gathered over "model" too and cut. A layer
+    (``h // G``, ``kv_heads``): its KV/M heads where M divides the KV
+    heads, or a copy of the one KV head its query heads share where M is
+    a multiple of them, whose wk/wv gradient is then the sum of the
+    gradients of the shards that share it, in shard order (``check_tp``
+    refuses an M whose shards would straddle KV groups). A weight whose
+    stored "model" dim is not the dim the layer splits, or whose stored
+    block is not the shard's cut (wo at square shapes, wk/wv under GQA),
+    is gathered over "model" too and cut. A layer
     whose heads or d_ff do not divide M runs whole on every model shard,
     as does a head whose vocab the rule leaves whole;
   - the embedding is looked up on the shard's d_model columns
@@ -37,7 +42,11 @@ Serving (``TPDecode``, ``launch/serve.py --data/--model``) places the
 weights over "model" only (``serve_index``), keeps each shard's KV heads
 of the cache, splits the batch or the engine's slots over "data", and
 sums and gathers the same way; there M may also be a multiple of the KV
-heads, each shard keeping a copy of the one KV head it reads.
+heads, each shard keeping a copy of the one KV head it reads, as in
+training. ``TPDecode(..., placement="2d")`` takes the training placement
+instead (FSDP over "data" as well, each unit's weights gathered before
+it runs) and ``TPLoss.prefill`` is the sharded prefill: the JAX dry-run's
+default serving layouts.
 
 Two forms, one arithmetic: ``ShardGroup(D, M)`` holds every shard of a
 cluster in this process, its blocks views of whole tensors (the tests and
@@ -57,25 +66,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.models.layers import apply_gelu_mlp, apply_norm, apply_swiglu
+from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as sh
 
 
-def check_tp(cfg: ModelConfig, n_model: int, *, serve: bool = False
-             ) -> None:
-    """Refuses a "model" size that would split a KV group: the shards of a
-    GQA layer hold whole groups of query heads and their KV head. Serving
-    (``serve``) also takes a multiple of the KV heads: each shard then
-    keeps a replicated copy of the one KV head its query heads read
-    (training refuses it: that head's gradient would need its own sum)."""
-    if n_model <= 1 or cfg.n_heads % n_model or cfg.n_kv_heads % n_model == 0:
-        return
-    if serve and n_model % cfg.n_kv_heads == 0:
+def check_tp(cfg: ModelConfig, n_model: int) -> None:
+    """Refuses a "model" size whose shards would straddle KV groups: the
+    shards of a GQA layer hold whole groups of query heads and their KV
+    heads (M divides the KV heads), or each lies inside one group and
+    keeps a replicated copy of its one KV head (M a multiple of the KV
+    heads), in training and in serving alike. (An M that does not divide
+    the query heads runs attention whole on every shard.)"""
+    if n_model <= 1 or cfg.n_heads % n_model or cfg.n_kv_heads % n_model == 0 \
+            or n_model % cfg.n_kv_heads == 0:
         return
     raise ValueError(
         f"{cfg.name}: --model {n_model} would split a KV group "
         f"({cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads); "
-        f"the model size must divide the KV heads"
-        + (" or be a multiple of them" if serve else ""))
+        f"the model size must divide the KV heads or be a multiple of them")
 
 
 def ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -144,12 +152,7 @@ class LocalAxis:
 
 
 def _all_gather(x, axis) -> List[torch.Tensor]:
-    import torch.distributed as dist
-
-    x = x.contiguous()
-    out = [torch.empty_like(x) for _ in range(axis.size)]
-    dist.all_gather(out, x, group=axis.group)
-    return out
+    return comm.all_gather(x, axis.group, axis.name)
 
 
 class _AllSum(torch.autograd.Function):
@@ -192,21 +195,20 @@ class _GatherSumScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
         chunks = [c.contiguous() for c in g.chunk(ctx.axis.size, ctx.dim)]
-        got = [torch.empty_like(c) for c in chunks]
-        dist.all_to_all(got, chunks, group=ctx.axis.group)
+        got = comm.all_to_all(chunks, ctx.axis.group, ctx.axis.name)
         return ordered_sum(got), None, None
 
 
 class GroupAxis:
     """One index of an axis per rank of ``group`` (this rank's:
     ``index``): the same operations as ``LocalAxis``, the other indices'
-    values gathered from their ranks."""
+    values gathered from their ranks (``parallel.comm``, which records
+    each collective under the axis ``name``)."""
 
-    def __init__(self, group, index: int, size: int):
+    def __init__(self, group, index: int, size: int, name: str):
         self.group, self.index, self.size = group, index, size
+        self.name = name
         self.local = [index]
 
     def reduce(self, parts):
@@ -228,6 +230,24 @@ class GroupAxis:
         return _all_gather(parts[0], self)
 
 
+class MetaAxis(GroupAxis):
+    """One index of an axis on the ``meta`` device (the dry-run's rank):
+    ``GroupAxis``'s operations over a ``comm.MetaGroup``, so a gather
+    returns the shapes the ranks' would and records the same entries,
+    and nothing is sent."""
+
+    def __init__(self, name: str, index: int, size: int):
+        super().__init__(comm.MetaGroup(size, index), index, size, name)
+
+
+def _axis(group, index: int, size: int, name: str):
+    if size == 1:
+        return LocalAxis(1)
+    if comm.is_meta(group):
+        return MetaAxis(name, index, size)
+    return GroupAxis(group, index, size, name)
+
+
 # ---------------------------------------------------------------------------
 # a cluster's (data, model) shards
 # ---------------------------------------------------------------------------
@@ -237,7 +257,10 @@ class ShardGroup:
     this process and a leaf is its whole tensor, its blocks views of it;
     with ``data_group``, ``model_group`` and ``group`` (the cluster's
     D x M ranks, group rank j * M + m) this rank is shard ``coords`` and
-    a leaf is its block."""
+    a leaf is its block. The groups may be ``comm.MetaGroup``s: one
+    rank's shard on the ``meta`` device, its axes ``MetaAxis``es."""
+
+    name = "data,model"
 
     def __init__(self, n_data: int, n_model: int, *, data_group=None,
                  model_group=None, group=None, coords=None):
@@ -250,17 +273,11 @@ class ShardGroup:
             self.shards = [(j, m) for j in range(n_data)
                            for m in range(n_model)]
             return
-        import torch.distributed as dist
-
         j, m = coords
-        self.data = (GroupAxis(data_group, j, n_data) if n_data > 1
-                     else LocalAxis(1))
-        self.model = (GroupAxis(model_group, m, n_model) if n_model > 1
-                      else LocalAxis(1))
+        self.data = _axis(data_group, j, n_data, "data")
+        self.model = _axis(model_group, m, n_model, "model")
         self.shards = [(j, m)]
         self.group, self.index = group, j * n_model + m
-        self.ranks = [dist.get_global_rank(group, r)
-                      for r in range(self.size)]
 
     # -- blocks ------------------------------------------------------------
     def coords_of(self, r: int) -> Dict[str, int]:
@@ -290,21 +307,23 @@ class ShardGroup:
         return ordered_sum(_all_gather(parts[0], self))
 
     def sum_int(self, n: int, device) -> int:
+        """The ranks' ``n`` summed (on ``meta``, which holds no values:
+        this rank's own)."""
         got = _all_gather(torch.tensor([n], dtype=torch.int64,
                                        device=device), self)
+        if device.type == "meta":
+            return n
         return int(sum(int(g) for g in got))
 
     # -- ranks only: the owner pattern of the outer step, whole leaves ------
     def gather_to(self, owner: int, block, spec):
         """The whole leaf on group rank ``owner`` (None elsewhere) from
         every rank's block."""
-        import torch.distributed as dist
-
         block = block.contiguous()
         mine = self.index == owner
         got = [torch.empty_like(block) for _ in range(self.size)] \
             if mine else None
-        dist.gather(block, got, dst=self.ranks[owner], group=self.group)
+        comm.gather(block, got, owner, self.group, self.name)
         if not mine:
             return None
         return sh.unshard_leaf([(self.coords_of(r), b)
@@ -312,22 +331,17 @@ class ShardGroup:
 
     def scatter_from(self, owner: int, whole, spec, like):
         """Each rank's block of ``whole`` (given on group rank ``owner``)."""
-        import torch.distributed as dist
-
         out = torch.empty_like(like)
         parts = None
         if self.index == owner:
             parts = [whole[sh.block_slices(whole.shape, spec, self.mesh,
                                            self.coords_of(r))].contiguous()
                      for r in range(self.size)]
-        dist.scatter(out, parts, src=self.ranks[owner], group=self.group)
-        return out
+        return comm.scatter(out, parts, owner, self.group, self.name)
 
     def broadcast_from(self, owner: int, t) -> None:
-        import torch.distributed as dist
-
         if t.numel():
-            dist.broadcast(t, self.ranks[owner], group=self.group)
+            comm.broadcast(t, owner, self.group, self.name)
 
     def gather_whole(self, block, spec):
         """The whole leaf on every rank."""
@@ -350,14 +364,20 @@ class TPLoss:
     unstacked ``param_placements`` of the param tree)."""
 
     def __init__(self, cfg: ModelConfig, shards: ShardGroup,
-                 specs: Dict[str, Tuple]):
+                 specs: Dict[str, Tuple], *, flash: bool = False):
         M.check_ported(cfg)
         check_tp(cfg, shards.M)
         self.cfg, self.shards, self.specs = cfg, shards, specs
+        self.flash = flash          # ``models.model.make_ctx``'s
         self.segs = M.build_segments(cfg)
         nm = shards.M
         self.split_attn = nm > 1 and cfg.n_heads % nm == 0
         self.split_mlp = nm > 1 and cfg.d_ff > 0 and cfg.d_ff % nm == 0
+        lo, hi = kv_heads(cfg, nm, 0)
+        self.n_kv = hi - lo
+        # M a multiple of the KV heads: each shard's wk/wv columns are a
+        # copy of its one KV head, not a 1/M block of them
+        self.kv_replicated = self.split_attn and cfg.n_kv_heads % nm != 0
 
     # -- weights -------------------------------------------------------------
     def _split(self, key: str, spec) -> Optional[int]:
@@ -376,9 +396,25 @@ class TPLoss:
             return 1        # the lookup's d_model columns; the vocab split
         return None
 
-    def prep(self, parts, spec, split):
+    def _cut(self, key: str) -> Optional[Callable[[int], Tuple[int, int]]]:
+        """Model shard i's (offset, width) along the split dim where it is
+        not the i-th of M equal parts: wk/wv's replicated KV head."""
+        name = key.rsplit("['", 1)[-1][:-2]
+        if not (self.kv_replicated and name in ("wk", "wv")):
+            return None
+        hd, nm = self.cfg.resolved_head_dim, self.shards.M
+        return lambda i: (kv_heads(self.cfg, nm, i)[0] * hd, self.n_kv * hd)
+
+    def prep_key(self, key: str, parts, spec=None):
+        """``prep`` of leaf ``key``'s blocks (``spec``: its placement, a
+        segment leaf's without the unit dim; default the stored one)."""
+        return self.prep(parts, self.specs[key] if spec is None else spec,
+                         self._split(key, self.specs[key]), self._cut(key))
+
+    def prep(self, parts, spec, split, cut=None):
         """One leaf's blocks -> per local data index, ("rep", whole) or
-        ("shard", [the local model shards' slices along ``split``])."""
+        ("shard", [the local model shards' slices along ``split``]: the
+        i-th of M equal parts, or ``cut(i)`` = (offset, width))."""
         data, model = self.shards.data, self.shards.model
         spec = tuple(spec) + (None,) * (parts[0][0].dim() - len(spec))
         cols = []
@@ -389,7 +425,8 @@ class TPLoss:
         out = []
         for jj in range(len(data.local)):
             ws = [c[jj] for c in cols]
-            if "model" in spec and split == spec.index("model"):
+            if "model" in spec and split == spec.index("model") \
+                    and cut is None:
                 out.append(("shard", [w.contiguous() for w in ws]))
                 continue
             W = (model.gather(ws, spec.index("model")) if "model" in spec
@@ -398,9 +435,10 @@ class TPLoss:
                 out.append(("rep", W.contiguous()))
                 continue
             n = W.shape[split] // model.size
-            out.append(("shard", [w.narrow(split, i * n, n).contiguous()
-                                  for i, w in zip(model.local,
-                                                  model.fanout(W))]))
+            cuts = [cut(i) if cut else (i * n, n) for i in model.local]
+            out.append(("shard", [w.narrow(split, a, b).contiguous()
+                                  for (a, b), w in zip(cuts,
+                                                       model.fanout(W))]))
         return out
 
     # -- one unit ------------------------------------------------------------
@@ -417,7 +455,7 @@ class TPLoss:
         parts = [attn.apply_gqa({k: W[k][1][i] for k in names}, hm,
                                 ctx["positions"],
                                 n_heads=cfg.n_heads // model.size,
-                                n_kv=cfg.n_kv_heads // model.size, **kw)
+                                n_kv=self.n_kv, **kw)
                  for i, hm in enumerate(model.fanout(h))]
         return model.reduce(parts)
 
@@ -468,27 +506,24 @@ class TPLoss:
         tl = model.reduce(picks)
         return ((mx + torch.log(s) - tl) * mask).sum()
 
-    # -- the loss of every local data shard -----------------------------------
-    def losses(self, parts: Dict[str, List[List[torch.Tensor]]],
+    # -- the trunk and the loss of every local data shard ---------------------
+    def hidden(self, parts: Dict[str, List[List[torch.Tensor]]],
                toks: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each local data shard's mean NLL over its rows ``toks[jj]``
-        (B_j, S), from the leaves' blocks ``parts`` (by keystr)."""
+        """Each local data shard's final hidden states (B_j, S, d) before
+        the final norm, from its rows ``toks[jj]`` and the leaves' blocks
+        ``parts`` (by keystr): the embedding, then every unit."""
         cfg, specs = self.cfg, self.specs
         dev = toks[0].device
-
-        def prepped(key):
-            return self.prep(parts[key], specs[key],
-                             self._split(key, specs[key]))
-
         # embedding: the shard's d_model columns, gathered over "model"
-        emb = prepped("['embed']")
+        emb = self.prep_key("['embed']", parts["['embed']"])
         xs = []
         for jj, tok in enumerate(toks):
             kind, e = emb[jj]
             xs.append(self.shards.model.gather(
                 [M.embed_rows(em, cfg, tok) for em in e], 2)
                 if kind == "shard" else M.embed_rows(e, cfg, tok))
-        ctxs = [M.make_ctx(cfg, t.shape[0], t.shape[1], dev) for t in toks]
+        ctxs = [M.make_ctx(cfg, t.shape[0], t.shape[1], dev, flash=self.flash)
+                for t in toks]
         # the units, each remat'd with its weights' gathers
         for s, seg in enumerate(self.segs):
             pre = f"['segments'][{s}]"
@@ -501,18 +536,33 @@ class TPLoss:
                     W = {}
                     for k in _keys:
                         blocks = [[u[_i] for u in row] for row in _units[k]]
-                        W[k[len(_pre):]] = self.prep(
-                            blocks, specs[k][1:], self._split(k, specs[k]))
+                        W[k[len(_pre):]] = self.prep_key(k, blocks,
+                                                         specs[k][1:])
                     return tuple(self._unit(
                         _unit_tree({k: v[jj] for k, v in W.items()}), x_,
                         ctxs[jj], _w) for jj, x_ in enumerate(xs_))
                 xs = list(checkpoint(body, *xs, use_reentrant=False))
-        # head + CE, chunk by chunk over the sequence like loss_fn
-        norm_w = {k[len("['final_norm']['"):-2]: prepped(k)
+        return xs
+
+    def _head(self, parts):
+        """(final norm per local data index, the head's prepped weights:
+        the tied table whole, else the stored vocab split)."""
+        norm_w = {k[len("['final_norm']['"):-2]: self.prep_key(k, parts[k])
                   for k in parts if k.startswith("['final_norm']")}
-        tied = cfg.tie_embeddings
-        head = self.prep(parts["['embed']"], specs["['embed']"], None) \
-            if tied else prepped("['head']")
+        head = self.prep(parts["['embed']"], self.specs["['embed']"], None) \
+            if self.cfg.tie_embeddings else \
+            self.prep_key("['head']", parts["['head']"])
+        return norm_w, head
+
+    def losses(self, parts: Dict[str, List[List[torch.Tensor]]],
+               toks: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each local data shard's mean NLL over its rows ``toks[jj]``
+        (B_j, S), from the leaves' blocks ``parts`` (by keystr)."""
+        dev = toks[0].device
+        xs = self.hidden(parts, toks)
+        # head + CE, chunk by chunk over the sequence like loss_fn
+        norm_w, head = self._head(parts)
+        tied = self.cfg.tie_embeddings
         out = []
         for jj, (tok, h) in enumerate(zip(toks, xs)):
             B, S = tok.shape
@@ -532,6 +582,29 @@ class TPLoss:
                      if lc < S else self._nll(*args))
                 total = t if total is None else total + t
             out.append(total / torch.clamp(mask.sum(), min=1.0))
+        return out
+
+    @torch.no_grad()
+    def prefill(self, parts: Dict[str, List[List[torch.Tensor]]],
+                toks: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The sharded prefill (``launch.steps.make_prefill_step``): each
+        local data shard's last-position logits (B_j, V), the units'
+        forward as in training, then the final norm and the head at the
+        last position, a vocab-split head's blocks gathered over
+        "model"."""
+        xs = self.hidden(parts, toks)
+        norm_w, head = self._head(parts)
+        out = []
+        for jj, h in enumerate(xs):
+            x = apply_norm({k: v[jj][1] for k, v in norm_w.items()},
+                           h[:, -1:], self.cfg.norm)
+            kind, w = head[jj]
+            if kind == "rep" and self.cfg.tie_embeddings:
+                w = w.T
+            lg = (x @ w.to(x.dtype) if kind == "rep" else
+                  self.shards.model.gather([x @ wm.to(x.dtype) for wm in w],
+                                           2))
+            out.append(lg[:, 0])
         return out
 
     def value_and_grad(self, parts, toks):
@@ -658,7 +731,7 @@ def serve_index(cfg: ModelConfig, n_model: int, m: int) -> Callable:
     do not divide M stays whole, as do norms, the output bias and a tied
     embedding."""
     M.check_ported(cfg)
-    check_tp(cfg, n_model, serve=True)
+    check_tp(cfg, n_model)
     hd = cfg.resolved_head_dim
     split_attn = n_model > 1 and cfg.n_heads % n_model == 0
     split_mlp = n_model > 1 and cfg.d_ff > 0 and cfg.d_ff % n_model == 0
@@ -708,12 +781,29 @@ class TPDecode:
     into D contiguous blocks, each data shard running its own and the
     tokens all-gathered in shard order; any other batch runs whole on
     every data shard. In process every block and shard runs in turn with
-    the shapes a rank gives it, so the ranks give the same bits."""
+    the shapes a rank gives it, so the ranks give the same bits.
 
-    def __init__(self, cfg: ModelConfig, shards: ShardGroup):
+    ``placement="2d"``: the weights are placed as for training
+    (``param_placements(..., serve=False)``: FSDP over "data" too), and
+    ``blocks`` is a ``{keystr: [[block]]}`` dict of ``ShardGroup.parts``
+    of the whole tree (in process) or of this rank's blocks; each step
+    gathers the embedding, the final norm and the head, and each unit's
+    weights before the unit runs, as ``TPLoss.prep`` gathers them in
+    training, into the blocks ``serve_index`` would cut, and computes as
+    above (the JAX dry-run's default decode layout)."""
+
+    def __init__(self, cfg: ModelConfig, shards: ShardGroup, *,
+                 placement: str = "serve"):
         M.check_ported(cfg)
-        check_tp(cfg, shards.M, serve=True)
-        self.cfg, self.shards = cfg, shards
+        check_tp(cfg, shards.M)
+        if placement not in ("serve", "2d"):
+            raise ValueError(f"placement {placement!r}: 'serve' or '2d'")
+        self.cfg, self.shards, self.placement = cfg, shards, placement
+        self.gathers = None
+        if placement == "2d":
+            self.gathers = TPLoss(cfg, shards, sh.param_placements(
+                M.init_params(cfg, device="meta"), shards.mesh,
+                cluster_stacked=False))
         nm = shards.M
         self.split_attn = nm > 1 and cfg.n_heads % nm == 0
         self.split_mlp = nm > 1 and cfg.d_ff > 0 and cfg.d_ff % nm == 0
@@ -742,6 +832,38 @@ class TPDecode:
             return [(0, n)]
         w = n // D
         return [(j * w, (j + 1) * w) for j in self.shards.data.local]
+
+    # -- the weights, per local model shard ------------------------------------
+    def _trees(self, W) -> List[Dict[str, Any]]:
+        """``TPLoss.prep``'s outputs (data index 0: every data index holds
+        the same whole) as one serving tree per local model shard."""
+        return [_unit_tree({k: v[0][1] if v[0][0] == "rep" else v[0][1][i]
+                            for k, v in W.items()})
+                for i in range(len(self.shards.model.local))]
+
+    def top_blocks(self, blocks) -> List[Dict[str, Any]]:
+        """The embedding, final norm and head of each local model shard
+        (``placement="2d"``: gathered; a tied table whole, as
+        ``serve_index`` leaves it)."""
+        if self.gathers is None:
+            return blocks
+        g = self.gathers
+        return self._trees({
+            k: (g.prep(v, g.specs[k], None)
+                if k == "['embed']" and self.cfg.tie_embeddings
+                else g.prep_key(k, v))
+            for k, v in blocks.items() if not k.startswith("['segments']")})
+
+    def unit_blocks(self, blocks, s: int, u: int) -> List[Dict[str, Any]]:
+        """Unit ``u`` of segment ``s`` for each local model shard
+        (``placement="2d"``: its weights gathered)."""
+        if self.gathers is None:
+            return [M.unit(b["segments"][s], u) for b in blocks]
+        g, pre = self.gathers, f"['segments'][{s}]"
+        return self._trees({
+            k[len(pre):]: g.prep_key(k, [[b[u] for b in row] for row in v],
+                                     g.specs[k][1:])
+            for k, v in blocks.items() if k.startswith(pre)})
 
     # -- the model's pieces over the shards ----------------------------------
     def embed(self, blocks, tokens):
@@ -809,16 +931,17 @@ class TPDecode:
         ``window``). Returns every row's next token (B,) int32."""
         B = tokens.shape[0]
         rows = self.rows(B)
-        xs = [self.embed(blocks, tokens[lo:hi]) for lo, hi in rows]
+        top = self.top_blocks(blocks)
+        xs = [self.embed(top, tokens[lo:hi]) for lo, hi in rows]
         for s, seg in enumerate(self.segs):
             for u in range(seg.n):
-                Ws = [M.unit(b["segments"][s], u) for b in blocks]
+                Ws = self.unit_blocks(blocks, s, u)
                 xs = [self.unit(Ws, x, lambda i, p, h, _c=dict(
                     rows=rows[jj], jj=jj, s=s, u=u, window=seg.window):
                     attend(_c, i, p, h)) for jj, x in enumerate(xs)]
         out = []
         for r, x in zip(rows, xs):
-            parts = self.logits(blocks, x)
+            parts = self.logits(top, x)
             if self.on_logits is not None:
                 self.on_logits(r, parts)
             out.append(self.argmax(parts).to(torch.int32))

@@ -157,29 +157,35 @@ class ServeEngine:
     model shards' blocks (``tensor.serve_index``) and the step runs
     tensor-parallel (``make_paged_decode_step``); every rank runs the same
     page manager and scheduler, host code that reads only the tokens all
-    ranks share, so the admissions are the one-card engine's.
+    ranks share, so the admissions are the one-card engine's. With
+    ``placement="2d"`` ``params`` is instead the ``{keystr: [[block]]}``
+    parts of the training placement (``TPDecode``'s 2-D form).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seqs: int,
                  page_size: int, n_pages: int, max_pages_per_seq: int,
                  eos_id: Any = "cfg", policy: str = "continuous",
-                 metrics=None, span=None, device=None, shards=None):
+                 metrics=None, span=None, device=None, shards=None,
+                 placement: str = "serve"):
         ok, why = supports_paged(cfg)
         if not ok:
             raise NotImplementedError(f"{cfg.name}: {why}")
         self.device = resolve_device(device)
         self.tp = None
         self.kv_cfg, n_pools = cfg, 1
+        at = None
         if shards is not None:
             from repro_torch.parallel.tensor import TPDecode
 
-            self.tp = TPDecode(cfg, shards)
+            self.tp = TPDecode(cfg, shards, placement=placement)
             self.kv_cfg, n_pools = self.tp.shard_config(), self.tp.n_caches
-            if len(params) != len(shards.model.local):
+            if placement == "2d":
+                at = params["['embed']"][0][0].device
+            elif len(params) != len(shards.model.local):
                 raise ValueError(f"{len(params)} block trees for "
                                  f"{len(shards.model.local)} model shards")
         self.n_pools = n_pools
-        at = M.params_device(params[0] if self.tp else params)
+        at = at or M.params_device(params[0] if self.tp else params)
         if at.type != self.device.type:
             raise ValueError(f"params are on {at}, the engine on "
                              f"{self.device}")

@@ -497,16 +497,19 @@ def test_dryrun_qwen107b_matches_jax_eval_shape(capsys):
 def test_dryrun_cli(capsys):
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "gemma3-1b", "--inner", "pp"])
-    assert "DRYRUN SUMMARY ok=0 skipped=0 fail=1" in capsys.readouterr().out
+    assert "DRYRUN SUMMARY ok=0 skipped=0 not_ported=0 fail=1" in \
+        capsys.readouterr().out
     dryrun.main(["--arch", "hundred-m", "--inner", "pp", "--pp-stages",
                  "4"])
     out = capsys.readouterr().out
     assert "PP-INNER-SMOKE-OK arch=hundred-m stages=4" in out
-    assert "DRYRUN SUMMARY ok=1 skipped=0 fail=0" in out
-    dryrun.main(["--arch", "hundred-m", "--pp-stages", "4"])   # pp: default
-    assert "PP-INNER-SMOKE-OK arch=hundred-m" in capsys.readouterr().out
-    with pytest.raises(SystemExit):     # the other modes are not ported
-        dryrun.main(["--arch", "hundred-m", "--inner", "gspmd"])
+    assert "DRYRUN SUMMARY ok=1 skipped=0 not_ported=0 fail=0" in out
+    # the JAX CLI's default, ported now: the mesh step's dry-run
+    dryrun.main(["--arch", "hundred-m", "--no-outer"])
+    out = capsys.readouterr().out
+    assert "PP-INNER-SMOKE-OK" not in out and '"mode": "gspmd"' in out
+    assert out.rstrip().endswith(
+        "DRYRUN SUMMARY ok=1 skipped=0 not_ported=0 fail=0")
 
 
 # ---------------------------------------------------------------------------

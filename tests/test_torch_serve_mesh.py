@@ -190,14 +190,20 @@ def test_serve_index_cuts_once_what_the_layer_splits():
 
 def test_replicated_kv_head_is_serving_only():
     """gemma3-1b (4 query heads over 1 KV head): serving takes --model 2
-    and 4; training keeps ``check_tp``'s refusal."""
+    and 4, and training now takes them too (one ``check_tp`` for both);
+    phi3-medium-14b at M = 4 and 8, whose shards would straddle KV
+    groups, is refused in both."""
     g = get_config("gemma3-1b")
-    TP.check_tp(g, 2, serve=True)
-    TP.check_tp(g, 4, serve=True)
-    with pytest.raises(ValueError, match="would split a KV group"):
-        TP.check_tp(g, 2)
+    TP.check_tp(g, 2)
+    TP.check_tp(g, 4)
+    for m in (4, 8):
+        with pytest.raises(ValueError, match="would split a KV group"):
+            TP.check_tp(get_config("phi3-medium-14b"), m)
     S._check_args(S._parse_args(["--arch", "gemma3-1b", "--devices", "4",
                                  "--data", "2", "--model", "2"]))
+    with pytest.raises(ValueError, match="would split a KV group"):
+        S._check_args(S._parse_args(["--arch", "phi3-medium-14b",
+                                     "--devices", "4", "--model", "4"]))
     with pytest.raises(ValueError, match="must equal --data"):
         S._check_args(S._parse_args(["--devices", "3", "--model", "2"]))
 

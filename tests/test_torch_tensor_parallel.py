@@ -47,7 +47,7 @@ B, S = 4, 16
 
 
 def _carried(arch, **over):
-    over = dict(n_layers=1, n_kv_heads=4, **over)
+    over = {"n_layers": 1, "n_kv_heads": 4, **over}
     jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **over)
     tcfg = dataclasses.replace(get_config(arch).reduced(), **over)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
@@ -91,8 +91,9 @@ def test_unit_sharded_matches_unsharded_and_jax(arch, shape):
     """opt-1.3b: LayerNorm, GELU MLP with biases, untied vocab-split head;
     granite-3-8b: RMSNorm, SwiGLU, the tied head computed whole;
     stablelm-12b: the parallel residual; gemma3-1b: a sliding-window
-    unit, the embedding scale (its 4 KV heads here: M = 2 or 4 would
-    split its one KV head, which ``check_tp`` refuses)."""
+    unit, the embedding scale (its KV heads set to 4 here, M dividing
+    them; its own one KV head, replicated over the shards, is
+    ``test_replicated_kv_head_matches_jax``'s)."""
     jcfg, tcfg, jparams, tparams, toks = _carried(arch)
     (jl, _), jg = jax.value_and_grad(
         lambda p: JM.loss_fn(p, jcfg, {"tokens": jnp.asarray(toks)}),
@@ -120,16 +121,63 @@ def test_unit_sharded_matches_unsharded_and_jax(arch, shape):
         assert _rel(gs, torch.from_numpy(jg[key])) <= 1e-4, key
 
 
+@pytest.mark.parametrize("arch,kv,shape", [
+    ("gemma3-1b", 1, (1, 2)), ("gemma3-1b", 1, (1, 4)),
+    ("gemma3-1b", 1, (2, 4)), ("granite-3-8b", 2, (1, 4))],
+    ids=["gemma3-1b-d1m2", "gemma3-1b-d1m4", "gemma3-1b-d2m4",
+         "granite-3-8b-kv2-d1m4"])
+def test_replicated_kv_head_matches_jax(arch, kv, shape):
+    """M a multiple of the KV heads (the reduced configs' own KV counts):
+    each shard computes with a copy of the one KV head its query heads
+    read, and that head's wk/wv gradient is the sum over the shards that
+    share it. The loss within rtol 1e-5 of JAX's and every leaf's gradient
+    within 1e-4 of its norm of JAX's ``loss_fn`` grads."""
+    jcfg, tcfg, jparams, tparams, toks = _carried(arch, n_kv_heads=kv)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: JM.loss_fn(p, jcfg, {"tokens": jnp.asarray(toks)}),
+        has_aux=True)(jparams)
+    jg = {k: np.array(v) for k, v in jflatten(jg).items()}
+    shards = TP.ShardGroup(*shape)
+    specs = sh.param_placements(tparams, shards.mesh, cluster_stacked=False)
+    parts = {k: shards.parts(x, specs[k]) for k, x in
+             T.keystr_items(tparams)}
+    n = B // shards.D
+    t = torch.from_numpy(toks)
+    loss = TP.TPLoss(tcfg, shards, specs)
+    assert loss.kv_replicated and loss.n_kv == 1
+    loss_s, g_s = loss.value_and_grad(
+        parts, [t[j * n:(j + 1) * n] for j in range(shards.D)])
+    assert abs(float(loss_s) - float(jl)) <= 1e-5 * abs(float(jl))
+    for (key, _), gs in zip(T.keystr_items(tparams),
+                            _whole_grads(shards, specs, tparams, g_s)):
+        assert _rel(gs, torch.from_numpy(jg[key])) <= 1e-4, key
+
+
 def test_kv_group_split_is_refused():
-    with pytest.raises(ValueError, match="granite-3-8b-smoke: --model 4 "
-                                         "would split a KV group"):
-        TR.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",
-                 "--devices", "4", "--clusters", "1", "--data", "1",
-                 "--model", "4"])
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=1)
-    TP.check_tp(cfg, 8)               # 32 heads over 8 KV heads: whole groups
-    with pytest.raises(ValueError, match="--model 16"):
-        TP.check_tp(cfg, 16)
+    """The refusal that remains: shards that would straddle KV groups
+    (phi3-medium-14b, 40 query heads over 10 KV heads, at M = 4 and 8:
+    10 or 5 query heads a shard, groups of 4). A multiple of the KV heads
+    is taken in training now (a replicated KV head a shard): granite-3-8b
+    at M = 16 (8 KV heads), the reduced gemma3-1b (1 KV head) at 2 and
+    4; an M that does not divide the query heads runs attention whole."""
+    phi3 = TR._parse_args(["--arch", "phi3-medium-14b", "--devices", "4",
+                           "--clusters", "1", "--data", "1", "--model",
+                           "4"])
+    with pytest.raises(ValueError, match="phi3-medium-14b: --model 4 would "
+                                         "split a KV group"):
+        TR._check_args(phi3)
+    cfg = get_config("phi3-medium-14b")
+    with pytest.raises(ValueError, match="--model 8"):
+        TP.check_tp(cfg, 8)
+    TP.check_tp(cfg, 16)              # 40 % 16: attention whole
+    TP.check_tp(cfg, 2)               # 2 divides the 10 KV heads
+    TR._check_args(TR._parse_args([
+        "--arch", "granite-3-8b", "--devices", "32", "--clusters", "2",
+        "--data", "1", "--model", "16", "--global-batch", "32"]))
+    for m in (2, 4):
+        TR._check_args(TR._parse_args([
+            "--arch", "gemma3-1b", "--smoke", "--devices", str(m),
+            "--clusters", "1", "--data", "1", "--model", str(m)]))
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +229,16 @@ def _rank_block(key, arr, specs, mesh, c, coords):
 
 @pytest.mark.parametrize("C,D,Mm,extra", [
     (1, 1, 2, []), (1, 2, 2, []),
-    (2, 1, 2, ["--adaptive", "--h-policy", "balance", "--step-times", "1,2"])],
-    ids=["c1d1m2", "c1d2m2", "c2d1m2-adaptive-balance"])
+    (2, 1, 2, ["--adaptive", "--h-policy", "balance", "--step-times", "1,2"]),
+    # a replicated KV head a shard: 2 KV heads over 4 shards, and gemma3-1b's
+    # one KV head over 4
+    (1, 1, 4, []), (1, 1, 4, ["--arch", "gemma3-1b"])],
+    ids=["c1d1m2", "c1d2m2", "c2d1m2-adaptive-balance", "c1d1m4-kv-replicated",
+         "c1d1m4-gemma3-1b"])
 def test_driver_ranks_equal_in_process_bitwise(tmp_path, capfd, C, D, Mm,
                                                extra):
+    arch = extra[extra.index("--arch") + 1] if "--arch" in extra \
+        else "granite-3-8b"
     argv = DRIVER + extra + ["--devices", str(C * D * Mm), "--clusters",
                              str(C), "--data", str(D), "--model", str(Mm),
                              "--global-batch", str(4 * C)]
@@ -201,7 +255,7 @@ def test_driver_ranks_equal_in_process_bitwise(tmp_path, capfd, C, D, Mm,
         want_summary["gather_bytes"]
     mesh = {"data": D, "model": Mm}
     specs = sh.param_placements(
-        M.init_params(get_config("granite-3-8b").reduced(), device="meta"),
+        M.init_params(get_config(arch).reduced(), device="meta"),
         mesh, cluster_stacked=False)
     for r, flat in enumerate(want):
         for rank in range(C * D * Mm):
