@@ -16,7 +16,10 @@ continues:
         tokens): each case within the JAX gate, two calls bit for bit
         equal, and slot 0 run alone bit for bit its row of the batch;
         each case's plan (pages per chunk, chunks, blocks) and, at the
-        full-size cases, each kernel's time (``kernel_profile``);
+        full-size cases, each kernel's time (``kernel_profile``); then
+        (3a-bf16) the same cases with q and the pool in bf16, within
+        rtol/atol 2e-2, bit for bit over two calls and slot 0 alone, the
+        bytes bound at 2-byte K/V (``kernel_vs_plain(torch.bfloat16)``);
      b. the compressor's five kernels (int4 pack/unpack, project,
         project-transpose + pack, reconstruct) at every leaf shape of the
         training configuration, r = 64 and r_t in {64, 40}, held to the
@@ -51,7 +54,13 @@ continues:
         plain versions and SDPA, and the least time at the 3xTF32
         tensor-core rate beside the f32 SIMT one (``flash_bound``); at the
         training shape, granite-3-8b, gemma3-1b global and qwen1.5-107b,
-        each kernel's time (``kernel_profile``);
+        each kernel's time (``kernel_profile``); then (3c-bf16) the bf16
+        instantiations at the same cases and the occupancy of each, for
+        P's and dS's bf16 parts p_parts 1 and 2: within the JAX bf16 gate
+        2e-2 (forward) and an f32-accumulation bound plus an ulp of each
+        output, two calls bit for bit; times at the default p_parts
+        beside the bound at the bf16 tensor rate, the plain versions and
+        SDPA on bf16 (``flash_kernels_bf16``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
@@ -76,6 +85,12 @@ continues:
         rtol 1e-3 of phase 4's;
      c. granite-3-8b (GQA, G = 4) at full width, 2 of 40 layers: loss and
         gradients with flash against einsum;
+     k. phase 4b's run in bf16 (params and compute; optimizer state,
+        pseudo-gradients and the wire f32): round 0 bit for bit the
+        initial bf16 params, the bf16 flash kernels and the compressor
+        launched as in 4b, wire bytes 4b's; ms a step, round s and peak
+        beside 4b's (``train_bf16``; bf16 matmuls reduce in f32 in every
+        phase);
      d. the mesh driver ``repro_torch.launch.train.main`` on full opt-1.3b
         (24 layers, full width), one cluster on the card through a process
         group of size 1 (NCCL), 2 rounds of H = 4: finite losses, round 0
@@ -85,6 +100,9 @@ continues:
         leaf and factor), the all-gather handed the payload's bytes, peak
         memory; then the outer step run again on the last state, plain
         and split into its parts by CUDA events (``outer_split``);
+     l. the same run at ``--dtype bfloat16``, with the same gates and the
+        all-gather handed 4d's bytes exactly; ms a step and peak beside
+        4d's (``mesh_driver_bf16``);
      e. the same driver on stablelm-12b (parallel residual, LayerNorm and
         GELU, head dim 160) at full width, cut to 2 of 40 layers
         (``--n-layers 2``), with the same gates;
@@ -138,6 +156,12 @@ continues:
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
      device steps x layers;
+     f. phase 5's opt-1.3b run at ``--dtype bfloat16`` (bf16 weights and
+        KV pool, the bf16 paged kernel), its gates and a KV pool exactly
+        half of 5's; tok/s and per-token p50/p99 beside 5's; then the paged
+        engine's greedy tokens against the dense loop's in bf16, a
+        divergence allowed only at a dense top-2 margin under 3 bf16 ulps
+        (``serve_bf16``);
      c. the same driver's tensor-parallel shards, all in this process on
         the card (``serve.run`` with no shards): opt-1.3b at ``--data 2
         --model 2`` and ``--data 1 --model 4``, stablelm-12b at ``--model
@@ -178,6 +202,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989.4e12      # H100 SXM dense bf16 on the tensor cores
+                                 # (launch/dryrun.py::BF16_FLOPS_PER_S)
 ATOL, RTOL = 1e-5, 1e-3          # the JAX package's gate for this kernel
 SCRATCH = 1e3                    # scratch-page garbage that must never leak
 
@@ -194,7 +220,10 @@ def environment():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; matmul allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return smi
 
 
@@ -311,15 +340,16 @@ def time_ms(fn, *, iters=30, flush=None):
 
 
 def paged_bound(q, cache, table, lengths, *, window):
-    """Least time for this call's data: live K/V rows plus q and o, over
-    HBM rate, against 4 flops per live K/V float over the f32 rate."""
+    """Least time for this call's data: live K/V rows plus q and o (at
+    their element size), over HBM rate, against 4 flops per live K/V
+    element over the f32 rate."""
     ps, KV, dh = cache["k"].shape[1:]
     S, _, H, _ = q.shape
     live = (lengths.long() + 1).clamp(max=table.shape[1] * ps)
     if window:
         live = live.clamp(max=window)
     n_live = int(live.sum())
-    nbytes = (2 * n_live * KV * dh + 2 * S * H * dh) * 4 \
+    nbytes = (2 * n_live * KV * dh + 2 * S * H * dh) * q.element_size() \
         + table.numel() * 4 + lengths.numel() * 4
     flops = 4 * n_live * H * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -327,57 +357,73 @@ def paged_bound(q, cache, table, lengths, *, window):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_vs_plain():
+PAGED_CASES = [
+    # name, shape kw, window
+    ("opt-1.3b len<=192", dict(S=8, P=12, ps=16, KV=32, G=1, dh=64,
+                               max_len=192, n_inactive=1), 0),
+    ("opt-1.3b len<=2048", dict(S=8, P=128, ps=16, KV=32, G=1, dh=64,
+                                max_len=2048, n_inactive=1), 0),
+    ("granite-3-8b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=4, dh=128,
+                                    max_len=2048, n_inactive=1), 0),
+    ("gemma3-1b len<=2048 w512", dict(S=8, P=128, ps=16, KV=1, G=4,
+                                      dh=256, max_len=2048,
+                                      n_inactive=1), 512),
+    # stablelm-12b: head dim 160, 40 float4s a row (not a power of
+    # two, more than a warp); qwen1.5-107b: G = 8
+    ("stablelm-12b len<=192", dict(S=8, P=12, ps=16, KV=8, G=4, dh=160,
+                                   max_len=192, n_inactive=1), 0),
+    ("stablelm-12b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=4,
+                                    dh=160, max_len=2048,
+                                    n_inactive=1), 0),
+    ("qwen1.5-107b len<=192", dict(S=8, P=12, ps=16, KV=8, G=8, dh=128,
+                                   max_len=192, n_inactive=1), 0),
+    ("qwen1.5-107b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=8,
+                                    dh=128, max_len=2048,
+                                    n_inactive=1), 0),
+]
+PAGED_GATE_BF16 = 2e-2   # atol and rtol in bf16: the flash kernel's JAX
+                         # bf16 gate (tests/test_kernels.py:103-113)
+
+
+def kernel_vs_plain(dtype=torch.float32):
+    """Phase 3a (3a-bf16 with ``dtype=torch.bfloat16``: the same cases'
+    q and K/V pool cast to bf16, the gate ``PAGED_GATE_BF16``)."""
     from repro_torch.serve import attention_paged as ap
 
-    _phase("kernel vs plain: paged_attention")
+    bf16 = dtype == torch.bfloat16
+    _phase("kernel vs plain: paged_attention" + (" (bf16)" if bf16 else ""))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    cases = [
-        # name, shape kw, window
-        ("opt-1.3b len<=192", dict(S=8, P=12, ps=16, KV=32, G=1, dh=64,
-                                   max_len=192, n_inactive=1), 0),
-        ("opt-1.3b len<=2048", dict(S=8, P=128, ps=16, KV=32, G=1, dh=64,
-                                    max_len=2048, n_inactive=1), 0),
-        ("granite-3-8b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=4, dh=128,
-                                        max_len=2048, n_inactive=1), 0),
-        ("gemma3-1b len<=2048 w512", dict(S=8, P=128, ps=16, KV=1, G=4,
-                                          dh=256, max_len=2048,
-                                          n_inactive=1), 512),
-        # stablelm-12b: head dim 160, 40 float4s a row (not a power of
-        # two, more than a warp); qwen1.5-107b: G = 8
-        ("stablelm-12b len<=192", dict(S=8, P=12, ps=16, KV=8, G=4, dh=160,
-                                       max_len=192, n_inactive=1), 0),
-        ("stablelm-12b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=4,
-                                        dh=160, max_len=2048,
-                                        n_inactive=1), 0),
-        ("qwen1.5-107b len<=192", dict(S=8, P=12, ps=16, KV=8, G=8, dh=128,
-                                       max_len=192, n_inactive=1), 0),
-        ("qwen1.5-107b len<=2048", dict(S=8, P=128, ps=16, KV=8, G=8,
-                                        dh=128, max_len=2048,
-                                        n_inactive=1), 0),
-    ]
+    gate = (PAGED_GATE_BF16, PAGED_GATE_BF16) if bf16 else (ATOL, RTOL)
+
+    def cast(q, cache, table, lengths):
+        return (q.to(dtype), {n: t.to(dtype) for n, t in cache.items()},
+                table, lengths)
+
     rows = []
     worst = 0.0
-    for name, kw, window in cases:
-        q, cache, table, lengths = paged_case(gen, dev=dev, **kw)
+    for name, kw, window in PAGED_CASES:
+        q, cache, table, lengths = cast(*paged_case(gen, dev=dev, **kw))
         worst = max(worst, _compare(ap, name, q, cache, table, lengths,
-                                    window, rows, flush, profile=True))
+                                    window, rows, flush, profile=True,
+                                    gate=gate))
     for S, P, ps, KV, G, dh in [(3, 4, 4, 2, 2, 8), (2, 3, 8, 1, 4, 16)]:
         for window in (0, 5):
-            q, cache, table, lengths = jax_fixture_case(
-                gen, S=S, P=P, ps=ps, KV=KV, G=G, dh=dh, dev=dev)
+            q, cache, table, lengths = cast(*jax_fixture_case(
+                gen, S=S, P=P, ps=ps, KV=KV, G=G, dh=dh, dev=dev))
             worst = max(worst, _compare(
                 ap, f"jax-test S{S} P{P} ps{ps} KV{KV} G{G} dh{dh} w{window}",
-                q, cache, table, lengths, window, rows, flush))
+                q, cache, table, lengths, window, rows, flush, gate=gate))
     return rows, worst
 
 
 def _compare(ap, name, q, cache, table, lengths, window, rows, flush,
-             profile=False):
+             profile=False, gate=(ATOL, RTOL)):
     from repro_torch.kernels import _plan
+
+    atol, rtol = gate
 
     got = ap.cuda_paged_attention(q, cache, table, lengths, window=window)
     again = ap.cuda_paged_attention(q, cache, table, lengths, window=window)
@@ -386,14 +432,14 @@ def _compare(ap, name, q, cache, table, lengths, window, rows, flush,
                                     lengths[:1].contiguous(), window=window)
     want = ap.ref_paged_attention(q, cache, table, lengths, window=window)
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
     max_err = float(err.max())
     if not torch.isfinite(got).all() or bool(bad.any()):
         raise SystemExit(f"FAIL {name}: kernel disagrees with the plain "
                          f"version (max abs err {max_err:.3e}, "
                          f"{int(bad.sum())} elements outside "
-                         f"atol {ATOL} + rtol {RTOL})")
+                         f"atol {atol} + rtol {rtol})")
     if not torch.equal(got, again):
         raise SystemExit(f"FAIL {name}: two calls differ bit for bit")
     if not torch.equal(alone[0], got[0]):
@@ -401,7 +447,7 @@ def _compare(ap, name, q, cache, table, lengths, window, rows, flush,
                          f"from slot 0 among the other slots")
     S, P = table.shape
     ps, KV, dh = cache["k"].shape[1:]
-    pages, n_chunks = _plan.paged_plan(P, ps, dh)
+    pages, n_chunks = _plan.paged_plan(P, ps, dh, q.element_size())
     blocks = n_chunks * KV * S
     ms = time_ms(lambda: ap.cuda_paged_attention(q, cache, table, lengths,
                                                  window=window), flush=flush)
@@ -955,7 +1001,7 @@ def flash_bound(B, Sq, Sk, H, KV, d, causal, bwd):
             flops / F32_FLOPS_PER_S * 1e3)
 
 
-def flash_tolerances(q, k, v, o, lse, do, causal):
+def flash_tolerances(q, k, v, o, lse, do, causal, u=0.0):
     """Elementwise f32 bounds for o, dq, dk, dv: 16 eps (sqrt(n) + sqrt(d)
     (1 + a)) times the magnitude of the terms each output sums (|P||V|;
     scale |P (|dO||V|^T + D_abs + |dP - D|)| |K| or its transpose with |Q|;
@@ -963,7 +1009,11 @@ def flash_tolerances(q, k, v, o, lse, do, causal):
     o and dq, G Sq for dk and dv); sqrt(d) (1 + a), a = max |q||k|^T /
     sqrt(d), covers the relative error a d-term score carries into P
     through exp. Sixteen times what a correct kernel can be expected to
-    be off; a dropped k tile or a wrong mask lane misses by ~P |v|."""
+    be off; a dropped k tile or a wrong mask lane misses by ~P |v|.
+    ``u``: a relative error of P and dS as they enter their products (the
+    bf16 kernels' rounding of them to bf16 parts, ``flash_kernels_bf16``),
+    added twice to each factor; the inputs are then the bf16 ones in
+    f32."""
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -989,7 +1039,7 @@ def flash_tolerances(q, k, v, o, lse, do, causal):
     del dp
 
     def factor(n):
-        return 16 * eps * (math.sqrt(n) + math.sqrt(d) * (1 + a))
+        return 16 * eps * (math.sqrt(n) + math.sqrt(d) * (1 + a)) + 2 * u
 
     tol_o = factor(Sk) * torch.einsum("bkgqs,bskd->bqkgd", p, v.abs()
                                       ).reshape(B, Sq, H, d)
@@ -1035,32 +1085,35 @@ def library_attention(q, k, v, causal):
         is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
-def flash_occupancy_check():
+def flash_occupancy_check(dtype=torch.float32):
     """The plans' model of each kernel (``_plan``: shared memory bytes, and
-    blocks an SM as many as those fit, at most 2) against what the library
-    launches and the CUDA runtime reports, at every head dim; prints the
+    blocks an SM as many as those fit, at most 2 of 4 warps or 1 of 8)
+    against what the library launches and the CUDA runtime reports, at
+    every head dim, for the f32 or the bf16 instantiations; prints the
     resident warps an SM."""
     from repro_torch.kernels import _plan
     from repro_torch.kernels import flash_attention as fa
 
+    es = torch.empty((), dtype=dtype).element_size()
     model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
              "dq": _plan.flash_dq_smem}
     for d in fa.HEAD_DIMS:
-        occ = fa.cuda_flash_occupancy(d)
+        occ = fa.cuda_flash_occupancy(d, dtype)
         warps = []
         for kind, (threads, smem, blocks) in occ.items():
-            want = (128 * (1 if kind == "fwd" else _plan.flash_groups(d)),
-                    model[kind](d),
-                    _plan.flash_blocks_per_sm(model[kind](d)))
-            if (threads, smem, min(blocks, 2)) != want:
-                _fail(f"flash {kind} d {d}: the library launches {threads} "
-                      f"threads with {smem} B of shared memory, {blocks} "
-                      f"blocks an SM; _plan models {want[0]} threads, "
-                      f"{want[1]} B, {want[2]} blocks")
+            groups = 1 if kind == "fwd" else _plan.flash_groups(d)
+            want = (128 * groups, model[kind](d, es),
+                    _plan.flash_blocks_per_sm(model[kind](d, es), groups))
+            if (threads, smem, min(blocks, 2 // groups)) != want:
+                _fail(f"flash {kind} d {d} {dtype}: the library launches "
+                      f"{threads} threads with {smem} B of shared memory, "
+                      f"{blocks} blocks an SM; _plan models {want[0]} "
+                      f"threads, {want[1]} B, {want[2]} blocks")
             warps.append(f"{kind} {blocks} x {threads // 32}")
-        print(f"flash d {d}: blocks x warps an SM (CUDA occupancy) "
+        print(f"flash d {d} {dtype}: blocks x warps an SM (CUDA occupancy) "
               + ", ".join(warps) + "; _plan's warps an SM fwd/dkdv/dq "
-              + "/".join(map(str, _plan.flash_warps_per_sm(d))), flush=True)
+              + "/".join(map(str, _plan.flash_warps_per_sm(d, es))),
+              flush=True)
 
 
 def flash_kernels(dev=None, cases=FLASH_CASES):
@@ -1210,6 +1263,176 @@ def flash_kernels(dev=None, cases=FLASH_CASES):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c-bf16: the flash kernels' bf16 instantiations vs plain
+# ---------------------------------------------------------------------------
+
+FLASH_GATE_BF16 = 2e-2   # the JAX bf16 gate (tests/test_kernels.py:103-113,
+                         # rtol and atol), on the forward
+BF16_ULP = 2.0 ** -7     # a bf16 ulp, relative to the value (at most)
+
+
+def flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, bwd):
+    """``flash_bound`` over bf16 tensors (lse and D f32): the bytes at 2 a
+    q, k, v, o, dO, dq, dk, dv element, the flops once at the bf16 tensor
+    rate."""
+    pairs = B * H * flash_pairs(Sq, Sk, causal)
+    n_q, n_kv, n_lse = B * Sq * H * d, B * Sk * KV * d, B * H * Sq
+    if bwd:
+        nbytes = 2 * (3 * n_q + 2 * n_kv + n_q + 2 * n_kv) + 4 * n_lse
+        flops = 10 * d * pairs
+    else:
+        nbytes, flops = 2 * (2 * n_q + 2 * n_kv) + 4 * n_lse, 4 * d * pairs
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _gate_bf16(name, got, want, tol):
+    """``_gate`` on bf16 outputs: the f32 bound ``tol`` plus one bf16
+    rounding of each side (an ulp of the plain value)."""
+    want = want.float()
+    return _gate(name, got.float(), want, tol + BF16_ULP * want.abs())
+
+
+def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
+    """Phase 3c-bf16: the bf16 forward and backward against their plain
+    versions (f32 inside, bf16 out) on the same bf16 inputs at phase 3c's
+    cases, for P's and dS's bf16 parts p_parts = 1 and 2: each within an
+    f32-accumulation bound (``flash_tolerances`` with u = 2^-8 or 2^-16,
+    the parts' relative rounding, plus an ulp of each output), the
+    forward also within the JAX bf16 gate, two calls bit for bit; then,
+    for ``fa.P_PARTS``, ms beside the bound at the bf16 tensor rate, the
+    plain version's and SDPA's on bf16, forward and backward. Returns the
+    kernels' rows at the training shape with the worst errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+
+    _phase("kernel vs plain: flash attention bf16, forward and backward")
+    dev = dev or torch.device("cuda")
+    flash_occupancy_check(torch.bfloat16)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+    worst = {(pp, kind): (0.0, 0.0, "") for pp in (1, 2)
+             for kind in ("fwd", "bwd")}
+    rows, per_case = {}, {}
+    for name, B, Sq, Sk, H, KV, d, causal in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf)
+                       for shape in ((B, Sq, H, d), (B, Sk, KV, d),
+                                     (B, Sk, KV, d), (B, Sq, H, d)))
+        o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
+        grads_p = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
+        line = []
+        for pp in (1, 2):
+            o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal, pp)
+            o2, lse2 = fa.cuda_flash_attention_fwd(q, k, v, causal, pp)
+            grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do,
+                                                causal, pp)
+            again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do,
+                                                causal, pp)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)) or not all(
+                    torch.equal(g, g2) for g, g2 in zip(grads, again)):
+                _fail(f"flash bf16 {name} p_parts {pp}: two calls differ")
+            gap = (o.float() - o_p.float()).abs()
+            if bool((gap > FLASH_GATE_BF16
+                     + FLASH_GATE_BF16 * o_p.float().abs()).any()):
+                _fail(f"flash bf16 fwd {name} p_parts {pp}: outside the JAX "
+                      f"gate {FLASH_GATE_BF16} (max abs err "
+                      f"{float(gap.max()):.3e})")
+            tol_o, tol_g, a = flash_tolerances(
+                q.float(), k.float(), v.float(), o_p.float(), lse_p,
+                do.float(), causal, u=2.0 ** (-8 * pp))
+            e_o, r_o = _gate_bf16(f"flash bf16 fwd {name} p_parts {pp} o",
+                                  o, o_p, tol_o)
+            err_lse = float((lse - lse_p).abs().max())
+            if err_lse > 16 * torch.finfo(torch.float32).eps * (
+                    float(lse_p.abs().max()) + math.sqrt(d) * (1 + a)):
+                _fail(f"flash bf16 fwd {name}: lse off by {err_lse:.3e}")
+            errs, ratios = [], []
+            for g_name, g, w, t in zip(("dq", "dk", "dv"), grads, grads_p,
+                                       tol_g):
+                e, r = _gate_bf16(f"flash bf16 bwd {name} p_parts {pp} "
+                                  f"{g_name}", g, w, t)
+                errs.append(e)
+                ratios.append(r)
+            del tol_o, tol_g, again, o2, lse2
+            worst[pp, "fwd"] = max(worst[pp, "fwd"], (r_o, e_o, name))
+            worst[pp, "bwd"] = max(worst[pp, "bwd"],
+                                   (max(ratios), max(errs), name))
+            line.append(f"p_parts {pp}: o {e_o:.3e} ({r_o:.4f}x bound) lse "
+                        f"{err_lse:.3e} dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+                        f"{errs[2]:.3e} ({ratios[0]:.4f}/{ratios[1]:.4f}/"
+                        f"{ratios[2]:.4f}x)")
+            if pp == fa.P_PARTS:
+                err_f, err_b = e_o, max(errs)
+            del o, lse, grads
+        pp = fa.P_PARTS
+        ms_f = time_ms(lambda: fa.cuda_flash_attention_fwd(q, k, v, causal),
+                       flush=flush)
+        plain_f = time_ms(lambda: ref.flash_attention_fwd_ref(q, k, v, causal),
+                          flush=flush)
+        lib_f = time_ms(lambda: library_attention(q, k, v, causal),
+                        flush=flush)
+        ms_b = time_ms(lambda: fa.cuda_flash_attention_bwd(
+            q, k, v, o_p, lse_p, do, causal), flush=flush)
+        plain_b = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o_p, lse_p, do, causal), flush=flush)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o_l = library_attention(ql, kl, vl, causal)
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            o_l, (ql, kl, vl), do, retain_graph=True), flush=flush)
+        bound_f, by_f = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, False)
+        bound_b, by_b = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, True)
+        print(f"{name} bf16 (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} "
+              f"causal {causal}): max abs err " + "; ".join(line)
+              + f"; two calls bitwise; p_parts {pp} ms kernel/plain/sdpa/"
+              f"bound: fwd {ms_f:.4f}/{plain_f:.4f}/{lib_f:.4f}/"
+              f"{bound_f:.4f} ({by_f}), bwd {ms_b:.4f}/{plain_b:.4f}/"
+              f"{lib_b:.4f}/{bound_b:.4f} ({by_b})", flush=True)
+        if name in FLASH_PROFILED:
+            prof = kernel_profile(lambda: (
+                fa.cuda_flash_attention_fwd(q, k, v, causal),
+                fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)))
+            print(f"{name} bf16: us per call by kernel (torch.profiler, L2 "
+                  f"warm): " + ", ".join(f"{k_} {us:.1f}"
+                                         for k_, us in prof.items()),
+                  flush=True)
+        per_case[name] = {
+            "fwd": dict(ms=ms_f, plain_ms=plain_f, bound_ms=bound_f,
+                        library_ms=lib_f, max_abs_err=err_f),
+            "bwd": dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
+                        library_ms=lib_b, max_abs_err=err_b)}
+        if not rows:
+            src = "src/repro_torch/csrc/flash_attention.cu"
+            tpu = "src/repro/kernels/flash_attention.py:24"
+            for key, ms, plain, bound, by, lib in (
+                    ("flash_attention_bf16", ms_f, plain_f, bound_f, by_f,
+                     lib_f),
+                    ("flash_attention_bwd_bf16", ms_b, plain_b, bound_b, by_b,
+                     lib_b)):
+                rows[key] = dict(name=key, route="cuda", source=src,
+                                 replaces=tpu, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by=by, library_ms=lib,
+                                 p_parts=pp)
+        del q, k, v, do, o_p, lse_p, grads_p, ql, kl, vl, o_l
+        torch.cuda.empty_cache()
+    for kind, key in (("fwd", "flash_attention_bf16"),
+                      ("bwd", "flash_attention_bwd_bf16")):
+        rows[key]["max_abs_err"] = max(c[kind]["max_abs_err"]
+                                       for c in per_case.values())
+        rows[key]["cases"] = {name: c[kind] for name, c in per_case.items()}
+        rows[key]["worst_of_bound"] = {
+            f"p_parts {pp}": dict(zip(("ratio", "max_abs_err", "case"),
+                                      worst[pp, kind])) for pp in (1, 2)}
+    for (pp, kind), (r, e, at) in sorted(worst.items()):
+        print(f"flash bf16 {kind} p_parts {pp}: worst error {r:.4f} of its "
+              f"bound at {at} (max abs err {e:.3e})", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the training main path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -1233,18 +1456,21 @@ def flash_launches_expected(cfg, tcfg, rounds):
             "flash_attention_bwd": steps * cfg.n_layers}
 
 
-def train(flash=False):
+def train(flash=False, dtype="float32"):
+    """Phase 4 (einsum), 4b (``flash``) and 4k (``flash``, ``dtype``
+    "bfloat16": the model's param and compute dtypes)."""
+    from repro_torch.configs.base import with_dtype
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.models import model as M
     from repro_torch.train import trainer as T
 
-    cfg = train_config()
+    cfg = with_dtype(train_config(), dtype)
     tcfg = T.TrainConfig(**TRAIN, flash_attention=flash)
     _phase(f"train{' with flash attention' if flash else ''}: "
            f"run_diloco_training opt-1.3b d_model {cfg.d_model}, "
            f"{cfg.n_layers} of 24 layers, {TRAIN_ROUNDS} rounds, {TRAIN}, "
-           f"flash_attention={flash}")
+           f"flash_attention={flash}, dtype {dtype}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1299,10 +1525,10 @@ def train(flash=False):
               f"other {res.round_s[r] - res.inner_s[r] - res.compress_s[r]:.3f}"
               f" s, {tokens / res.round_s[r]:.1f} tokens/s, wire "
               f"{res.wire_bytes_per_round[r]} B", flush=True)
-    print(f"train: {n_params} params, {n_low} low-rank + {n_quant} quant-only "
-          f"leaves, peak memory {peak / 2**30:.2f} GiB, launches {launches} "
-          f"(expected {want}), round 0 params unchanged: {round0}",
-          flush=True)
+    print(f"train: {n_params} params ({dtype}), {n_low} low-rank + {n_quant} "
+          f"quant-only leaves, peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{launches} (expected {want}), round 0 params unchanged: "
+          f"{round0}", flush=True)
     if not all(map(math.isfinite, res.losses + res.eval_losses)):
         _fail(f"train: non-finite losses {res.losses} {res.eval_losses}")
     if round0 != [True]:
@@ -1310,6 +1536,29 @@ def train(flash=False):
               "(Delta must be 0)")
     if launches != want:
         _fail(f"train: launches {launches}, expected {want}")
+    return launches, res, peak
+
+
+def train_bf16(flash_run):
+    """Phase 4k: phase 4b's run at bf16 (params and compute; optimizer
+    state, pseudo-gradients and the wire f32): round 0 bit for bit the
+    initial bf16 params, the bf16 flash kernels and the compressor
+    launched as 4b's, and each round's wire bytes 4b's; ms a step, round
+    s and peak memory beside 4b's."""
+    launches, res, peak = train(flash=True, dtype="bfloat16")
+    _, ref, ref_peak = flash_run
+    if res.wire_bytes_per_round != ref.wire_bytes_per_round:
+        _fail(f"train bf16: wire bytes {res.wire_bytes_per_round}, phase "
+              f"4b's {ref.wire_bytes_per_round}")
+    steps = TRAIN["n_clusters"] * TRAIN["h_steps"]
+    for r in range(TRAIN_ROUNDS):
+        print(f"4k round {r}: bf16 {1e3 * res.inner_s[r] / steps:.1f} ms per "
+              f"inner step, round {res.round_s[r]:.3f} s; 4b (f32) "
+              f"{1e3 * ref.inner_s[r] / steps:.1f} ms, {ref.round_s[r]:.3f} s;"
+              f" loss bf16 {res.losses[r]:.6f} f32 {ref.losses[r]:.6f}",
+              flush=True)
+    print(f"4k: peak {peak / 2**30:.2f} GiB (4b {ref_peak / 2**30:.2f}), "
+          f"wire bytes {res.wire_bytes_per_round} (4b's)", flush=True)
     return launches, res, peak
 
 
@@ -1917,6 +2166,35 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
         _fail(f"mesh driver: all-gather handed {summary['gather_bytes']} B, "
               f"expected {gather} per round")
     summary["state_bytes"], summary["peak_bytes"] = held[0], peak
+    return launches, summary
+
+
+# phase 4l: the mesh driver at --dtype bfloat16 on 4d's configuration
+MESH_ARGS_BF16 = MESH_ARGS + ["--dtype", "bfloat16"]
+
+
+def mesh_driver_bf16(mesh_summary):
+    """Phase 4l: ``mesh_driver`` (its gates) at ``--dtype bfloat16``; the
+    int4 payload does not depend on the param dtype, so the bytes handed
+    to the all-gather are 4d's exactly; ms a step and peak beside 4d's."""
+    from repro_torch.configs.base import with_dtype
+
+    launches, summary = mesh_driver(
+        argv=MESH_ARGS_BF16, cfg=with_dtype(mesh_config(), "bfloat16"))
+    if summary["gather_bytes"] != mesh_summary["gather_bytes"]:
+        _fail(f"mesh driver bf16: all-gather handed "
+              f"{summary['gather_bytes']} B, 4d's {mesh_summary['gather_bytes']}")
+    h = int(MESH_ARGS[MESH_ARGS.index("--h-steps") + 1])
+    for r, (a, b) in enumerate(zip(summary["inner_s"],
+                                   mesh_summary["inner_s"])):
+        print(f"4l round {r}: bf16 {1e3 * a / h:.1f} ms per step, round "
+              f"{summary['round_s'][r]:.3f} s, outer "
+              f"{summary['outer_s'][r]:.3f} s; 4d (f32) {1e3 * b / h:.1f} ms, "
+              f"{mesh_summary['round_s'][r]:.3f} s, outer "
+              f"{mesh_summary['outer_s'][r]:.3f} s", flush=True)
+    print(f"4l: peak {summary['peak_bytes'] / 2**30:.2f} GiB (4d "
+          f"{mesh_summary['peak_bytes'] / 2**30:.2f}), gathered "
+          f"{summary['gather_bytes']} B a round (4d's)", flush=True)
     return launches, summary
 
 
@@ -2763,13 +3041,15 @@ SERVE_ARGS = ["--arch", "opt-1.3b", "--paged", "--batch", "8",
               "--page-size", "16", "--eos", "-1", "--device", "cuda"]
 
 
-def serve(arch="opt-1.3b"):
-    """Phase 5 (opt-1.3b) and 5b (stablelm-12b, full width and depth)."""
+def serve(arch="opt-1.3b", dtype="float32"):
+    """Phase 5 (opt-1.3b), 5b (stablelm-12b, full width and depth) and the
+    serve half of 5f (opt-1.3b, ``dtype`` "bfloat16": bf16 weights and KV
+    pool)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as serve_lib
     from repro_torch.serve import attention_paged as ap
 
-    argv = ["--arch", arch] + SERVE_ARGS[2:]
+    argv = ["--arch", arch] + SERVE_ARGS[2:] + ["--dtype", dtype]
     _phase("serve: python -m repro_torch.launch.serve " + " ".join(argv))
     cfg = get_config(arch)
     gc.collect()
@@ -2800,6 +3080,27 @@ def serve(arch="opt-1.3b"):
         if len(g) != 64 or min(g) < 0 or max(g) >= cfg.vocab_size:
             raise SystemExit(f"FAIL serve: request {req.rid} generated {g}")
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return launches, st
+
+
+def serve_bf16(ref):
+    """Phase 5f: phase 5's run at ``--dtype bfloat16`` (its gates), the KV
+    pool exactly half of 5's, tok/s and per-token p50/p99 beside 5's; then
+    paged against dense greedy tokens in bf16 (``paged_vs_dense``)."""
+    launches, st = serve("opt-1.3b", dtype="bfloat16")
+    if 2 * st["kv_pool_bytes"] != ref["kv_pool_bytes"]:
+        _fail(f"serve bf16: kv pool {st['kv_pool_bytes']} B, not half of "
+              f"phase 5's {ref['kv_pool_bytes']}")
+    print(f"5f: decode {st['decode_tok_s']:.1f} tok/s (5: "
+          f"{ref['decode_tok_s']:.1f}), prefill {st['prefill_tok_s']:.1f} "
+          f"(5: {ref['prefill_tok_s']:.1f}), per-token p50/p99 "
+          f"{st['per_token_ms_p50']:.3f}/{st['per_token_ms_p99']:.3f} ms (5: "
+          f"{ref['per_token_ms_p50']:.3f}/{ref['per_token_ms_p99']:.3f}), kv "
+          f"pool {st['kv_pool_bytes']} B (5: {ref['kv_pool_bytes']}), peak "
+          f"{st['peak_gib']:.2f} GiB (5: {ref['peak_gib']:.2f})", flush=True)
+    equal = paged_vs_dense("opt-1.3b", dtype="bfloat16")
+    print(f"5f: paged and dense greedy tokens bit for bit equal: {equal}",
+          flush=True)
     return launches, st
 
 
@@ -3009,22 +3310,29 @@ def serve_2d(ref, arch="opt-1.3b", data=2, model=2):
 # phase 6: paged (kernel) vs dense (plain attention) greedy tokens
 # ---------------------------------------------------------------------------
 
+BF16_TIE_ULPS = 3      # a bf16 near-tie: top-2 logits this many bf16 ulps of
+                       # the top one apart (tests/test_torch_bf16.py)
+
+
 def paged_vs_dense(arch="opt-1.3b", n_layers=0, n_prompts=2, prompt_len=16,
-                   gen_len=32, ps=16, tie_margin=1e-4):
+                   gen_len=32, ps=16, tie_margin=1e-4, dtype="float32"):
     """Phase 6 (opt-1.3b), 6b (stablelm-12b; qwen1.5-107b at ``n_layers``
-    of 78): greedy tokens of the paged engine (kernel) against the dense
-    decode loop (plain attention); a divergence passes only at a dense
-    top-2 margin below ``tie_margin``."""
-    from repro_torch.configs.base import get_config
+    of 78) and the tokens half of 5f (opt-1.3b, ``dtype`` "bfloat16"):
+    greedy tokens of the paged engine (kernel) against the dense decode
+    loop (plain attention); a divergence passes only at a dense top-2
+    margin below ``tie_margin`` (in bf16, below BF16_TIE_ULPS ulps of the
+    top logit: the kernel and the plain version round the bf16 attention
+    output apart by an ulp). Returns whether every token was equal."""
+    from repro_torch.configs.base import get_config, with_dtype
     from repro_torch.models import model as M
     from repro_torch.serve import attention_paged as ap
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(arch)
+    cfg = with_dtype(get_config(arch), dtype)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     _phase(f"paged vs dense: {arch} full width, {cfg.n_layers} layers, "
-           f"{n_prompts} prompts x {gen_len} tokens")
+           f"{n_prompts} prompts x {gen_len} tokens, {dtype}")
     dev = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3049,7 +3357,11 @@ def paged_vs_dense(arch="opt-1.3b", n_layers=0, n_prompts=2, prompt_len=16,
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         if t >= prompt_len - 1:
             dense.append(nxt[:, 0].cpu())
-            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+            margin = top2[:, 0] - top2[:, 1]
+            if dtype == "bfloat16":       # in bf16 ulps of the top logit
+                margin = margin / 2.0 ** (torch.floor(torch.log2(
+                    top2[:, 0].abs())) - 7)
+            margins.append(margin.cpu())
     dense = torch.stack(dense, dim=1)
     margins = torch.stack(margins, dim=1)
 
@@ -3069,6 +3381,9 @@ def paged_vs_dense(arch="opt-1.3b", n_layers=0, n_prompts=2, prompt_len=16,
               f"{cfg.n_layers}")
     paged = torch.tensor([r.generated for r in
                           sorted(eng.sched.done, key=lambda r: r.rid)])
+    if dtype == "bfloat16":
+        tie_margin = BF16_TIE_ULPS
+    equal = bool(torch.equal(paged, dense))
     for b in range(n_prompts):
         diff = (paged[b] != dense[b]).nonzero()
         if len(diff) == 0:
@@ -3083,6 +3398,7 @@ def paged_vs_dense(arch="opt-1.3b", n_layers=0, n_prompts=2, prompt_len=16,
         if m >= tie_margin:
             raise SystemExit(f"FAIL paged vs dense: prompt {b} diverges at "
                              f"token {t} with margin {m:.4e} >= {tie_margin}")
+    return equal
 
 
 def main():
@@ -3094,15 +3410,20 @@ def main():
     sys.path.insert(0, os.path.join(here, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls reduce in f32 in every phase, timed or compared
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.monotonic()
     smi = environment()
     build()
     rows, worst = kernel_vs_plain()
+    rows_bf16, worst_bf16 = kernel_vs_plain(torch.bfloat16)
     comp_rows = compressor_kernels()
     mesh_q4 = mesh_quant4()
     mesh_q4_stablelm = mesh_quant4(cfg=stablelm_mesh_config())
     flash_rows = flash_kernels()
+    torch.cuda.empty_cache()
+    flash_rows_bf16 = flash_kernels_bf16()
     torch.cuda.empty_cache()
     mm_row = lowrank_mm_kernel()
     torch.cuda.empty_cache()
@@ -3114,11 +3435,15 @@ def main():
     flash_run = train(flash=True)
     compare_train(einsum_run, flash_run)
     torch.cuda.empty_cache()
+    bf16_run = train_bf16(flash_run)
+    torch.cuda.empty_cache()
     step_ab()
     torch.cuda.empty_cache()
     gqa_model()
     torch.cuda.empty_cache()
     mesh_launches, mesh_summary = mesh_driver()
+    torch.cuda.empty_cache()
+    mesh_driver_bf16(mesh_summary)
     torch.cuda.empty_cache()
     mesh_launches_stablelm = mesh_driver(argv=MESH_ARGS_STABLELM,
                                          cfg=stablelm_mesh_config())[0]
@@ -3137,6 +3462,8 @@ def main():
     kv_launches = tp_replicated_kv()
     torch.cuda.empty_cache()
     launches, serve_ref = serve()
+    launches_bf16 = serve_bf16(serve_ref)[0]
+    torch.cuda.empty_cache()
     launches_stablelm, serve_ref_stablelm = serve("stablelm-12b")
     launches_tp = {}
     for arch, data, model in SERVE_TP_LEGS:
@@ -3194,6 +3521,22 @@ def main():
         kernels.append(dict(row, launches=flash_run[0][name],
                             launches_pp_trainer=pp_train_launches[name],
                             launches_tp_kv_replicated=kv_launches[name]))
+    # the bf16 instantiations: launches of phase 4k's run (the wrappers
+    # count both types; 4k trains in bf16 only)
+    for name, row in flash_rows_bf16.items():
+        kernels.append(dict(row, launches=bf16_run[0][name[:-len("_bf16")]]))
+    main_bf16 = rows_bf16[0]
+    kernels.append({
+        "name": "paged_attention_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/serve/attention_paged.py:82",
+        "launches": launches_bf16, "max_abs_err": worst_bf16,
+        **{k: main_bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "plan",
+                                     "blocks")},
+        "cases": {row["case"]: {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "plan", "blocks")} for row in rows_bf16}})
     kernels.append(dict(mm_row, launches=mesh_launches["lowrank_mm"],
                         launches_tp_driver=tp_launches["lowrank_mm"],
                         launches_tp_kv_replicated=kv_launches["lowrank_mm"],

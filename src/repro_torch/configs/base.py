@@ -103,6 +103,19 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_MODULE_FOR[arch]).CONFIG
 
 
+DTYPES = ("float32", "bfloat16")        # the drivers' --dtype choices
+
+
+def with_dtype(cfg: ModelConfig, dtype: str) -> ModelConfig:
+    """``cfg`` with ``param_dtype`` and ``compute_dtype`` both ``dtype``:
+    the drivers' ``--dtype`` (at bfloat16, the JAX dry-run's
+    ``production_dtypes``), the route to the fields the JAX drivers leave
+    at their float32 default."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype!r} not in {DTYPES}")
+    return replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
 def torch_dtype(name: str):
     """``"float32"`` -> ``torch.float32`` (configs name dtypes as strings)."""
     import torch

@@ -166,14 +166,15 @@ def pseudo_grad(anchor, params_local, error=None):
 
 
 @torch.no_grad()
-def _pseudo_grad(anchor, params_inner, err, gossip: bool):
-    """delta = (theta_anchor - theta_local) + e per cluster, written over
-    the stacked local params (which the round no longer needs)."""
-    def one(a, p, e):
+def _pseudo_grad(anchor, params_inner, err, gossip: bool, out):
+    """delta = (theta_anchor - theta_local) + e per cluster, in f32 as
+    JAX's, written into ``out`` (the round's f32 pending buffers, which no
+    longer hold anything the round needs); returns ``out``."""
+    def one(a, p, e, o):
         a = a if gossip else a.float()[None]
-        torch.sub(a, p.float(), out=p)
-        return p.add_(e)
-    return T.tree_map(one, anchor, params_inner, err)
+        torch.sub(a, p.float(), out=o)
+        return o.add_(e)
+    return T.tree_map(one, anchor, params_inner, err, out)
 
 
 def diloco_round(state: DiLoCoXState,
@@ -210,8 +211,10 @@ def diloco_round(state: DiLoCoXState,
         params_inner, inner_opt, aux = inner_fn(state.params,
                                                 state.inner_opt, state.t)
 
-        # join: next round's pending pseudo-grads (+ error compensation)
-        delta_new = _pseudo_grad(anchor, params_inner, err, gossip)
+        # join: next round's pending pseudo-grads (+ error compensation),
+        # over last round's, which were compressed and fed the EF above
+        delta_new = _pseudo_grad(anchor, params_inner, err, gossip,
+                                 state.delta_pending)
 
         # delayed outer update on the anchor; round 0 applies Delta == 0
         params_new, outer_opt = nesterov.update(
@@ -221,7 +224,8 @@ def diloco_round(state: DiLoCoXState,
         # synchronous DiLoCo: train, then average THIS round's deltas
         params_inner, inner_opt, aux = inner_fn(state.params,
                                                 state.inner_opt, state.t)
-        delta_raw = _pseudo_grad(anchor, params_inner, state.error, gossip)
+        delta_raw = _pseudo_grad(anchor, params_inner, state.error, gossip,
+                                 state.delta_pending)
         if cfg.compress:
             delta_hat, comp_state = per_cluster_compress(
                 compressor, delta_raw, state.comp_state, rank_scalar)

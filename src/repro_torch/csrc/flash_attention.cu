@@ -100,11 +100,29 @@
 // b * H + h, range); the plan (flash_dq_plan) cuts each q tile's k tiles
 // into ranges of `chunk` tiles the same way, and their partials are
 // summed in range order.
+//
+// bf16 (the *_bf16 entry points): the same kernels, grids and plans over
+// bf16 q, k, v, o and dO, writing o, dq, dk and dv in bf16; lse, D, the
+// partials and every sum stay f32. Tiles hold bf16 at a pitch of d + 8
+// (16-byte rows; each ldmatrix's 8 rows fall on 32 distinct banks), filled
+// by the same 16-byte cp.async (8 elements), so every tile takes half the
+// f32 one's shared memory; the tile rows are the f32 kernels'. Every
+// product is one bf16 mma.sync.m16n8k16 into f32 (bf16_mma.cuh). Q K^T,
+// dO V^T and their transposes multiply bf16 by bf16, exact per term as
+// JAX's f32 dot of the upcast inputs (repro/kernels/flash_attention.py:
+// 38-41); P and dS are f32 and become A fragments rounded to bf16 (p_parts
+// 1) or split into bf16 hi + lo (p_parts 2, two products). The B operands
+// of P V, dS K, P^T dO and dS^T Q are read by ldmatrix.trans. No TF32
+// split, so no presplit tiles. Bound: 4 d (10 d) flops a pair at the
+// card's bf16 tensor rate, 989 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "cp_async.cuh"
 #include "online_merge.cuh"
 #include "tf32_mma.cuh"
@@ -122,6 +140,15 @@ struct Strides {        // elements between consecutive b, s and head indices
   long long b, s, h;
 };
 
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+// elements of a tile row in shared memory at head dim D: D and 16 bytes
+template <int D, typename T>
+__host__ __device__ constexpr int pitch() {
+  return D + 16 / (int)sizeof(T);
+}
+
 // rows of a k tile the forward streams at head dim D (the shared memory
 // budget)
 template <int D>
@@ -134,16 +161,17 @@ __host__ __device__ constexpr int tile_rows() {
 // reads. At d <= 64 the split copies of 32-row q tiles fit two blocks an
 // SM, and they spare the 4 warps 3 of every 4 splits of a B element (the
 // same in the forward and dQ, on 32-row k tiles, lost more than it saved).
-template <int D>
+// f32 only: a bf16 tile is its own B operand.
+template <int D, typename T>
 __host__ __device__ constexpr bool presplit() {
-  return D <= 64;
+  return D <= 64 && !is_bf16<T>;
 }
 
 // rows of a q tile the dK/dV kernel streams at head dim D: 16 at d >= 128,
 // so that two blocks share an SM at d = 128
 template <int D>
 __host__ __device__ constexpr int q_tile_rows() {
-  return presplit<D>() ? 32 : 16;
+  return D <= 64 ? 32 : 16;
 }
 
 // rows of a k tile the dQ kernel streams at head dim D (16 at d >= 128,
@@ -172,18 +200,20 @@ __host__ __device__ constexpr int xchg_floats() {
 // ---------------------------------------------------------------------------
 
 // rows r0 .. r0 + R - 1 of one head of a (B, S, heads, D) tensor into an
-// (R, D + 4) tile by 16-byte cp.async; `base` points at (b, 0, head, 0);
-// rows >= S are zeros
-template <int D, int R, int NTH = N_THREADS>
-__device__ __forceinline__ void load_tile(float* __restrict__ tile,
-                                          const float* __restrict__ base,
+// (R, pitch) tile by 16-byte cp.async (4 f32 or 8 bf16); `base` points at
+// (b, 0, head, 0); rows >= S are zeros
+template <int D, int R, int NTH = N_THREADS, typename T>
+__device__ __forceinline__ void load_tile(T* __restrict__ tile,
+                                          const T* __restrict__ base,
                                           long long row_stride, int r0,
                                           int S) {
-  constexpr int C = D / 4;
+  constexpr int E = 16 / sizeof(T), C = D / E;
   for (int idx = threadIdx.x; idx < R * C; idx += NTH) {
-    const int r = idx / C, c = (idx % C) * 4, row = r0 + r;
+    const int r = idx / C, c = (idx % C) * E, row = r0 + r;
     const bool ok = row < S;
-    cp_async16(tile + r * (D + 4) + c, ok ? base + row * row_stride + c : base,
+    cp_async16(reinterpret_cast<float*>(tile + r * pitch<D, T>() + c),
+               reinterpret_cast<const float*>(
+                   ok ? base + row * row_stride + c : base),
                ok);
   }
 }
@@ -238,14 +268,14 @@ __device__ __forceinline__ Split at(Split t, int off) {
   return {t.hi + off, t.lo + off};
 }
 
-// the f32 tile, or the split one at `parts` (hi, then lo n floats on)
-template <bool PS>
-__device__ __forceinline__ auto b_operand(const float* f32,
-                                          const float* parts, int n) {
+// the tile itself, or (PS, f32 only) its split at `parts` (hi, then lo n
+// floats on)
+template <bool PS, typename P>
+__device__ __forceinline__ auto b_operand(P tile, const float* parts, int n) {
   if constexpr (PS) {
     return Split{parts, parts + n};
   } else {
-    return f32;
+    return tile;
   }
 }
 
@@ -414,6 +444,111 @@ __device__ __forceinline__ void mul_rows(const float (&p)[KT][4], BT M,
   }
 }
 
+// The bf16 products (bf16_mma.cuh), the same contracts as dot_rows,
+// dot_pair and mul_rows on bf16 tiles of pitch D + 8.
+// C[16 x 8 n] += A[16 rows, D] B[8 n rows, D]^T: per k step of 32, two A
+// fragments by ldmatrix (rows 0-15 x columns kk, kk + 8, then + 16) and,
+// per n-tile, one ldmatrix of its 8 rows x 32 columns, the B fragments of
+// both k steps of 16
+template <int D, int NT>
+__device__ __forceinline__ void dot_rows(const bf16* __restrict__ A16,
+                                         const bf16* __restrict__ Bt, int lane,
+                                         float (&c)[NT][4]) {
+  constexpr int LD = pitch<D, bf16>();
+  const bf16* arow = A16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD
+                     + 8 * (lane >> 4);
+  const bf16* brow = Bt + (lane & 7) * LD + 8 * (lane >> 3);
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 32) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, arow + kk);
+    ldsm_x4(a1, arow + kk + 16);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t b[4];
+      ldsm_x4(b, brow + 8 * n * LD + kk);
+      mma_bf16(c[n], a0, b[0], b[1]);
+      mma_bf16(c[n], a1, b[2], b[3]);
+    }
+  }
+}
+
+template <int D, int NT>
+__device__ __forceinline__ void dot_pair(const bf16* __restrict__ A1,
+                                         const bf16* B1,
+                                         const bf16* __restrict__ A2,
+                                         const bf16* B2, int lane,
+                                         float (&c1)[NT][4],
+                                         float (&c2)[NT][4]) {
+  dot_rows<D, NT>(A1, B1, lane, c1);
+  dot_rows<D, NT>(A2, B2, lane, c2);
+}
+
+// acc[16 x 8 j] += P[16, 8 KT] M[8 KT, cols c0 + 8 j ..] for j < CT (KT,
+// CT even), P held as C fragments p[KT] and rounded to PP bf16 parts per
+// k step of 16 (c_as_a), M a bf16 tile read by ldmatrix.trans: lane l
+// addresses row (l & 7) + 8 ((l >> 3) & 1), column 8 (l >> 4) of a 16 x 16
+// block, whose four matrices are b0, b1 of n-tile j and of n-tile j + 1
+template <int D, int KT, int CT, int PP>
+__device__ __forceinline__ void mul_rows_bf16(const float (&p)[KT][4],
+                                              const bf16* __restrict__ M,
+                                              int c0, int lane,
+                                              float (&acc)[CT][4]) {
+  constexpr int LD = pitch<D, bf16>();
+  const bf16* m = M + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + c0
+                  + 8 * (lane >> 4);
+#pragma unroll
+  for (int k = 0; k < KT; k += 2) {
+    uint32_t hi[4], lo[4];
+    c_as_a<PP>(p[k], p[k + 1], hi, lo);
+#pragma unroll
+    for (int j = 0; j < CT; j += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, m + 8 * k * LD + 8 * j);
+      if constexpr (PP == 2) {          // the small terms first
+        mma_bf16(acc[j], lo, b[0], b[1]);
+        mma_bf16(acc[j + 1], lo, b[2], b[3]);
+      }
+      mma_bf16(acc[j], hi, b[0], b[1]);
+      mma_bf16(acc[j + 1], hi, b[2], b[3]);
+    }
+  }
+}
+
+// mul_rows on the tile's own type: f32 (or its TF32 parts) by 3xTF32,
+// bf16 by mul_rows_bf16
+template <int D, int KT, int CT, int PP, typename BT>
+__device__ __forceinline__ void mul_acc(const float (&p)[KT][4], BT M, int c0,
+                                        int lane, float (&acc)[CT][4]) {
+  if constexpr (std::is_convertible<BT, const bf16*>::value)
+    mul_rows_bf16<D, KT, CT, PP>(p, M, c0, lane, acc);
+  else
+    mul_rows<D, KT, CT>(p, M, c0, lane, acc);
+}
+
+// stores of two or four f32 results as T, and one element as f32
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -445,18 +580,20 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
 // causal ones. One range (gridDim.z == 1): o and lse. Else the range's
 // partial: its unnormalised O in ws[z] (o's layout, B Sq H D floats each),
 // then (m, l) per (z, b, h, row) after the gridDim.z accumulators.
-template <int D>
+// T = float or bf16 (q, k, v, o); PP, bf16 only: P's parts in P V.
+template <int D, typename T, int PP>
 __global__ void __launch_bounds__(N_THREADS, 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, float* __restrict__ ws, int H,
                  int G, int Sq, int Sk, Strides sq, Strides sk, Strides sv,
                  int causal, float scale, int chunk) {
-  constexpr int BK = tile_rows<D>(), LD = D + 4, NT = BK / 8, DT = D / 8;
+  constexpr int BK = tile_rows<D>(), LD = pitch<D, T>(), NT = BK / 8;
+  constexpr int DT = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // (ROWS, LD)
-  float* Ks = Qs + ROWS * LD;     // 2 stages x (BK, LD)
-  float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
+  T* Qs = reinterpret_cast<T*>(smem);   // (ROWS, LD)
+  T* Ks = Qs + ROWS * LD;               // 2 stages x (BK, LD)
+  T* Vs = Ks + 2 * BK * LD;             // 2 stages x (BK, LD)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
@@ -465,8 +602,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kt_hi = min(n_kt, kt_lo + chunk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
   load_tile<D, ROWS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
   load_tile<D, BK>(Ks, kb, sk.s, kt_lo * BK, Sk);
   load_tile<D, BK>(Vs, vb, sv.s, kt_lo * BK, Sk);
@@ -477,7 +614,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  const float* Qw = Qs + 16 * warp * LD;
+  const T* Qw = Qs + 16 * warp * LD;
   const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int st = (kt - kt_lo) & 1, k0 = kt * BK;
@@ -495,7 +632,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    dot_rows<D, NT>(Qw, Ks + st * BK * LD, lane, s);      // S = Q K^T
+    dot_rows<D, NT>(Qw, (const T*)(Ks + st * BK * LD), lane, s);  // Q K^T
 
     const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
     float mx[2] = {NEG_BIG, NEG_BIG};
@@ -530,7 +667,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DT; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
-    mul_rows<D, NT, DT>(s, Vs + st * BK * LD, 0, lane, acc);   // O += P V
+    mul_acc<D, NT, DT, PP>(s, (const T*)(Vs + st * BK * LD), 0, lane,
+                           acc);                                 // O += P V
     __syncthreads();              // this stage's readers are done
   }
   // a row whose keys in this range are all masked keeps m = -1e30 (its
@@ -547,15 +685,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
       for (int i = 0; i < DT; ++i)
-        *reinterpret_cast<float2*>(o + at + 8 * i) =
-            make_float2(acc[i][2 * r] / denom, acc[i][2 * r + 1] / denom);
+        store2(o + at + 8 * i, acc[i][2 * r] / denom,
+               acc[i][2 * r + 1] / denom);
       if (t == 0) lse[((long long)b * H + h) * Sq + row] = m[r] + logf(sum);
     } else {
       float* part = ws + blockIdx.z * n_o + at;
 #pragma unroll
       for (int i = 0; i < DT; ++i)
-        *reinterpret_cast<float2*>(part + 8 * i) =
-            make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+        store2(part + 8 * i, acc[i][2 * r], acc[i][2 * r + 1]);
       if (t == 0)
         *reinterpret_cast<float2*>(
             ws + gridDim.z * n_o
@@ -569,9 +706,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // thread per four elements of the row's H D, merging the row's live
 // ranges in increasing order (online_merge.cuh); the thread of column 0
 // writes lse = m + log l
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(MERGE_THREADS)
-flash_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
+flash_fwd_merge_kernel(const float* __restrict__ ws, T* __restrict__ o,
                        float* __restrict__ lse, int B, int H, int Sq, int Sk,
                        int causal, int chunk, int split) {
   const int e = 4 * (blockIdx.y * MERGE_THREADS + threadIdx.x);  // h D + c
@@ -590,8 +727,8 @@ flash_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
         return *reinterpret_cast<const float4*>(ws + z * n_o + i);
       });
   const float denom = fmaxf(r.l, 1e-30f);
-  *reinterpret_cast<float4*>(o + i) = make_float4(
-      r.o.x / denom, r.o.y / denom, r.o.z / denom, r.o.w / denom);
+  store4(o + i, make_float4(r.o.x / denom, r.o.y / denom, r.o.z / denom,
+                            r.o.w / denom));
   if (e % D == 0) lse[bhr] = r.m + logf(r.l);
 }
 
@@ -599,20 +736,21 @@ flash_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
 // backward 1: D = rowsum(dO * O), one warp per (b, s, h) row
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(DOT_THREADS)
-flash_bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dO,
+flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                      float* __restrict__ Dout, int H, int Sq,
                      long long rows) {
   const long long row =
       ((long long)blockIdx.x * DOT_THREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;        // uniform across the warp
-  const float* orow = o + row * D;
-  const float* drow = dO + row * D;
+  const T* orow = o + row * D;
+  const T* drow = dO + row * D;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
+  for (int c = lane; c < D; c += 32)
+    acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -645,29 +783,31 @@ __device__ __forceinline__ void xchg_get(const float* x, float (&p)[NT][4]) {
     for (int e = 0; e < 4; ++e) p[n][e] = x[(4 * n + e) * 32];
 }
 
-template <int D>
+template <int D, typename T, int PP>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dO,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dO,
                       const float* __restrict__ lse,
-                      const float* __restrict__ Dd, float* __restrict__ dk,
-                      float* __restrict__ dv, float* __restrict__ parts,
+                      const float* __restrict__ Dd, T* __restrict__ dk,
+                      T* __restrict__ dv, float* __restrict__ parts,
                       int H, int G, int Sq, int Sk, Strides sq, Strides sk,
                       Strides sv, int causal, float scale, int split,
                       int chunk) {
   constexpr int WG = groups<D>(), NTH = 128 * WG;
   constexpr int BQ = q_tile_rows<D>(), DC = D / WG;
-  constexpr int LD = D + 4, NT = BQ / 8, CT = DC / 8;
-  constexpr int STAGE = 2 * BQ * LD + 2 * BQ;
-  constexpr bool PS = presplit<D>();
+  constexpr int LD = pitch<D, T>(), NT = BQ / 8, CT = DC / 8;
+  // a ring stage: Q (BQ, LD) and dO (BQ, LD) of T, lse (BQ) and D (BQ) f32
+  constexpr int STAGE = 2 * BQ * LD * (int)sizeof(T) + 2 * BQ * 4;  // bytes
+  constexpr bool PS = presplit<D, T>();
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;               // (ROWS, LD)
-  float* Vs = Ks + ROWS * LD;     // (ROWS, LD)
-  float* ring = Vs + ROWS * LD;   // 2 stages x [Q (BQ, LD), dO (BQ, LD),
-                                  //             lse (BQ), D (BQ)]
-  float* Qp = ring + 2 * STAGE;   // PS: this Q tile's hi, lo (BQ, LD) each
+  T* Ks = reinterpret_cast<T*>(smem);   // (ROWS, LD)
+  T* Vs = Ks + ROWS * LD;               // (ROWS, LD)
+  char* ring = reinterpret_cast<char*>(Vs + ROWS * LD);   // 2 stages
+  float* Qp = reinterpret_cast<float*>(ring + 2 * STAGE);  // PS: this Q
+                                  // tile's TF32 hi, lo (BQ, LD) each
   float* dOp = Qp + 2 * BQ * LD;  // PS: dO's
-  float* X = ring + 2 * STAGE;    // WG = 2: P^T (group 0), dP^T (group 1)
+  float* X = reinterpret_cast<float*>(ring + 2 * STAGE);  // WG = 2: P^T
+                                  // (group 0), dP^T (group 1)
   const int KV = H / G;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int range = blockIdx.z;
@@ -676,8 +816,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kw = warp % 4, grp = warp / 4, c0 = grp * DC;
   const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dO + (long long)b * Sq * do_s + h * D;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dO + (long long)b * Sq * do_s + h * D;
   const float* lse_h = lse + ((long long)b * H + h) * Sq;
   const float* D_h = Dd + ((long long)b * H + h) * Sq;
   // this block's q tiles: range `range`, of `chunk` tiles, of those at or
@@ -690,11 +830,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D, ROWS, NTH>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
   load_tile<D, ROWS, NTH>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
-  auto load_q = [&](float* st, int qt) {
-    load_tile<D, BQ, NTH>(st, qb, sq.s, qt * BQ, Sq);
-    load_tile<D, BQ, NTH>(st + BQ * LD, dob, do_s, qt * BQ, Sq);
-    load_vec<BQ, NTH>(st + 2 * BQ * LD, lse_h, qt * BQ, Sq);
-    load_vec<BQ, NTH>(st + 2 * BQ * LD + BQ, D_h, qt * BQ, Sq);
+  auto load_q = [&](char* st, int qt) {
+    T* Qt = reinterpret_cast<T*>(st);
+    float* vecs = reinterpret_cast<float*>(Qt + 2 * BQ * LD);
+    load_tile<D, BQ, NTH>(Qt, qb, sq.s, qt * BQ, Sq);
+    load_tile<D, BQ, NTH>(Qt + BQ * LD, dob, do_s, qt * BQ, Sq);
+    load_vec<BQ, NTH>(vecs, lse_h, qt * BQ, Sq);
+    load_vec<BQ, NTH>(vecs + BQ, D_h, qt * BQ, Sq);
   };
   if (qt_lo < qt_hi) load_q(ring, qt_lo);
   cp_async_commit();
@@ -704,13 +846,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < CT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  const float* Kw = Ks + 16 * kw * LD;
-  const float* Vw = Vs + 16 * kw * LD;
+  const T* Kw = Ks + 16 * kw * LD;
+  const T* Vw = Vs + 16 * kw * LD;
   const int key0 = k0 + 16 * kw + g;        // this thread's keys: +0, +8
   float* Xw = X + (grp * 4 + kw) * NT * 4 * 32 + lane;        // mine
   const float* Xo = X + ((1 - grp) * 4 + kw) * NT * 4 * 32 + lane;
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    float* st = ring + ((qt - qt_lo) & 1) * STAGE;
+    char* st = ring + ((qt - qt_lo) & 1) * STAGE;
     if (qt + 1 < qt_hi) {
       load_q(ring + ((qt + 1 - qt_lo) & 1) * STAGE, qt + 1);
       cp_async_commit();
@@ -719,9 +861,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_wait_all();
     }
     __syncthreads();
-    const float* Qt = st;
-    const float* dOt = st + BQ * LD;
-    const float* lse_s = st + 2 * BQ * LD;
+    const T* Qt = reinterpret_cast<const T*>(st);
+    const T* dOt = Qt + BQ * LD;
+    const float* lse_s = reinterpret_cast<const float*>(dOt + BQ * LD);
     const float* D_s = lse_s + BQ;
     const int q0 = qt * BQ;
     if constexpr (PS) {
@@ -778,19 +920,20 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           dpT[n][e] = sT[n][e] * (dpT[n][e] - D_s[8 * n + 2 * t + (e & 1)]);
     }
-    mul_rows<D, NT, CT>(sT, dOb, c0, lane, dv_acc);    // dV += P^T dO
-    mul_rows<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);    // dK += dS^T Q
+    mul_acc<D, NT, CT, PP>(sT, dOb, c0, lane, dv_acc);   // dV += P^T dO
+    mul_acc<D, NT, CT, PP>(dpT, Qb, c0, lane, dk_acc);   // dK += dS^T Q
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves K, V in flight
 
-  // G = 1 and one range: the block owns its dK/dV; else partial
-  // (h % G) * split + range, in the order flash_sum_parts_kernel adds them
+  // G = 1 and one range: the block owns its dK/dV (in T); else the f32
+  // partial (h % G) * split + range, in the order flash_sum_parts_kernel
+  // adds them
   const long long n_out = (long long)gridDim.y / H * Sk * KV * D;
   const int n_parts = G * split;
   const long long part = (long long)(h % G) * split + range;
-  float* out_k = n_parts == 1 ? dk : parts + part * n_out;
-  float* out_v = n_parts == 1 ? dv : parts + (n_parts + part) * n_out;
+  float* part_k = parts + part * n_out;
+  float* part_v = parts + (n_parts + part) * n_out;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
@@ -799,10 +942,15 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           + 2 * t;
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
-      *reinterpret_cast<float2*>(out_k + off + 8 * j) = make_float2(
-          dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(out_v + off + 8 * j) =
-          make_float2(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      const float xk = dk_acc[j][2 * r] * scale;
+      const float yk = dk_acc[j][2 * r + 1] * scale;
+      if (n_parts == 1) {
+        store2(dk + off + 8 * j, xk, yk);
+        store2(dv + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      } else {
+        store2(part_k + off + 8 * j, xk, yk);
+        store2(part_v + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      }
     }
   }
 }
@@ -822,14 +970,16 @@ __device__ __forceinline__ int live_ranges(bool key_rows, int row, int Sq,
          / chunk;
 }
 
-// out[y] (n4 float4) = the partials of its row with work, parts[y][g split
-// + r] for g < G, r < the row's live ranges (each n4 float4), summed in
-// that order; y = blockIdx.y. A row of `row4` float4, S_rows rows a batch.
+// out[y] (n4 float4, written as T) = the partials of its row with work,
+// parts[y][g split + r] for g < G, r < the row's live ranges (each n4
+// float4), summed in that order; y = blockIdx.y. A row of `row4` float4,
+// S_rows rows a batch.
+template <typename T>
 __global__ void __launch_bounds__(SUM_THREADS)
-flash_sum_parts_kernel(const float4* __restrict__ parts, float4* out0,
-                       float4* out1, int G, int split, long long n4,
-                       int row4, int S_rows, int key_rows, int Sq, int Sk,
-                       int tile, int causal, int chunk) {
+flash_sum_parts_kernel(const float4* __restrict__ parts, T* out0, T* out1,
+                       int G, int split, long long n4, int row4, int S_rows,
+                       int key_rows, int Sq, int Sk, int tile, int causal,
+                       int chunk) {
   const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
   if (i >= n4) return;
   const int row = (int)((i / row4) % S_rows);
@@ -846,39 +996,40 @@ flash_sum_parts_kernel(const float4* __restrict__ parts, float4* out0,
                           acc.w + x.w);
       }
     }
-  (blockIdx.y ? out1 : out0)[i] = acc;
+  store4((blockIdx.y ? out1 : out0) + 4 * i, acc);
 }
 
 // ---------------------------------------------------------------------------
 // backward 3: dQ of one (q tile, b * H + h, range of its k tiles)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename T, int PP>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dO,
                     const float* __restrict__ lse,
-                    const float* __restrict__ Dd, float* __restrict__ dq,
+                    const float* __restrict__ Dd, T* __restrict__ dq,
                     float* __restrict__ parts, int H, int G, int Sq, int Sk,
                     Strides sq, Strides sk, Strides sv, int causal,
                     float scale, int split, int chunk) {
   constexpr int WG = groups<D>(), NTH = 128 * WG;
-  constexpr int BK = dq_tile_rows<D>(), LD = D + 4, NT = BK / 8;
+  constexpr int BK = dq_tile_rows<D>(), LD = pitch<D, T>(), NT = BK / 8;
   constexpr int DC = D / WG, CT = DC / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // (ROWS, LD)
-  float* dOs = Qs + ROWS * LD;    // (ROWS, LD)
-  float* Ks = dOs + ROWS * LD;    // 2 stages x (BK, LD)
-  float* Vs = Ks + 2 * BK * LD;   // 2 stages x (BK, LD)
-  float* X = Vs + 2 * BK * LD;    // WG = 2: P (group 0), dP (group 1)
+  T* Qs = reinterpret_cast<T*>(smem);   // (ROWS, LD)
+  T* dOs = Qs + ROWS * LD;              // (ROWS, LD)
+  T* Ks = dOs + ROWS * LD;              // 2 stages x (BK, LD)
+  T* Vs = Ks + 2 * BK * LD;             // 2 stages x (BK, LD)
+  float* X = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // WG = 2: P
+                                        // (group 0), dP (group 1)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qw = warp % 4, grp = warp / 4, c0 = grp * DC;
   const int g = lane / 4, t = lane % 4;
   const long long do_s = (long long)H * D;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
   // this block's k tiles: range blockIdx.z, of `chunk` tiles, of those at
   // or below the diagonal; past them, none (with partials, no work at all)
   const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
@@ -907,8 +1058,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < CT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  const float* Qw = Qs + 16 * qw * LD;
-  const float* dOw = dOs + 16 * qw * LD;
+  const T* Qw = Qs + 16 * qw * LD;
+  const T* dOw = dOs + 16 * qw * LD;
   float* Xw = X + (grp * 4 + qw) * NT * 4 * 32 + lane;        // mine
   const float* Xo = X + ((1 - grp) * 4 + qw) * NT * 4 * 32 + lane;
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -922,8 +1073,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_wait_all();
     }
     __syncthreads();
-    const float* Kt = Ks + st * BK * LD;
-    const float* Vt = Vs + st * BK * LD;
+    const T* Kt = Ks + st * BK * LD;
+    const T* Vt = Vs + st * BK * LD;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -969,23 +1120,26 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           s[n][e] = s[n][e] * (dp[n][e] - D_r[e >> 1]);
     }
-    mul_rows<D, NT, CT>(s, Kt, c0, lane, acc);        // dQ += dS K
+    mul_acc<D, NT, CT, PP>(s, Kt, c0, lane, acc);     // dQ += dS K
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves Q, dO in flight
 
-  // one range: the block owns its dQ; else partial blockIdx.z
+  // one range: the block owns its dQ (in T); else f32 partial blockIdx.z
   const long long n_out = (long long)gridDim.y * Sq * D;   // dq's size
-  float* out = split == 1 ? dq : parts + blockIdx.z * n_out;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    float* dqrow = out + (((long long)b * Sq + row) * H + h) * D + c0 + 2 * t;
+    const long long off = (((long long)b * Sq + row) * H + h) * D + c0 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < CT; ++i)
-      *reinterpret_cast<float2*>(dqrow + 8 * i) =
-          make_float2(acc[i][2 * r] * scale, acc[i][2 * r + 1] * scale);
+    for (int i = 0; i < CT; ++i) {
+      const float x = acc[i][2 * r] * scale, y = acc[i][2 * r + 1] * scale;
+      if (split == 1)
+        store2(dq + off + 8 * i, x, y);
+      else
+        store2(parts + blockIdx.z * n_out + off + 8 * i, x, y);
+    }
   }
 }
 
@@ -1003,30 +1157,33 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // shared memory bytes of each kernel's block, the one place the launchers
 // and flash_attention_occupancy read them (kernels/_plan.py::
-// flash_fwd_smem, flash_dkdv_smem, flash_dq_smem model them for the plans)
-template <int D>
+// flash_fwd_smem, flash_dkdv_smem, flash_dq_smem model them for the plans,
+// given the element size)
+template <int D, typename T>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (ROWS * (D + 4) + 4 * tile_rows<D>() * (D + 4));
+  return sizeof(T) * (ROWS + 4 * tile_rows<D>()) * pitch<D, T>();
 }
 
-template <int D>
+template <int D, typename T>
 constexpr size_t dkdv_smem() {
-  constexpr int BQ = q_tile_rows<D>(), LD = D + 4;
-  return sizeof(float) * (2 * ROWS * LD + 2 * (2 * BQ * LD + 2 * BQ)
-                          + 4 * presplit<D>() * BQ * LD
-                          + xchg_floats<D, BQ / 8>());
+  constexpr int BQ = q_tile_rows<D>(), LD = pitch<D, T>();
+  return sizeof(T) * (2 * ROWS * LD + 2 * 2 * BQ * LD)
+         + sizeof(float) * (2 * 2 * BQ + 4 * presplit<D, T>() * BQ * LD
+                            + xchg_floats<D, BQ / 8>());
 }
 
-template <int D>
+template <int D, typename T>
 constexpr size_t dq_smem() {
-  constexpr int BT = dq_tile_rows<D>(), LD = D + 4;
-  return sizeof(float) * (2 * ROWS * LD + 4 * BT * LD
-                          + xchg_floats<D, BT / 8>());
+  constexpr int BT = dq_tile_rows<D>(), LD = pitch<D, T>();
+  return sizeof(T) * (2 * ROWS * LD + 4 * BT * LD)
+         + sizeof(float) * xchg_floats<D, BT / 8>();
 }
 
 struct Args {
-  const float *q, *k, *v, *o, *dO, *lse;
-  float *out, *lse_out, *Dd, *dq, *dk, *dv, *parts;
+  const void *q, *k, *v, *o, *dO;
+  const float* lse;
+  void *out, *dq, *dk, *dv;
+  float *lse_out, *Dd, *parts;
   int B, H, KV, Sq, Sk, causal, split, dq_split, chunk, dq_chunk;
   Strides sq, sk, sv;
   float scale;
@@ -1036,32 +1193,33 @@ struct Args {
 // `split` ranges of `chunk` k tiles each (kernels/_plan.py::
 // flash_fwd_plan); with split > 1, a.parts holds split B Sq H D partial
 // accumulators, then split B H Sq (m, l) pairs
-template <int D>
+template <int D, typename T, int PP>
 static int launch_fwd(const Args& a) {
   constexpr int BK = tile_rows<D>();
   if ((long long)a.split * a.chunk < (a.Sk + BK - 1) / BK)
     return (int)cudaErrorInvalidValue;       // the ranges miss k tiles
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  constexpr size_t smem = fwd_smem<D, T>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, T, PP>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
             (unsigned)a.split);
-  flash_fwd_kernel<D><<<grid, N_THREADS, smem, a.stream>>>(
-      a.q, a.k, a.v, a.out, a.lse_out, a.parts, a.H, a.H / a.KV, a.Sq, a.Sk,
-      a.sq, a.sk, a.sv, a.causal, a.scale, a.chunk);
+  flash_fwd_kernel<D, T, PP><<<grid, N_THREADS, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.lse_out,
+      a.parts, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq, a.sk, a.sv, a.causal,
+      a.scale, a.chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.split == 1) return (int)err;
   dim3 grid_m((unsigned)(a.B * a.Sq),
               (unsigned)((a.H * D / 4 + MERGE_THREADS - 1) / MERGE_THREADS));
-  flash_fwd_merge_kernel<D><<<grid_m, MERGE_THREADS, 0, a.stream>>>(
-      a.parts, a.out, a.lse_out, a.B, a.H, a.Sq, a.Sk, a.causal, a.chunk,
+  flash_fwd_merge_kernel<D, T><<<grid_m, MERGE_THREADS, 0, a.stream>>>(
+      a.parts, (T*)a.out, a.lse_out, a.B, a.H, a.Sq, a.Sk, a.causal, a.chunk,
       a.split);
   return (int)cudaGetLastError();
 }
 
 // `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
 // of `dq_chunk` k tiles per dQ block (kernels/_plan.py)
-template <int D>
+template <int D, typename T, int PP>
 static int launch_bwd(const Args& a) {
   constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>();
   constexpr int NTH = 128 * groups<D>();
@@ -1070,20 +1228,22 @@ static int launch_bwd(const Args& a) {
     return (int)cudaErrorInvalidValue;       // the ranges miss tiles
   const int G = a.H / a.KV;
   const long long rows = (long long)a.B * a.Sq * a.H;
-  flash_bwd_dot_kernel<D><<<(unsigned)((rows * 32 + DOT_THREADS - 1)
-                                       / DOT_THREADS),
-                            DOT_THREADS, 0, a.stream>>>(a.o, a.dO, a.Dd, a.H,
-                                                        a.Sq, rows);
+  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v;
+  const T* dO = (const T*)a.dO;
+  flash_bwd_dot_kernel<D, T><<<(unsigned)((rows * 32 + DOT_THREADS - 1)
+                                          / DOT_THREADS),
+                               DOT_THREADS, 0, a.stream>>>(
+      (const T*)a.o, dO, a.Dd, a.H, a.Sq, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr size_t smem_kv = dkdv_smem<D>();
-  err = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
+  constexpr size_t smem_kv = dkdv_smem<D, T>();
+  err = allow_smem(flash_bwd_dkdv_kernel<D, T, PP>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
                (unsigned)a.split);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, NTH, smem_kv, a.stream>>>(
-      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dk, a.dv, a.parts, a.H, G, a.Sq,
+  flash_bwd_dkdv_kernel<D, T, PP><<<grid_kv, NTH, smem_kv, a.stream>>>(
+      q, k, v, dO, a.lse, a.Dd, (T*)a.dk, (T*)a.dv, a.parts, a.H, G, a.Sq,
       a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split, a.chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1093,53 +1253,65 @@ static int launch_bwd(const Args& a) {
   float* parts_q = a.parts + (n_parts > 1 ? 2 * n_parts * n_kv4 * 4 : 0);
   if (n_parts > 1) {
     dim3 grid_sum((unsigned)((n_kv4 + SUM_THREADS - 1) / SUM_THREADS), 2);
-    flash_sum_parts_kernel<<<grid_sum, SUM_THREADS, 0, a.stream>>>(
-        (const float4*)a.parts, (float4*)a.dk, (float4*)a.dv, G, a.split,
-        n_kv4, a.KV * D / 4, a.Sk, 1, a.Sq, a.Sk, BQ, a.causal, a.chunk);
+    flash_sum_parts_kernel<T><<<grid_sum, SUM_THREADS, 0, a.stream>>>(
+        (const float4*)a.parts, (T*)a.dk, (T*)a.dv, G, a.split, n_kv4,
+        a.KV * D / 4, a.Sk, 1, a.Sq, a.Sk, BQ, a.causal, a.chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
-  constexpr size_t smem_q = dq_smem<D>();
-  err = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
+  constexpr size_t smem_q = dq_smem<D, T>();
+  err = allow_smem(flash_bwd_dq_kernel<D, T, PP>, smem_q);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
               (unsigned)a.dq_split);
-  flash_bwd_dq_kernel<D><<<grid_q, NTH, smem_q, a.stream>>>(
-      a.q, a.k, a.v, a.dO, a.lse, a.Dd, a.dq, parts_q, a.H, G, a.Sq, a.Sk,
-      a.sq, a.sk, a.sv, a.causal, a.scale, a.dq_split, a.dq_chunk);
+  flash_bwd_dq_kernel<D, T, PP><<<grid_q, NTH, smem_q, a.stream>>>(
+      q, k, v, dO, a.lse, a.Dd, (T*)a.dq, parts_q, a.H, G, a.Sq, a.Sk, a.sq,
+      a.sk, a.sv, a.causal, a.scale, a.dq_split, a.dq_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.dq_split == 1) return (int)err;
   const long long n_q4 = (long long)a.B * a.Sq * a.H * D / 4;
-  flash_sum_parts_kernel<<<(unsigned)((n_q4 + SUM_THREADS - 1)
-                                      / SUM_THREADS),
-                           SUM_THREADS, 0, a.stream>>>(
-      (const float4*)parts_q, (float4*)a.dq, nullptr, 1, a.dq_split, n_q4,
+  flash_sum_parts_kernel<T><<<(unsigned)((n_q4 + SUM_THREADS - 1)
+                                         / SUM_THREADS),
+                              SUM_THREADS, 0, a.stream>>>(
+      (const float4*)parts_q, (T*)a.dq, (T*)nullptr, 1, a.dq_split, n_q4,
       a.H * D / 4, a.Sq, 0, a.Sq, a.Sk, BT, a.causal, a.dq_chunk);
   return (int)cudaGetLastError();
 }
 
 // head dims 32, 64, 128, 256 (the ported configs')
-template <bool FWD>
+template <bool FWD, typename T, int PP>
 static int dispatch(int d, const Args& a) {
   switch (d) {
-    case 32: return FWD ? launch_fwd<32>(a) : launch_bwd<32>(a);
-    case 64: return FWD ? launch_fwd<64>(a) : launch_bwd<64>(a);
-    case 128: return FWD ? launch_fwd<128>(a) : launch_bwd<128>(a);
-    case 256: return FWD ? launch_fwd<256>(a) : launch_bwd<256>(a);
+    case 32: return FWD ? launch_fwd<32, T, PP>(a) : launch_bwd<32, T, PP>(a);
+    case 64: return FWD ? launch_fwd<64, T, PP>(a) : launch_bwd<64, T, PP>(a);
+    case 128:
+      return FWD ? launch_fwd<128, T, PP>(a) : launch_bwd<128, T, PP>(a);
+    case 256:
+      return FWD ? launch_fwd<256, T, PP>(a) : launch_bwd<256, T, PP>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// bf16, p_parts 1 or 2 (P's and dS's bf16 parts)
+template <bool FWD>
+static int dispatch_bf16(int d, int p_parts, const Args& a) {
+  if (p_parts == 1) return dispatch<FWD, bf16, 1>(d, a);
+  if (p_parts == 2) return dispatch<FWD, bf16, 2>(d, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 static bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-// shape, and the 16-byte alignment cp.async needs of q, k, v
-static bool valid(const Args& a) {
+// shape, and the 16-byte alignment cp.async needs of q, k, v (strides in
+// elements of `esize` bytes)
+static bool valid(const Args& a, int esize) {
   const Strides* st[3] = {&a.sq, &a.sk, &a.sv};
+  const long long m = 16 / esize - 1;
   for (const Strides* s : st)
-    if ((s->b | s->s | s->h) & 3) return false;
+    if ((s->b | s->s | s->h) & m) return false;
   return a.B > 0 && a.KV > 0 && a.H % a.KV == 0 && a.Sq > 0 && a.Sk > 0
          && (long long)a.B * a.H <= 65535 && aligned16(a.q)
          && aligned16(a.k) && aligned16(a.v);
@@ -1152,9 +1324,9 @@ static Args make_args(const void* q, const void* k, const void* v, int B,
                       long long vss, long long vsh, int causal,
                       void* stream) {
   Args a = {};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
+  a.q = q;
+  a.k = k;
+  a.v = v;
   a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.causal = causal;
   a.split = a.dq_split = a.chunk = a.dq_chunk = 1;
   a.sq = {qsb, qss, qsh};
@@ -1163,6 +1335,27 @@ static Args make_args(const void* q, const void* k, const void* v, int B,
   a.scale = 1.0f / sqrtf((float)d);
   a.stream = (cudaStream_t)stream;
   return a;
+}
+
+static int fwd_entry(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int B, int H, int KV, int Sq, int Sk, int d,
+                     long long qsb, long long qss, long long qsh,
+                     long long ksb, long long kss, long long ksh,
+                     long long vsb, long long vss, long long vsh, int causal,
+                     int split, int chunk, void* ws, void* stream, int esize,
+                     int p_parts) {
+  Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
+                     ksh, vsb, vss, vsh, causal, stream);
+  if (!valid(a, esize) || split < 1 || chunk < 1 || split > 65535
+      || (split > 1 && !aligned16(ws)))
+    return (int)cudaErrorInvalidValue;
+  a.out = o;
+  a.lse_out = (float*)lse;
+  a.parts = (float*)ws;
+  a.split = split;
+  a.chunk = chunk;
+  return esize == 4 ? dispatch<true, float, 1>(d, a)
+                    : dispatch_bf16<true>(d, p_parts, a);
 }
 
 // `split` ranges of `chunk` k tiles per q tile (kernels/_plan.py::
@@ -1174,17 +1367,52 @@ extern "C" int flash_attention_fwd_f32(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int split,
     int chunk, void* ws, void* stream) {
+  return fwd_entry(q, k, v, o, lse, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb,
+                   kss, ksh, vsb, vss, vsh, causal, split, chunk, ws, stream,
+                   4, 1);
+}
+
+// the same over bf16 q, k, v and o (lse and ws f32); p_parts 1 or 2
+extern "C" int flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int KV, int Sq, int Sk, int d, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, int causal, int split,
+    int chunk, int p_parts, void* ws, void* stream) {
+  return fwd_entry(q, k, v, o, lse, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb,
+                   kss, ksh, vsb, vss, vsh, causal, split, chunk, ws, stream,
+                   2, p_parts);
+}
+
+static int bwd_entry(const void* q, const void* k, const void* v,
+                     const void* o, const void* dO, const void* lse, void* Dd,
+                     void* dq, void* dk, void* dv, int B, int H, int KV,
+                     int Sq, int Sk, int d, long long qsb, long long qss,
+                     long long qsh, long long ksb, long long kss,
+                     long long ksh, long long vsb, long long vss,
+                     long long vsh, int causal, int split, int chunk,
+                     int dq_split, int dq_chunk, void* parts, void* stream,
+                     int esize, int p_parts) {
   Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
                      ksh, vsb, vss, vsh, causal, stream);
-  if (!valid(a) || split < 1 || chunk < 1 || split > 65535
-      || (split > 1 && !aligned16(ws)))
+  if (!valid(a, esize) || split < 1 || dq_split < 1 || chunk < 1
+      || dq_chunk < 1 || split > 65535 || dq_split > 65535 || !aligned16(dO)
+      || (((H / KV) * split > 1 || dq_split > 1) && !aligned16(parts)))
     return (int)cudaErrorInvalidValue;
-  a.out = (float*)o;
-  a.lse_out = (float*)lse;
-  a.parts = (float*)ws;
+  a.o = o;
+  a.dO = dO;
+  a.lse = (const float*)lse;
+  a.Dd = (float*)Dd;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.parts = (float*)parts;
   a.split = split;
   a.chunk = chunk;
-  return dispatch<true>(d, a);
+  a.dq_split = dq_split;
+  a.dq_chunk = dq_chunk;
+  return esize == 4 ? dispatch<false, float, 1>(d, a)
+                    : dispatch_bf16<false>(d, p_parts, a);
 }
 
 // `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
@@ -1199,57 +1427,68 @@ extern "C" int flash_attention_bwd_f32(
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
     int split, int chunk, int dq_split, int dq_chunk, void* parts,
     void* stream) {
-  Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
-                     ksh, vsb, vss, vsh, causal, stream);
-  if (!valid(a) || split < 1 || dq_split < 1 || chunk < 1 || dq_chunk < 1
-      || split > 65535 || dq_split > 65535 || !aligned16(dO)
-      || (((H / KV) * split > 1 || dq_split > 1) && !aligned16(parts)))
-    return (int)cudaErrorInvalidValue;
-  a.o = (const float*)o;
-  a.dO = (const float*)dO;
-  a.lse = (const float*)lse;
-  a.Dd = (float*)Dd;
-  a.dq = (float*)dq;
-  a.dk = (float*)dk;
-  a.dv = (float*)dv;
-  a.parts = (float*)parts;
-  a.split = split;
-  a.chunk = chunk;
-  a.dq_split = dq_split;
-  a.dq_chunk = dq_chunk;
-  return dispatch<false>(d, a);
+  return bwd_entry(q, k, v, o, dO, lse, Dd, dq, dk, dv, B, H, KV, Sq, Sk, d,
+                   qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, split,
+                   chunk, dq_split, dq_chunk, parts, stream, 4, 1);
 }
 
-// kind 0, 1, 2: the forward, dK/dV or dQ kernel at head dim D; its
-// threads, shared memory bytes, and the blocks an SM holds at once as the
-// runtime reports them for that launch
-template <int D>
+// the same over bf16 q, k, v, o, dO, dq, dk and dv (lse, D and the
+// partials f32); p_parts 1 or 2
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* Dd, void* dq, void* dk, void* dv,
+    int B, int H, int KV, int Sq, int Sk, int d, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int causal,
+    int split, int chunk, int dq_split, int dq_chunk, int p_parts,
+    void* parts, void* stream) {
+  return bwd_entry(q, k, v, o, dO, lse, Dd, dq, dk, dv, B, H, KV, Sq, Sk, d,
+                   qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, split,
+                   chunk, dq_split, dq_chunk, parts, stream, 2, p_parts);
+}
+
+// kind 0, 1, 2: the forward, dK/dV or dQ kernel at head dim D over T
+// (PP = 1); its threads, shared memory bytes, and the blocks an SM holds at
+// once as the runtime reports them for that launch
+template <int D, typename T>
 static int occupancy(int kind, int* threads, int* smem, int* blocks) {
-  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D>
-                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D>
-                             : (const void*)flash_bwd_dq_kernel<D>;
-  const size_t bytes = kind == 0 ? fwd_smem<D>()
-                     : kind == 1 ? dkdv_smem<D>() : dq_smem<D>();
+  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D, T, 1>
+                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D, T, 1>
+                             : (const void*)flash_bwd_dq_kernel<D, T, 1>;
+  const size_t bytes = kind == 0 ? fwd_smem<D, T>()
+                     : kind == 1 ? dkdv_smem<D, T>() : dq_smem<D, T>();
   *threads = kind == 0 ? N_THREADS : 128 * groups<D>();
   *smem = (int)bytes;
-  cudaError_t err = kind == 0 ? allow_smem(flash_fwd_kernel<D>, bytes)
-                  : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D>, bytes)
-                              : allow_smem(flash_bwd_dq_kernel<D>, bytes);
+  cudaError_t err =
+      kind == 0 ? allow_smem(flash_fwd_kernel<D, T, 1>, bytes)
+      : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D, T, 1>, bytes)
+                  : allow_smem(flash_bwd_dq_kernel<D, T, 1>, bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             *threads, bytes);
 }
 
-extern "C" int flash_attention_occupancy(int d, int kind, int* threads,
-                                         int* smem, int* blocks) {
+template <typename T>
+static int occupancy_of(int d, int kind, int* threads, int* smem,
+                        int* blocks) {
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 32: return occupancy<32>(kind, threads, smem, blocks);
-    case 64: return occupancy<64>(kind, threads, smem, blocks);
-    case 128: return occupancy<128>(kind, threads, smem, blocks);
-    case 256: return occupancy<256>(kind, threads, smem, blocks);
+    case 32: return occupancy<32, T>(kind, threads, smem, blocks);
+    case 64: return occupancy<64, T>(kind, threads, smem, blocks);
+    case 128: return occupancy<128, T>(kind, threads, smem, blocks);
+    case 256: return occupancy<256, T>(kind, threads, smem, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int flash_attention_occupancy(int d, int kind, int* threads,
+                                         int* smem, int* blocks) {
+  return occupancy_of<float>(d, kind, threads, smem, blocks);
+}
+
+extern "C" int flash_attention_occupancy_bf16(int d, int kind, int* threads,
+                                              int* smem, int* blocks) {
+  return occupancy_of<bf16>(d, kind, threads, smem, blocks);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -52,11 +52,22 @@
 // length, so its bits do not depend on the other slots or on S, and two
 // calls give the same bits.
 //
-// Envelope (checked by the Python wrapper, and again here): float32,
-// contiguous 16-byte aligned tensors, dh % 4 == 0, dh <= 256, ps <= 64,
-// int32 table and lengths, lengths[s] < P * ps (the engine writes the key
-// at lengths[s] before it attends), smem_floats() * 4 bytes within 227 KB.
+// bf16 (paged_attention_bf16): q, the K/V pool and the output in bf16,
+// everything else as above in f32. The same 16-byte cp.async copies (8
+// bf16) stage the chunk, which then takes half the shared memory; each
+// read from shared memory takes 4 bf16 (8 bytes) and converts them to a
+// float4, so the scores, the online softmax, P.V and the merge
+// (online_merge.cuh) run in f32, and the merge writes bf16. The bytes
+// bound halves with the K/V bytes. The plan's chunks hold 16 KB of K as in
+// f32, so twice the keys (kernels/_plan.py::paged_plan's esize).
+//
+// Envelope (checked by the Python wrapper, and again here): float32 or
+// bfloat16, contiguous 16-byte aligned tensors, dh a multiple of 16 bytes
+// (dh % 4 == 0 in f32, % 8 in bf16), dh <= 256, ps <= 64, int32 table and
+// lengths, lengths[s] < P * ps (the engine writes the key at lengths[s]
+// before it attends), smem_bytes() within 227 KB.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -64,6 +75,8 @@
 
 #include "cp_async.cuh"
 #include "online_merge.cuh"
+
+typedef __nv_bfloat16 bf16;
 
 #define NEG_INF (-1e30f)
 #define N_THREADS 128
@@ -86,26 +99,51 @@ __host__ __device__ __forceinline__ int key_lanes(int C, int quads) {
   return LK;
 }
 
-// The K rows' pitch in floats: dh, padded by whole float4s so that the 8
-// lanes of each 16-byte load phase (8 / LK keys x LK lanes) fall on
-// distinct banks.
+// The K rows' pitch in elements (kernels/_plan.py::paged_k_pitch). f32:
+// dh, padded by whole float4s so that the 8 lanes of each 16-byte load
+// phase (8 / LK keys x LK lanes) fall on distinct banks. bf16 (8-byte
+// loads): dh, or dh + 8 where a key's quads are not read by neighbouring
+// lanes (LK < dh / 4), keeping rows 16-byte aligned.
+template <typename T>
 __host__ __device__ __forceinline__ int k_pitch(int dh, int LK) {
   const int quads = dh >> 2;
+  if (sizeof(T) == 2) return dh + 8 * (LK < quads);
   return dh + 4 * (LK < 8 ? ((LK - quads) % 8 + 8) % 8 : 0);
 }
 
-// kernels/_plan.py::paged_smem_bytes / 4
-static size_t smem_floats(int chunk_pages, int ps, int G, int dh) {
+// kernels/_plan.py::paged_smem_bytes: K, V and q rows of T, then the f32
+// P.V partial sums and scores and the int32 cache rows
+template <typename T>
+static size_t smem_bytes(int chunk_pages, int ps, int G, int dh) {
   const int C = chunk_pages * ps;
-  const size_t pitch = k_pitch(dh, key_lanes(C, dh >> 2));
-  return (size_t)C * pitch + (size_t)C * dh + (size_t)G * dh
-         + 16 * N_THREADS + (size_t)G * C + C;
+  const size_t pitch = k_pitch<T>(dh, key_lanes(C, dh >> 2));
+  return sizeof(T) * ((size_t)C * pitch + (size_t)C * dh + (size_t)G * dh)
+         + 4 * (16 * N_THREADS + (size_t)G * C + C);
 }
 
+// four consecutive elements as a float4 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *(const float4*)p;
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *(const uint2*)p;
+  const float2 a = __bfloat1622float2(*(const __nv_bfloat162*)&u.x);
+  const float2 b = __bfloat1622float2(*(const __nv_bfloat162*)&u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float from_f32(float x, float) { return x; }
+
+__device__ __forceinline__ bf16 from_f32(float x, bf16) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(N_THREADS)
-paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
-                     const float* __restrict__ k,      // (NP, ps, KV, dh)
-                     const float* __restrict__ v,      // (NP, ps, KV, dh)
+paged_partial_kernel(const T* __restrict__ q,          // (S, KV * G, dh)
+                     const T* __restrict__ k,          // (NP, ps, KV, dh)
+                     const T* __restrict__ v,          // (NP, ps, KV, dh)
                      const int* __restrict__ table,    // (S, P)
                      const int* __restrict__ lengths,  // (S,)
                      float* __restrict__ acc_ws,  // (S, KV, n_chunks, G, dh)
@@ -120,11 +158,11 @@ paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
   const int C = chunk_pages * ps;          // keys of a whole chunk
   const int quads = dh >> 2;
   const int LK = key_lanes(C, quads);
-  const int kp = k_pitch(dh, LK);
+  const int kp = k_pitch<T>(dh, LK);
 
-  float* k_s = smem;                       // (C, kp)
-  float* v_s = k_s + (size_t)C * kp;       // (C, dh)
-  float* q_s = v_s + (size_t)C * dh;       // (G, dh)
+  T* k_s = reinterpret_cast<T*>(smem);     // (C, kp)
+  T* v_s = k_s + (size_t)C * kp;           // (C, dh)
+  T* q_s = v_s + (size_t)C * dh;           // (G, dh)
   float4* red_s = (float4*)(q_s + (size_t)G * dh);   // (4 * N_THREADS,)
   float* p_s = (float*)(red_s + 4 * N_THREADS);      // (G, C)
   int* rows_s = (int*)(p_s + (size_t)G * C);         // (C,)
@@ -146,29 +184,32 @@ paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
   const int n = k1 - k0 + 1;
   const int* rows = rows_s + (k0 - key0);
 
-  const float* q_blk = q + ((size_t)s * KV + kv) * G * dh;
-  for (int i = tid; i < G * quads; i += N_THREADS)
-    cp_async16(q_s + 4 * i, q_blk + 4 * i, true);
+  // 16-byte copies: E elements each, W = dh / E of a row
+  constexpr int E = 16 / sizeof(T);
+  const int W = dh / E;
+  const T* q_blk = q + ((size_t)s * KV + kv) * G * dh;
+  for (int i = tid; i < G * W; i += N_THREADS)
+    cp_async16((float*)(q_s + E * i), (const float*)(q_blk + E * i), true);
   __syncthreads();                         // rows_s
 
-  // a thread copies float4 x of keys r0, r0 + per_pass, ... (K, then V)
+  // a thread copies the 16 bytes w of keys r0w, r0w + per_copy, ... (K,
+  // then V)
   const size_t row_stride = (size_t)KV * dh;
-  const int per_pass = N_THREADS / quads;
-  const int r0 = tid / quads;
-  const int x = tid - r0 * quads;
-  const bool copier = r0 < per_pass;
-  const float* k_head = k + (size_t)kv * dh + 4 * x;
-  const float* v_head = v + (size_t)kv * dh + 4 * x;
-  if (copier) {
-    for (int j = r0; j < n; j += per_pass)
-      cp_async16(k_s + (size_t)j * kp + 4 * x,
-                 k_head + (size_t)rows[j] * row_stride, true);
+  const int per_copy = N_THREADS / W;
+  const int r0w = tid / W;
+  const int w = tid - r0w * W;
+  const T* k_head = k + (size_t)kv * dh + E * w;
+  const T* v_head = v + (size_t)kv * dh + E * w;
+  if (r0w < per_copy) {
+    for (int j = r0w; j < n; j += per_copy)
+      cp_async16((float*)(k_s + (size_t)j * kp + E * w),
+                 (const float*)(k_head + (size_t)rows[j] * row_stride), true);
   }
   cp_async_commit();                       // group 0: q and K
-  if (copier) {
-    for (int j = r0; j < n; j += per_pass)
-      cp_async16(v_s + (size_t)j * dh + 4 * x,
-                 v_head + (size_t)rows[j] * row_stride, true);
+  if (r0w < per_copy) {
+    for (int j = r0w; j < n; j += per_copy)
+      cp_async16((float*)(v_s + (size_t)j * dh + E * w),
+                 (const float*)(v_head + (size_t)rows[j] * row_stride), true);
   }
   cp_async_commit();                       // group 1: V
   cp_async_wait_prior();
@@ -180,16 +221,15 @@ paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
   for (int j0 = 0; j0 < n; j0 += N_THREADS / LK) {
     const int j = j0 + tid / LK;
     const bool ok = j < n;
-    const float* krow = k_s + (size_t)(ok ? j : 0) * kp;
+    const T* krow = k_s + (size_t)(ok ? j : 0) * kp;
     for (int g0 = 0; g0 < G; g0 += 4) {
       float dot[4] = {0.f, 0.f, 0.f, 0.f};
       for (int x4 = ql; x4 < quads; x4 += LK) {
-        const float4 b = *(const float4*)(krow + 4 * x4);
+        const float4 b = load4(krow + 4 * x4);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           if (g0 + u < G) {
-            const float4 a = *(const float4*)(q_s + (size_t)(g0 + u) * dh
-                                              + 4 * x4);
+            const float4 a = load4(q_s + (size_t)(g0 + u) * dh + 4 * x4);
             dot[u] = fmaf(a.x, b.x, dot[u]);
             dot[u] = fmaf(a.y, b.y, dot[u]);
             dot[u] = fmaf(a.z, b.z, dot[u]);
@@ -234,17 +274,20 @@ paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
   cp_async_wait_all();
   __syncthreads();
 
-  // P.V: threads over (key part, dh / 4), each V float4 feeding four
-  // query heads at a time; then the key parts are summed in order
+  // P.V: threads over (key part r0, quad x of dh), each V quad feeding
+  // four query heads at a time; then the key parts are summed in order
   float* acc_out = acc_ws + part * G * dh;
   const int parts = N_THREADS / quads;
+  const int r0 = tid / quads;
+  const int x = tid - r0 * quads;
+  const bool copier = r0 < parts;
   for (int g0 = 0; g0 < G; g0 += 4) {
     if (copier) {
       float4 a[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int j = r0; j < n; j += parts) {
-        const float4 b = *(const float4*)(v_s + (size_t)j * dh + 4 * x);
+        const float4 b = load4(v_s + (size_t)j * dh + 4 * x);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           if (g0 + u < G) {
@@ -280,11 +323,12 @@ paged_partial_kernel(const float* __restrict__ q,      // (S, KV * G, dh)
 }
 
 // grid (ceil(G * dh / N_THREADS), KV, S): one thread per output element
+template <typename T>
 __global__ void __launch_bounds__(N_THREADS)
 paged_merge_kernel(const float* __restrict__ acc_ws,
                    const float* __restrict__ ml_ws,
                    const int* __restrict__ lengths,
-                   float* __restrict__ out,            // (S, KV * G, dh)
+                   T* __restrict__ out,                // (S, KV * G, dh)
                    int P, int ps, int KV, int G, int dh, int window,
                    int chunk_pages, int n_chunks) {
   const int i = blockIdx.x * N_THREADS + threadIdx.x;     // g * dh + d
@@ -303,45 +347,67 @@ paged_merge_kernel(const float* __restrict__ acc_ws,
       c0, c1, [&](int c) { return ml[(size_t)c * G * 2]; },
       [&](int c) { return ml[(size_t)c * G * 2 + 1]; },
       [&](int c) { return acc[(size_t)c * G * dh]; });
-  out[((size_t)s * KV + kv) * G * dh + i] = r.o / fmaxf(r.l, 1e-30f);
+  out[((size_t)s * KV + kv) * G * dh + i] =
+      from_f32(r.o / fmaxf(r.l, 1e-30f), T());
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ws holds S * KV * n_chunks * G * (dh + 2) floats: the partial
 // accumulators (dh per head), then (m, l) per head.
-extern "C" int paged_attention_f32(const void* q, const void* k, const void* v,
-                                   const void* table, const void* lengths,
-                                   void* out, void* ws, int S, int P, int ps,
-                                   int KV, int G, int dh, int window,
-                                   float scale, int chunk_pages, int n_chunks,
-                                   void* stream) {
-  if (dh % 4 || dh > 256 || ps > 64 || chunk_pages < 1
+template <typename T>
+static int launch(const void* q, const void* k, const void* v,
+                  const void* table, const void* lengths, void* out, void* ws,
+                  int S, int P, int ps, int KV, int G, int dh, int window,
+                  float scale, int chunk_pages, int n_chunks, void* stream) {
+  if (dh % (16 / (int)sizeof(T)) || dh > 256 || ps > 64 || chunk_pages < 1
       || (long long)chunk_pages * n_chunks < P || S > 65535 || KV > 65535
       || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(ws))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(chunk_pages, ps, G, dh);
+  const size_t smem = smem_bytes<T>(chunk_pages, ps, G, dh);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   float* acc_ws = (float*)ws;
   float* ml_ws = acc_ws + (size_t)S * KV * n_chunks * G * dh;
   cudaStream_t st = (cudaStream_t)stream;
-  paged_partial_kernel<<<dim3(n_chunks, KV, S), N_THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)table,
+  paged_partial_kernel<T><<<dim3(n_chunks, KV, S), N_THREADS, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)table,
       (const int*)lengths, acc_ws, ml_ws, P, ps, KV, G, dh, window, scale,
       chunk_pages, n_chunks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  paged_merge_kernel<<<dim3((G * dh + N_THREADS - 1) / N_THREADS, KV, S),
-                       N_THREADS, 0, st>>>(
-      acc_ws, ml_ws, (const int*)lengths, (float*)out, P, ps, KV, G, dh,
-      window, chunk_pages, n_chunks);
+  paged_merge_kernel<T><<<dim3((G * dh + N_THREADS - 1) / N_THREADS, KV, S),
+                          N_THREADS, 0, st>>>(
+      acc_ws, ml_ws, (const int*)lengths, (T*)out, P, ps, KV, G, dh, window,
+      chunk_pages, n_chunks);
   return (int)cudaGetLastError();
+}
+
+extern "C" int paged_attention_f32(const void* q, const void* k, const void* v,
+                                   const void* table, const void* lengths,
+                                   void* out, void* ws, int S, int P, int ps,
+                                   int KV, int G, int dh, int window,
+                                   float scale, int chunk_pages, int n_chunks,
+                                   void* stream) {
+  return launch<float>(q, k, v, table, lengths, out, ws, S, P, ps, KV, G, dh,
+                       window, scale, chunk_pages, n_chunks, stream);
+}
+
+// bf16 q, K/V pool and out (ws f32)
+extern "C" int paged_attention_bf16(const void* q, const void* k,
+                                    const void* v, const void* table,
+                                    const void* lengths, void* out, void* ws,
+                                    int S, int P, int ps, int KV, int G,
+                                    int dh, int window, float scale,
+                                    int chunk_pages, int n_chunks,
+                                    void* stream) {
+  return launch<bf16>(q, k, v, table, lengths, out, ws, S, P, ps, KV, G, dh,
+                      window, scale, chunk_pages, n_chunks, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

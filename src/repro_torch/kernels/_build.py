@@ -33,6 +33,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
         "paged_attention_f32": ([_P] * 7 + [_I] * 7 + [ctypes.c_float]
                                 + [_I] * 2 + [_P], _I),
+        "paged_attention_bf16": ([_P] * 7 + [_I] * 7 + [ctypes.c_float]
+                                 + [_I] * 2 + [_P], _I),
         **_ERR,
     },
     "quant4": {
@@ -53,7 +55,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     + [_I] * 3 + [_P, _P], _I),
         "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 6 + [_L] * 9
                                     + [_I] * 5 + [_P, _P], _I),
+        "flash_attention_fwd_bf16": ([_P] * 5 + [_I] * 6 + [_L] * 9
+                                     + [_I] * 4 + [_P, _P], _I),
+        "flash_attention_bwd_bf16": ([_P] * 10 + [_I] * 6 + [_L] * 9
+                                     + [_I] * 6 + [_P, _P], _I),
         "flash_attention_occupancy": ([_I, _I, _P, _P, _P], _I),
+        "flash_attention_occupancy_bf16": ([_I, _I, _P, _P, _P], _I),
         **_ERR,
     },
     "lowrank_mm": {

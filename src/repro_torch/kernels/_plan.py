@@ -8,10 +8,12 @@
 - the page chunks of paged decode attention
   (``csrc/paged_attention.cu``).
 
-Each plan depends on the shape alone, never on a batch or on the
-operands' strides, so every output bit is the same function of the inputs
-in every call: a batched launch gives each matrix the bits of its own
-launch, and a transposed view the bits of its contiguous copy.
+Each plan depends on the shape and the element type alone (``esize``,
+the bytes of an element: 4 for float32, 2 for bfloat16), never on a batch,
+the lengths or the operands' strides, so every output bit is the same
+function of the inputs in every call: a batched launch gives each matrix
+the bits of its own launch, and a transposed view the bits of its
+contiguous copy.
 """
 from __future__ import annotations
 
@@ -103,6 +105,12 @@ def flash_groups(d: int) -> int:
     return 2 if d == 256 else 1
 
 
+def flash_pitch(d: int, esize: int = 4) -> int:
+    """Elements of a tile row in shared memory: d and 16 bytes (the
+    kernels' ``pitch``)."""
+    return d + 16 // esize
+
+
 def _xchg_floats(d: int, rows: int) -> int:
     # the P / dP exchange of a two-group block: 2 groups x 4 warps x the
     # warp's C fragments (rows / 8 n-tiles of 4 floats a lane)
@@ -111,43 +119,48 @@ def _xchg_floats(d: int, rows: int) -> int:
 
 # The three sizes below model csrc/flash_attention.cu's fwd_smem, dkdv_smem
 # and dq_smem; chip_smoke.py phase 3c and tests/test_torch_cuda.py hold
-# them, and flash_blocks_per_sm, to the library's flash_attention_occupancy.
-def flash_fwd_smem(d: int) -> int:
+# them, and flash_blocks_per_sm, to the library's flash_attention_occupancy
+# (and flash_attention_occupancy_bf16). Tiles hold elements of ``esize``
+# bytes at a pitch of d + 16 / esize; lse, D and the exchange are f32.
+def flash_fwd_smem(d: int, esize: int = 4) -> int:
     """Shared memory bytes of a forward block (``launch_fwd``): the
-    resident Q tile and two stages of K and V tiles, at a pitch of d + 4."""
-    return 4 * (FLASH_ROWS + 4 * flash_tile(d)) * (d + 4)
+    resident Q tile and two stages of K and V tiles."""
+    return esize * (FLASH_ROWS + 4 * flash_tile(d)) * flash_pitch(d, esize)
 
 
-def flash_dkdv_smem(d: int) -> int:
+def flash_dkdv_smem(d: int, esize: int = 4) -> int:
     """Shared memory bytes of a dK/dV block (``launch_bwd``): resident K
     and V, two stages of (Q, dO, lse, D) tiles, the TF32 parts of a Q and
-    a dO tile at d <= 64, the P / dP exchange at d = 256."""
-    bq, ld = flash_q_tile(d), d + 4
-    return 4 * (2 * FLASH_ROWS * ld + 2 * (2 * bq * ld + 2 * bq)
-                + (d <= 64) * 4 * bq * ld + _xchg_floats(d, bq))
+    a dO tile at d <= 64 (f32 only), the P / dP exchange at d = 256."""
+    bq, ld = flash_q_tile(d), flash_pitch(d, esize)
+    presplit = d <= 64 and esize == 4
+    return (esize * (2 * FLASH_ROWS * ld + 4 * bq * ld)
+            + 4 * (4 * bq + presplit * 4 * bq * ld + _xchg_floats(d, bq)))
 
 
-def flash_dq_smem(d: int) -> int:
+def flash_dq_smem(d: int, esize: int = 4) -> int:
     """Shared memory bytes of a dQ block (``launch_bwd``): resident Q and
     dO, two stages of K and V tiles, the P / dP exchange at d = 256."""
-    bt, ld = flash_dq_tile(d), d + 4
-    return 4 * (2 * FLASH_ROWS * ld + 4 * bt * ld + _xchg_floats(d, bt))
+    bt, ld = flash_dq_tile(d), flash_pitch(d, esize)
+    return (esize * (2 * FLASH_ROWS * ld + 4 * bt * ld)
+            + 4 * _xchg_floats(d, bt))
 
 
-def flash_blocks_per_sm(smem: int) -> int:
+def flash_blocks_per_sm(smem: int, groups: int = 1) -> int:
     """Blocks of one flash kernel an SM holds at once: as many as its
-    shared memory fits, at most the 2 the kernels' launch bounds promise
-    (more would need fewer registers than they may use)."""
-    return max(1, min(2, SM_SMEM // (smem + BLOCK_SMEM)))
+    shared memory fits, at most what the kernels' launch bounds promise:
+    2 of 4 warps, 1 of 8 (``groups`` = 2; more would need fewer registers
+    than they may use)."""
+    return max(1, min(2 // groups, SM_SMEM // (smem + BLOCK_SMEM)))
 
 
-def flash_warps_per_sm(d: int) -> Tuple[int, int, int]:
+def flash_warps_per_sm(d: int, esize: int = 4) -> Tuple[int, int, int]:
     """Resident warps per SM of the forward, dK/dV and dQ kernels at head
     dim ``d``."""
-    bwd = 4 * flash_groups(d)
-    return (4 * flash_blocks_per_sm(flash_fwd_smem(d)),
-            bwd * flash_blocks_per_sm(flash_dkdv_smem(d)),
-            bwd * flash_blocks_per_sm(flash_dq_smem(d)))
+    wg = flash_groups(d)
+    return (4 * flash_blocks_per_sm(flash_fwd_smem(d, esize)),
+            4 * wg * flash_blocks_per_sm(flash_dkdv_smem(d, esize), wg),
+            4 * wg * flash_blocks_per_sm(flash_dq_smem(d, esize), wg))
 
 
 def _makespan(costs, cap: int) -> float:
@@ -224,8 +237,8 @@ def _causal_k_tiles(Sq: int, Sk: int, tile: int):
 
 
 @functools.lru_cache(maxsize=None)
-def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int,
-                   d: int) -> Tuple[int, int]:
+def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int, d: int,
+                   esize: int = 4) -> Tuple[int, int]:
     """``(split, chunk)`` of the flash forward: each q tile's k tiles (of
     ``flash_tile(d)`` keys) are cut into ranges of ``chunk`` tiles, range
     r holding tiles [r chunk, (r + 1) chunk), and the grid has ``split`` =
@@ -246,7 +259,8 @@ def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int,
     has 4 tiles there, q tile 7 has 32), so ranges of a fixed length, not
     a fixed count per q tile, balance it: a short q tile gets few ranges.
     The card holds SMS x ``flash_blocks_per_sm`` blocks at once: two an SM
-    at d <= 128, one at d = 256 (133,120 B of shared memory).
+    at d <= 128, one at d = 256 in f32 (133,120 B of shared memory), two
+    in bf16 (67,584 B).
     ``_range_plan`` times each chunk on that many slots. At gemma3-1b
     global: chunk 5, 7 ranges, 128 live blocks, the longest 5 tiles
     instead of 32.
@@ -254,15 +268,16 @@ def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int,
     The plan is a function of (B, H, Sq, Sk, d) alone: a shape gets the
     same ranges, and the same bits, with either mask."""
     tile = flash_tile(d)
-    cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d))
+    cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d, esize))
     return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
                        B * H, cap, SMS)
 
 
-def flash_fwd_ws_floats(B: int, H: int, Sq: int, Sk: int, d: int) -> int:
+def flash_fwd_ws_floats(B: int, H: int, Sq: int, Sk: int, d: int,
+                        esize: int = 4) -> int:
     """Floats of the forward's partials: per range, an accumulator of o's
     size and an (m, l) pair per row (0 with one range)."""
-    split, _ = flash_fwd_plan(B, H, Sq, Sk, d)
+    split, _ = flash_fwd_plan(B, H, Sq, Sk, d, esize)
     return 0 if split == 1 else split * B * H * Sq * (d + 2)
 
 
@@ -272,8 +287,8 @@ def flash_dkdv_blocks(B: int, H: int, Sk: int, split: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int,
-                    d: int) -> Tuple[int, int, int]:
+def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int, d: int,
+                    esize: int = 4) -> Tuple[int, int, int]:
     """``(split, chunk, parts)`` of the flash backward's dK/dV kernel. A
     block owns one (b, query head, k tile of FLASH_ROWS keys), all d
     columns, and walks the q tiles (of ``flash_q_tile(d)`` rows) at or
@@ -291,14 +306,15 @@ def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int,
     bq = flash_q_tile(d)
     nq = -(-Sq // bq)
     counts = [nq - min(k0 // bq, nq) for k0 in range(0, Sk, FLASH_ROWS)]
-    cap = SMS * flash_blocks_per_sm(flash_dkdv_smem(d))
+    cap = SMS * flash_blocks_per_sm(flash_dkdv_smem(d, esize),
+                                    flash_groups(d))
     split, chunk = _range_plan(counts, nq, B * H, cap, 2 * cap)
     return split, chunk, (H // KV) * split
 
 
 @functools.lru_cache(maxsize=None)
-def flash_dq_plan(B: int, H: int, Sq: int, Sk: int,
-                  d: int) -> Tuple[int, int]:
+def flash_dq_plan(B: int, H: int, Sq: int, Sk: int, d: int,
+                  esize: int = 4) -> Tuple[int, int]:
     """``(split, chunk)`` of the dQ kernel: a block owns one (b, h, q tile
     of FLASH_ROWS queries) and walks its causal k tiles (of
     ``flash_dq_tile(d)`` keys); where those blocks come to less than two
@@ -307,37 +323,40 @@ def flash_dq_plan(B: int, H: int, Sq: int, Sk: int,
     than one range means as many partial dQ, summed in range order (a
     range with no k tile is skipped)."""
     tile = flash_dq_tile(d)
-    cap = SMS * flash_blocks_per_sm(flash_dq_smem(d))
+    cap = SMS * flash_blocks_per_sm(flash_dq_smem(d, esize), flash_groups(d))
     return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
                        B * H, cap, 2 * cap)
 
 
-def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int,
-                       d: int) -> int:
+def flash_parts_floats(B: int, H: int, KV: int, Sq: int, Sk: int, d: int,
+                       esize: int = 4) -> int:
     """Floats of the backward's partials at this shape: 2 parts of dk's
     size (dk's and dv's) where the dK/dV plan has more than one part, then
-    the dQ plan's ranges of dq's size where it has more than one."""
-    _, _, parts = flash_dkdv_plan(B, H, KV, Sq, Sk, d)
-    dq_split, _ = flash_dq_plan(B, H, Sq, Sk, d)
+    the dQ plan's ranges of dq's size where it has more than one (f32 for
+    either element type)."""
+    _, _, parts = flash_dkdv_plan(B, H, KV, Sq, Sk, d, esize)
+    dq_split, _ = flash_dq_plan(B, H, Sq, Sk, d, esize)
     return ((parts > 1) * 2 * parts * B * Sk * KV * d
             + (dq_split > 1) * dq_split * B * Sq * H * d)
 
 
 PAGED_CHUNK_FLOATS = 4096   # most K floats of one (slot, KV head) chunk: 16 KB
+PAGED_CHUNK_BYTES = 4 * PAGED_CHUNK_FLOATS   # (8,192 bf16)
 PAGED_CHUNK_KEYS = 256      # most keys of a chunk (its scores stay in shared)
 PAGED_THREADS = 128         # threads of a paged-attention block
 
 
 @functools.lru_cache(maxsize=None)
-def paged_plan(P: int, ps: int, dh: int) -> Tuple[int, int]:
+def paged_plan(P: int, ps: int, dh: int, esize: int = 4) -> Tuple[int, int]:
     """``(pages_per_chunk, n_chunks)`` of paged decode attention with a page
-    table of P pages of ``ps`` keys and head dim ``dh``.
+    table of P pages of ``ps`` keys, head dim ``dh`` and a K/V pool of
+    ``esize``-byte elements.
 
     Chunk c holds table columns [c * pages_per_chunk, (c + 1) *
     pages_per_chunk) of every slot; one block reduces one (chunk, KV head,
     slot) to a partial (m, l, acc), and a second kernel merges a slot's
     partials in increasing chunk order. The rule: the most pages whose K
-    rows of one KV head fit in PAGED_CHUNK_FLOATS floats and whose keys
+    rows of one KV head fit in PAGED_CHUNK_BYTES bytes and whose keys
     number at most PAGED_CHUNK_KEYS, at least one page and at most P;
     n_chunks = ceil(P / pages_per_chunk). A block stages its whole chunk
     (K and V) in shared memory, so the rule bounds a block's bytes and
@@ -346,7 +365,8 @@ def paged_plan(P: int, ps: int, dh: int) -> Tuple[int, int]:
     order in every batch. The KV heads only multiply the blocks, and the G
     query heads of a group share each staged row (they enter
     ``paged_smem_bytes``), so neither sizes the chunk."""
-    pages = min(PAGED_CHUNK_FLOATS // (ps * dh), PAGED_CHUNK_KEYS // ps)
+    pages = min(PAGED_CHUNK_BYTES // (ps * dh * esize),
+                PAGED_CHUNK_KEYS // ps)
     pages = max(1, min(P, pages))
     return pages, -(-P // pages)
 
@@ -361,14 +381,28 @@ def paged_key_lanes(C: int, quads: int) -> int:
     return LK
 
 
-def paged_smem_bytes(pages_per_chunk: int, ps: int, G: int, dh: int) -> int:
-    """Shared memory of one paged-attention block
-    (``csrc/paged_attention.cu::smem_floats``): the K rows of a chunk of C =
-    pages_per_chunk * ps keys at a padded pitch (``k_pitch``), its V rows
-    (C, dh), q (G, dh), the P.V partial sums (4 PAGED_THREADS float4), the
-    scores (G, C) and the keys' cache rows (C int32)."""
-    C = pages_per_chunk * ps
+def paged_k_pitch(dh: int, LK: int, esize: int = 4) -> int:
+    """Elements of a staged K row (``csrc/paged_attention.cu::k_pitch``):
+    f32 rows padded by whole float4s so that the 8 lanes of each 16-byte
+    load phase fall on distinct banks; bf16 rows (8-byte loads) by 8
+    elements where a lane's keys are not read whole by neighbouring lanes
+    (LK < dh / 4), which keeps 16-byte rows and leaves 2-way conflicts."""
     quads = dh // 4
-    LK = paged_key_lanes(C, quads)
-    pitch = dh + 4 * ((LK - quads) % 8 if LK < 8 else 0)
-    return 4 * (C * pitch + C * dh + G * dh + 16 * PAGED_THREADS + G * C + C)
+    if esize == 2:
+        return dh + 8 * (LK < quads)
+    return dh + 4 * ((LK - quads) % 8 if LK < 8 else 0)
+
+
+def paged_smem_bytes(pages_per_chunk: int, ps: int, G: int, dh: int,
+                     esize: int = 4) -> int:
+    """Shared memory of one paged-attention block
+    (``csrc/paged_attention.cu::smem_bytes``): the K rows of a chunk of C =
+    pages_per_chunk * ps keys at a padded pitch (``paged_k_pitch``), its V
+    rows (C, dh) and q (G, dh), all of ``esize``-byte elements, then in f32
+    the P.V partial sums (4 PAGED_THREADS float4) and the scores (G, C),
+    and the keys' cache rows (C int32)."""
+    C = pages_per_chunk * ps
+    LK = paged_key_lanes(C, dh // 4)
+    pitch = paged_k_pitch(dh, LK, esize)
+    return (esize * (C * pitch + C * dh + G * dh)
+            + 4 * (16 * PAGED_THREADS + G * C + C))

@@ -21,12 +21,19 @@ raises.
 
 Layouts are the JAX package's: q (B,Sq,H,d), k and v (B,Sk,KV,d), query
 head h reading KV head h // (H // KV); the causal mask is top-left aligned
-(key j is seen by query i iff j <= i). The kernels take float32 with head
-dims 32, 64, 128 and 256, any Sq and Sk (ragged tails are masked), and q,
-k, v through their strides (last dim contiguous); a view whose start or
-strides are not multiples of 16 bytes, which the kernels' 16-byte copies
-cannot read, is copied first (the same bits: the kernels compute the
-same sums for every layout).
+(key j is seen by query i iff j <= i). The kernels take float32 or
+bfloat16 (q, k and v of one type) with head dims 32, 64, 128 and 256, any
+Sq and Sk (ragged tails are masked), and q, k, v through their strides
+(last dim contiguous); a view whose start or strides are not multiples of
+16 bytes, which the kernels' 16-byte copies cannot read, is copied first
+(the same bits: the kernels compute the same sums for every layout).
+
+bfloat16 launches the kernels' bf16 instantiations, which read bf16 from
+device memory and write o, dq, dk and dv in bf16 (lse stays f32): one
+bf16 tensor-core product per product, f32 accumulation, P and dS rounded
+to ``P_PARTS`` bf16 parts where they enter a product (1: bf16(x); 2: hi +
+lo, two products). The plain versions compute in f32 and return the
+inputs' type, as ``repro.kernels.ref`` does.
 """
 from __future__ import annotations
 
@@ -36,6 +43,10 @@ from repro_torch.device import on_device
 from repro_torch.kernels import _plan, ref
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernels' template instantiations
+DTYPES = (torch.float32, torch.bfloat16)
+# bf16 parts of P and dS in the bf16 kernels' products (1 or 2): 1, one
+# product, within the gates of chip_smoke.py phase 3c-bf16 (PERF.md)
+P_PARTS = 1
 
 
 def _check(q, k, v):
@@ -48,10 +59,11 @@ def _check(q, k, v):
     if k.shape[0] != B or dk != d or KV == 0 or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
                          f"batch and head dim must match and KV divide H")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or t.device != q.device \
-                or t.stride(-1) != 1:
-            raise TypeError(f"{name} must be float32 on {q.device} with a "
+        if t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
+            raise TypeError(f"{name} must be {q.dtype} on {q.device} with a "
                             f"contiguous last dim, got {t.dtype} on "
                             f"{t.device}, strides {t.stride()}")
     if d not in HEAD_DIMS:
@@ -66,7 +78,9 @@ def _check(q, k, v):
 def _aligned(t):
     """``t`` itself if the kernels' 16-byte copies can read it, else a
     contiguous copy."""
-    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % per16 == 0
+                                      for s in t.stride()[:3]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -89,21 +103,38 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
-    """(o (B,Sq,H,d), lse (B,H,Sq)) from the forward kernel; where its
-    plan cuts the k tiles into ranges, their partials go to a workspace
-    and a merge kernel writes o and lse."""
+def _p_parts(q, p_parts):
+    """The bf16 entry points' trailing ``p_parts`` argument (none for
+    f32)."""
+    if q.dtype == torch.float32:
+        return ()
+    p_parts = P_PARTS if p_parts is None else p_parts
+    if p_parts not in (1, 2):
+        raise ValueError(f"p_parts must be 1 or 2, got {p_parts}")
+    return (p_parts,)
+
+
+def _suffix(q):
+    return "f32" if q.dtype == torch.float32 else "bf16"
+
+
+def cuda_flash_attention_fwd(q, k, v, causal: bool = True, p_parts=None):
+    """(o (B,Sq,H,d) in q's dtype, lse (B,H,Sq) f32) from the forward
+    kernel; where its plan cuts the k tiles into ranges, their partials go
+    to a workspace and a merge kernel writes o and lse. ``p_parts``
+    (bf16 only, default ``P_PARTS``): P's bf16 parts in P V."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    es = q.element_size()
     f32 = dict(dtype=torch.float32, device=q.device)
-    o = torch.empty((B, Sq, H, d), **f32)
+    o = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), **f32)
-    split, chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d)
-    ws = torch.empty(_plan.flash_fwd_ws_floats(B, H, Sq, Sk, d), **f32)
-    _lib_call("flash_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, KV, Sq, Sk,
-              d, *_strides(q, k, v), int(causal), split, chunk,
-              ws.data_ptr(), _stream(q))
+    split, chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d, es)
+    ws = torch.empty(_plan.flash_fwd_ws_floats(B, H, Sq, Sk, d, es), **f32)
+    _lib_call(f"flash_attention_fwd_{_suffix(q)}", q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
+              KV, Sq, Sk, d, *_strides(q, k, v), int(causal), split, chunk,
+              *_p_parts(q, p_parts), ws.data_ptr(), _stream(q))
     cuda_flash_attention_fwd.launches += 1
     return o, lse
 
@@ -111,33 +142,40 @@ def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
 cuda_flash_attention_fwd.launches = 0
 
 
-def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
-    """(dq, dk, dv) from the backward kernels (D = rowsum(dO * O), then dK
-    and dV, their partials summed where the plan splits, then dQ); ``o``
-    and ``do`` contiguous (B,Sq,H,d) f32, ``lse`` (B,H,Sq) f32, as the
-    forward returns them."""
+def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                             p_parts=None):
+    """(dq, dk, dv) in q's dtype from the backward kernels (D = rowsum(dO *
+    O), then dK and dV, their partials summed where the plan splits, then
+    dQ); ``o`` and ``do`` contiguous (B,Sq,H,d) in q's dtype, ``lse``
+    (B,H,Sq) f32, as the forward returns them. ``p_parts`` (bf16 only):
+    P's and dS's bf16 parts."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
-    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
-                           ("lse", lse, (B, H, Sq))):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+    for name, t, shape, dt in (("o", o, q.shape, q.dtype),
+                               ("do", do, q.shape, q.dtype),
+                               ("lse", lse, (B, H, Sq), torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() \
                 or tuple(t.shape) != tuple(shape) or t.device != q.device:
-            raise TypeError(f"{name} must be a contiguous float32 "
+            raise TypeError(f"{name} must be a contiguous {dt} "
                             f"{tuple(shape)} tensor on {q.device}, got "
                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
+    es = q.element_size()
     f32 = dict(dtype=torch.float32, device=q.device)
+    out = dict(dtype=q.dtype, device=q.device)
     D = torch.empty((B, H, Sq), **f32)
-    dq = torch.empty((B, Sq, H, d), **f32)
-    dk = torch.empty((B, Sk, KV, d), **f32)
-    dv = torch.empty((B, Sk, KV, d), **f32)
-    split, chunk, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d)
-    dq_split, dq_chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d)
-    ws = torch.empty(_plan.flash_parts_floats(B, H, KV, Sq, Sk, d), **f32)
-    _lib_call("flash_attention_bwd_f32", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-              D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-              H, KV, Sq, Sk, d, *_strides(q, k, v), int(causal), split,
-              chunk, dq_split, dq_chunk, ws.data_ptr(), _stream(q))
+    dq = torch.empty((B, Sq, H, d), **out)
+    dk = torch.empty((B, Sk, KV, d), **out)
+    dv = torch.empty((B, Sk, KV, d), **out)
+    split, chunk, _ = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d, es)
+    dq_split, dq_chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d, es)
+    ws = torch.empty(_plan.flash_parts_floats(B, H, KV, Sq, Sk, d, es),
+                     **f32)
+    _lib_call(f"flash_attention_bwd_{_suffix(q)}", q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), B, H, KV, Sq, Sk, d, *_strides(q, k, v),
+              int(causal), split, chunk, dq_split, dq_chunk,
+              *_p_parts(q, p_parts), ws.data_ptr(), _stream(q))
     cuda_flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -145,21 +183,22 @@ def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
 cuda_flash_attention_bwd.launches = 0
 
 
-def cuda_flash_occupancy(d: int):
+def cuda_flash_occupancy(d: int, dtype=torch.float32):
     """{"fwd" | "dkdv" | "dq": (threads, shared memory bytes, blocks an SM
-    holds)} of the kernels at head dim ``d``, as the library launches them
-    and the CUDA runtime reports them (``_plan`` models the same numbers
-    for the plans). Launches nothing."""
+    holds)} of the kernels at head dim ``d`` over ``dtype``, as the
+    library launches them and the CUDA runtime reports them (``_plan``
+    models the same numbers for the plans). Launches nothing."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     lib = _build.load("flash_attention")
+    fn = (lib.flash_attention_occupancy if dtype == torch.float32
+          else lib.flash_attention_occupancy_bf16)
     out = {}
     for kind, name in enumerate(("fwd", "dkdv", "dq")):
         vals = [ctypes.c_int() for _ in range(3)]
-        err = lib.flash_attention_occupancy(d, kind,
-                                            *map(ctypes.byref, vals))
+        err = fn(d, kind, *map(ctypes.byref, vals))
         if err != 0:
             raise RuntimeError(f"flash_attention_occupancy({d}, {name}) "
                                f"failed: {_build.cuda_error_string(lib, err)}")

@@ -78,8 +78,7 @@ from repro_torch.parallel.tensor import ShardGroup, TPDecode, TPLoss
 
 
 def production_dtypes(cfg):
-    return dataclasses.replace(cfg, param_dtype="bfloat16",
-                               compute_dtype="bfloat16")
+    return base.with_dtype(cfg, "bfloat16")
 
 
 def pp_inner_smoke(arch: str, *, n_stages: int = 8, n_micro: int = 8,

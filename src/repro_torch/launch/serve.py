@@ -52,6 +52,11 @@ def _parse_args(argv=None):
                     help="keep the config's width but cut its depth to this "
                          "many layers (0: the config's own)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dtype", default="float32", choices=["float32",
+                                                           "bfloat16"],
+                    help="param_dtype and compute_dtype of the model, and "
+                         "so of the KV cache (bfloat16: the JAX dry-run's "
+                         "production dtypes)")
     ap.add_argument("--devices", type=int, default=1,
                     help="ranks, one card each: --data x --model")
     ap.add_argument("--data", type=int, default=1)
@@ -98,14 +103,14 @@ def _parse_args(argv=None):
 def _model_config(args):
     import dataclasses
 
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import get_config, with_dtype
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    return cfg
+    return with_dtype(cfg, args.dtype)
 
 
 def _check_args(args) -> None:

@@ -142,7 +142,7 @@ def _sharded_cluster_step(cfg: ModelConfig, shards, inner_lr: float,
         b = tokens.shape[0] // n
         loss, grads = loss_fn.value_and_grad(
             p, [tokens[j * b:(j + 1) * b] for j in range(n)])
-        TP.clip_(shards, specs, TP.regroup(p, grads))
+        grads = TP.clip_(shards, specs, TP.regroup(p, grads))
         _, st = adamw.update(
             grads, adamw.AdamWState(
                 step=opt_row.step, m=TP.flat_parts(parts(opt_row.m)),

@@ -70,6 +70,10 @@ def _parse_args(argv=None):
                     help="keep the config's width but cut its depth to this "
                          "many layers (0: the config's own)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dtype", default="float32", choices=["float32",
+                                                           "bfloat16"],
+                    help="param_dtype and compute_dtype of the model "
+                         "(bfloat16: the JAX dry-run's production dtypes)")
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--clusters", type=int, default=2)
     ap.add_argument("--data", type=int, default=2)
@@ -102,7 +106,7 @@ def _parse_args(argv=None):
     ap.add_argument("--pp-micro", type=int, default=4)
     ap.add_argument("--flash", action="store_true",
                     help="plain causal attention through the flash kernels "
-                         "(f32; S a multiple of 128)")
+                         "(f32 or bf16; S a multiple of 128)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--trace", default="",
                     help="write a wall-clock Chrome-trace JSON of the "
@@ -371,14 +375,14 @@ def run(args, device, *, clusters, cluster_group=None, shards=None,
 
 
 def _model_config(args):
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import get_config, with_dtype
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    return cfg
+    return with_dtype(cfg, args.dtype)
 
 
 def run_pp(args, device, *, clusters, data_rank: int = 0, stage=None,

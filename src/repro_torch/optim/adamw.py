@@ -5,6 +5,11 @@ The JAX function returns new trees; here ``update`` writes the new params,
 m and v into the given tensors in place and returns them, because at
 opt-1.3b width every extra copy of the model is 3.2 GB on the card. State
 is param-shaped (m, v) in float32 plus an int32 step.
+
+The casts are JAX's: a bf16 gradient times the f32 clip scale is f32
+(JAX promotes), and the new parameter is ``p - lr * delta`` taken in f32
+and rounded once to ``p.dtype``. In float32 both are the in-place forms,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -28,13 +33,24 @@ def init(params) -> AdamWState:
                       m=z, v=T.tree_map(torch.clone, z))
 
 
+def sub_rounded_once_(p, step):
+    """``p <- (p - step)`` with ``step`` f32: the difference taken in f32
+    and rounded once to ``p.dtype`` (JAX's ``(p.astype(f32) -
+    step).astype(p.dtype)``); ``step`` is overwritten. In f32, ``p.sub_``."""
+    if p.dtype == torch.float32:
+        p.sub_(step)
+    else:
+        p.copy_(torch.sub(p.float(), step, out=step))
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
            eps=1e-8, weight_decay=0.1, grad_clip=1.0):
     """One AdamW step with global-norm clipping and bias correction, in
-    place on ``params``, ``state.m``, ``state.v`` (and ``grads``, which are
-    scaled by the clip). Returns ``(params, state)`` with the step
-    advanced. ``lr`` may be a scalar or a callable of the step."""
+    place on ``params``, ``state.m``, ``state.v`` (and float32 ``grads``,
+    which are scaled by the clip; other grads are clipped into f32
+    copies). Returns ``(params, state)`` with the step advanced. ``lr``
+    may be a scalar or a callable of the step."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
     flat_g = T.leaves(grads)
@@ -45,8 +61,8 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
             sq = s if sq is None else sq + s
         gnorm = torch.sqrt(sq + 1e-16)
         scale = torch.clamp(grad_clip / gnorm, max=1.0)
-        for g in flat_g:
-            g.mul_(scale)
+        flat_g = [g.mul_(scale) if g.dtype == torch.float32
+                  else g.float() * scale for g in flat_g]
     stepf = step.float()
     b1t = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                        device=stepf.device), stepf)
@@ -59,5 +75,5 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         delta = (m / b1t) / (torch.sqrt(v / b2t) + eps)
         delta.add_(weight_decay * p.float())
-        p.sub_((lr_t * delta).to(p.dtype))
+        sub_rounded_once_(p, delta.mul_(lr_t))
     return params, AdamWState(step=step, m=state.m, v=state.v)

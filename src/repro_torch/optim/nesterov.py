@@ -2,7 +2,9 @@
 ``repro.optim.nesterov``; DiLoCo / DiLoCoX §2.2).
 
 ``update`` writes the new params and momentum in place (the JAX function
-returns new trees) and returns them.
+returns new trees) and returns them. A bf16 parameter's step is taken in
+f32 and rounded once, as JAX's ``(p.astype(f32) - lr *
+step_dir).astype(p.dtype)``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.optim.adamw import sub_rounded_once_
 
 
 class NesterovState(NamedTuple):
@@ -32,7 +35,7 @@ def update_leaf(g, v, p, *, lr=0.7, momentum=0.9):
     g = g.float()
     v.mul_(momentum).add_(g)
     step_dir = momentum * v + g
-    p.sub_((lr * step_dir).to(p.dtype))
+    sub_rounded_once_(p, step_dir.mul_(lr))
 
 
 @torch.no_grad()

@@ -129,10 +129,12 @@ def apply_delta(anchor, delta, error=None):
 # the inner step / inner loop
 # ---------------------------------------------------------------------------
 
-def _clip(grads, transport, grad_clip: float = 1.0) -> None:
-    """AdamW's global-norm clip over the whole cluster tree, in place:
-    the replicated leaves' squares (every stage holds them) plus each
-    stage's part, summed in stage order on every rank."""
+def _clip(grads, transport, grad_clip: float = 1.0):
+    """AdamW's global-norm clip over the whole cluster tree: the
+    replicated leaves' squares (every stage holds them) plus each stage's
+    part, summed in stage order on every rank. Returns the clipped tree:
+    f32 leaves scaled in place, others (bf16) as f32 copies, as JAX's ``g *
+    scale`` promotes them."""
     rep, stage = [], []
     for k, g in T.keystr_items(grads):
         if k.startswith("['stages']"):
@@ -152,8 +154,8 @@ def _clip(grads, transport, grad_clip: float = 1.0) -> None:
             [sq([g[i] for g in stage]) for i in range(len(transport.stages))]):
         total = total + part
     scale = torch.clamp(grad_clip / torch.sqrt(total + 1e-16), max=1.0)
-    for g in T.leaves(grads):
-        g.mul_(scale)
+    return T.tree_map(lambda g: g.mul_(scale) if g.dtype == torch.float32
+                      else g.float() * scale, grads)
 
 
 def _trainable(tree):
@@ -184,7 +186,7 @@ def make_pp_train_step(cfg: ModelConfig, pcfg: PP.PipelineConfig, *,
                 g.div_(n_data)
             loss = comm.all_reduce(loss.clone(), data_group, "data")
             loss = loss / n_data
-        _clip(grads, tr)
+        grads = _clip(grads, tr)
         _, st = adamw.update(_trainable(grads), adamw.AdamWState(
             step=opt.step, m=_trainable(opt.m), v=_trainable(opt.v)),
             _trainable(params), lr=inner_lr, grad_clip=0)

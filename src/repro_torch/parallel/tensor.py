@@ -87,11 +87,18 @@ def check_tp(cfg: ModelConfig, n_model: int) -> None:
 
 
 def ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``parts[0] + parts[1] + ...``, left to right."""
-    acc = parts[0]
+    """``parts[0] + parts[1] + ...``, left to right; parts narrower than
+    f32 (bf16 partial products, their gradients) are summed in f32 and
+    rounded once, as the unsharded product accumulates in f32."""
+    if parts[0].dtype in (torch.float32, torch.float64) or len(parts) == 1:
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+    acc = parts[0].float()
     for p in parts[1:]:
-        acc = acc + p
-    return acc
+        acc = acc + p.float()
+    return acc.to(parts[0].dtype)
 
 
 def _max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -663,10 +670,12 @@ def block_index(shards: ShardGroup, spec, j: int, m: int):
 
 def clip_(shards: ShardGroup, specs: Dict[str, Tuple],
           grads: Dict[str, List[List[torch.Tensor]]],
-          grad_clip: float = 1.0) -> None:
-    """AdamW's global-norm clip over the cluster's whole gradient, in
-    place: each shard's squares of the blocks it canonically holds, in
-    leaf order, then those partials summed in shard order."""
+          grad_clip: float = 1.0) -> List[torch.Tensor]:
+    """AdamW's global-norm clip over the cluster's whole gradient: each
+    shard's squares of the blocks it canonically holds, in leaf order,
+    then those partials summed in shard order. Returns the clipped blocks
+    in ``flat_parts`` order: f32 ones scaled in place, others (bf16) as f32
+    copies, as JAX's ``g * scale`` promotes them."""
     dev = next(iter(grads.values()))[0][0].device
     partials = []
     for j, m in shards.shards:
@@ -681,8 +690,8 @@ def clip_(shards: ShardGroup, specs: Dict[str, Tuple],
         partials.append(total)
     sq = shards.sum_scalars(partials)
     scale = torch.clamp(grad_clip / torch.sqrt(sq + 1e-16), max=1.0)
-    for g in flat_parts(grads):
-        g.mul_(scale)
+    return [g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
+            for g in flat_parts(grads)]
 
 
 def regroup(parts, flat: List[torch.Tensor]):

@@ -20,6 +20,9 @@ the scheduler discards their output.
 
 ``paged_attention`` runs the plain version for CPU tensors and the CUDA
 kernel for CUDA tensors; there is no switch between them and no fallback.
+The kernel takes float32 or bfloat16 (q and the pool of one type): bf16
+reads bf16 and computes in f32 as the plain version does, and writes
+bf16.
 """
 from __future__ import annotations
 
@@ -86,9 +89,11 @@ def ref_paged_attention(q, cache, page_tables, lengths, *, window: int = 0):
 # CUDA kernel (csrc/paged_attention.cu)
 # ---------------------------------------------------------------------------
 
-def smem_bytes(P: int, ps: int, G: int, dh: int) -> int:
-    """Shared memory of one block of the partial kernel at this shape."""
-    return _plan.paged_smem_bytes(_plan.paged_plan(P, ps, dh)[0], ps, G, dh)
+def smem_bytes(P: int, ps: int, G: int, dh: int, esize: int = 4) -> int:
+    """Shared memory of one block of the partial kernel at this shape and
+    element size."""
+    return _plan.paged_smem_bytes(_plan.paged_plan(P, ps, dh, esize)[0], ps,
+                                  G, dh, esize)
 
 
 def _check_envelope(q, cache, page_tables, lengths, window):
@@ -98,9 +103,11 @@ def _check_envelope(q, cache, page_tables, lengths, window):
         raise ValueError(f"paged_attention decodes one token per slot, "
                          f"got q {tuple(q.shape)}")
     ps, KV = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
@@ -122,17 +129,18 @@ def _check_envelope(q, cache, page_tables, lengths, window):
                          f"{tuple(lengths.shape)} do not match S={S}")
     if H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if dh > MAX_HEAD_DIM or dh % 4 or ps > MAX_PAGE_SIZE:
-        raise ValueError(f"dh={dh} (a multiple of 4, max {MAX_HEAD_DIM}) or "
-                         f"page size {ps} (max {MAX_PAGE_SIZE}) outside the "
-                         f"kernel envelope")
+    per16 = 16 // q.element_size()        # dh in whole 16-byte copies
+    if dh > MAX_HEAD_DIM or dh % per16 or ps > MAX_PAGE_SIZE:
+        raise ValueError(f"dh={dh} (a multiple of {per16}, max "
+                         f"{MAX_HEAD_DIM}) or page size {ps} (max "
+                         f"{MAX_PAGE_SIZE}) outside the kernel envelope")
     if not 0 < S <= MAX_GRID_DIM or KV > MAX_GRID_DIM:
         raise ValueError(f"S={S}, KV={KV} outside the kernel's grid")
     P = page_tables.shape[1]
-    if smem_bytes(P, ps, H // KV, dh) > MAX_SMEM_BYTES:
-        raise ValueError(f"G={H // KV}, ps={ps}, dh={dh} need "
-                         f"{smem_bytes(P, ps, H // KV, dh)} B of shared "
-                         f"memory")
+    need = smem_bytes(P, ps, H // KV, dh, q.element_size())
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"G={H // KV}, ps={ps}, dh={dh} need {need} B of "
+                         f"shared memory")
     if window < 0:
         raise ValueError(f"window={window}")
 
@@ -155,12 +163,14 @@ def cuda_paged_attention(q, cache, page_tables, lengths, *, window: int = 0):
     P = page_tables.shape[1]
     ps, KV = cache["k"].shape[1], cache["k"].shape[2]
     G = H // KV
-    pages, n_chunks = _plan.paged_plan(P, ps, dh)
+    pages, n_chunks = _plan.paged_plan(P, ps, dh, q.element_size())
     lib = _build.load("paged_attention")
     out = torch.empty_like(q)
     ws = torch.empty(S * KV * n_chunks * G * (dh + 2), dtype=torch.float32,
                      device=q.device)
-    err = lib.paged_attention_f32(
+    launch = (lib.paged_attention_f32 if q.dtype == torch.float32
+              else lib.paged_attention_bf16)
+    err = launch(
         q.data_ptr(), cache["k"].data_ptr(), cache["v"].data_ptr(),
         page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         ws.data_ptr(), S, P, ps, KV, G, dh, int(window),

@@ -608,13 +608,14 @@ def test_cuda_flash_occupancy_is_the_plans_model(d):
 
 @pytest.mark.cuda
 def test_cuda_flash_refuses_what_it_refused_before():
-    """dtypes other than float32, a strided last dim, KV not dividing H,
-    a head dim outside (32, 64, 128, 256), B H over 65535, empty
-    sequences, and o / do / lse not as the forward returns them."""
+    """dtypes other than float32 and bfloat16 (float16 here; bfloat16 has
+    its own kernels), a strided last dim, KV not dividing H, a head dim
+    outside (32, 64, 128, 256), B H over 65535, empty sequences, and o /
+    do / lse not as the forward returns them."""
     _need_cuda()
     q, k, v, do = _flash_inputs(1, 64, 4, 2, 64, 64)
     with pytest.raises(TypeError):
-        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
         fa.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
     with pytest.raises(ValueError):
@@ -633,6 +634,93 @@ def test_cuda_flash_refuses_what_it_refused_before():
                                     True)
     with pytest.raises(TypeError):
         fa.cuda_flash_attention_bwd(q, k, v, o, lse[:, :, :32], do, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_parts", [1, 2])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal", [
+    (2, 128, 128, 4, 2, 32, True), (1, 200, 200, 4, 1, 64, True),
+    (1, 384, 384, 8, 2, 128, True), (1, 256, 256, 4, 1, 256, True),
+    (2, 128, 128, 4, 4, 64, False), (1, 160, 96, 4, 2, 32, True)])
+def test_cuda_flash_bf16_matches_plain(B, Sq, Sk, H, KV, d, causal, p_parts):
+    """The bf16 kernels (bf16 in and out, f32 lse) against the plain
+    versions on the same bf16 inputs: rtol/atol 2e-2, the JAX bf16 gate
+    (P and dS enter their products as p_parts bf16 parts); two calls bit
+    for bit; one launch of each wrapper."""
+    _need_cuda()
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(B, Sq, H, KV, d, Sk))
+    before = (fa.cuda_flash_attention_fwd.launches,
+              fa.cuda_flash_attention_bwd.launches)
+    o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal, p_parts)
+    o2, _ = fa.cuda_flash_attention_fwd(q, k, v, causal, p_parts)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
+    grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal,
+                                        p_parts)
+    grads_p = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.cuda_flash_attention_fwd.launches,
+            fa.cuda_flash_attention_bwd.launches) == (before[0] + 2,
+                                                      before[1] + 1)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(o, o2)
+    for got, want in zip((o,) + tuple(grads), (o_p,) + tuple(grads_p)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=2e-2,
+                                   atol=2e-2)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_cuda_flash_bf16_occupancy_is_the_plans_model(d):
+    """The bf16 instantiations' threads, shared memory (half the f32
+    tiles') and blocks an SM are those ``_plan`` models at esize 2."""
+    _need_cuda()
+    from repro_torch.kernels import _plan
+
+    model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
+             "dq": _plan.flash_dq_smem}
+    for kind, (threads, smem, blocks) in fa.cuda_flash_occupancy(
+            d, torch.bfloat16).items():
+        groups = 1 if kind == "fwd" else _plan.flash_groups(d)
+        assert (threads, smem, min(blocks, 2 // groups)) == (
+            128 * groups, model[kind](d, 2),
+            _plan.flash_blocks_per_sm(model[kind](d, 2), groups)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("S,P,ps,KV,G,dh", [(3, 4, 4, 2, 2, 8),
+                                            (2, 3, 8, 1, 4, 16),
+                                            (4, 12, 16, 32, 1, 64),
+                                            (3, 8, 16, 1, 4, 256),
+                                            (3, 12, 16, 8, 4, 160)])
+def test_cuda_paged_attention_bf16_matches_plain(window, S, P, ps, KV, G,
+                                                 dh):
+    """The bf16 kernel (bf16 q and pool, f32 inside, bf16 out) against the
+    plain version on the same bf16 inputs: rtol/atol 2e-2; two calls and
+    slot 0 alone bit for bit its row."""
+    _need_cuda()
+    q, cache, table, lengths = to_torch(*paged_fixture(
+        0, S=S, P=P, ps=ps, KV=KV, G=G, dh=dh), device="cuda")
+    q = q.bfloat16()
+    cache = {n: c.bfloat16() for n, c in cache.items()}
+    before = ap.cuda_paged_attention.launches
+    got = ap.paged_attention(q, cache, table, lengths, window=window)
+    again = ap.paged_attention(q, cache, table, lengths, window=window)
+    alone = ap.paged_attention(q[:1].contiguous(), cache,
+                               table[:1].contiguous(),
+                               lengths[:1].contiguous(), window=window)
+    want = ap.ref_paged_attention(q, cache, table, lengths, window=window)
+    torch.cuda.synchronize()
+    assert ap.cuda_paged_attention.launches == before + 3
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, again) and torch.equal(alone[0], got[0])
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
 
 
 # ---------------------------------------------------------------------------

@@ -60,9 +60,10 @@ def _live_blocks(B, H, Sq, Sk, d, chunk):
 
 def test_fwd_plan_reads_the_shape_alone():
     """No batch contents, strides, lengths or mask: the same ranges, and
-    so the same sum order, for every call of a shape."""
+    so the same sum order, for every call of a shape (and element size:
+    bf16 tiles take half the shared memory, so more blocks an SM)."""
     assert list(inspect.signature(_plan.flash_fwd_plan).parameters) == [
-        "B", "H", "Sq", "Sk", "d"]
+        "B", "H", "Sq", "Sk", "d", "esize"]
 
 
 def test_fwd_plan_splits_gemma3_global_over_more_blocks():

@@ -52,9 +52,10 @@ def test_paged_plan_at_the_full_size_shapes(name, want):
 
 def test_paged_plan_reads_the_shape_alone():
     """No S, no lengths, no window: a slot's chunks, and so the order of
-    its sums, are the same in every batch."""
+    its sums, are the same in every batch (the element size is part of
+    the shape: a bf16 pool's chunks hold twice the keys)."""
     assert list(inspect.signature(_plan.paged_plan).parameters) == [
-        "P", "ps", "dh"]
+        "P", "ps", "dh", "esize"]
 
 
 @pytest.mark.parametrize("ps", [1, 2, 16, 64])
