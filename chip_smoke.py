@@ -55,10 +55,9 @@ continues:
         tensor-core rate beside the f32 SIMT one (``flash_bound``); at the
         training shape, granite-3-8b, gemma3-1b global and qwen1.5-107b,
         each kernel's time (``kernel_profile``); then (3c-bf16) the bf16
-        instantiations at the same cases and the occupancy of each, for
-        P's and dS's bf16 parts p_parts 1 and 2: within the JAX bf16 gate
-        2e-2 (forward) and an f32-accumulation bound plus an ulp of each
-        output, two calls bit for bit; times at the default p_parts
+        instantiations at the same cases and the occupancy of each:
+        within the JAX bf16 gate 2e-2 (forward) and an f32-accumulation
+        bound plus an ulp of each output, two calls bit for bit; times
         beside the bound at the bf16 tensor rate, the plain versions and
         SDPA on bf16 (``flash_kernels_bf16``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
@@ -1011,9 +1010,8 @@ def flash_tolerances(q, k, v, o, lse, do, causal, u=0.0):
     through exp. Sixteen times what a correct kernel can be expected to
     be off; a dropped k tile or a wrong mask lane misses by ~P |v|.
     ``u``: a relative error of P and dS as they enter their products (the
-    bf16 kernels' rounding of them to bf16 parts, ``flash_kernels_bf16``),
-    added twice to each factor; the inputs are then the bf16 ones in
-    f32."""
+    bf16 kernels' rounding of them to bf16, ``flash_kernels_bf16``), added
+    twice to each factor; the inputs are then the bf16 ones in f32."""
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -1297,13 +1295,13 @@ def _gate_bf16(name, got, want, tol):
 def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
     """Phase 3c-bf16: the bf16 forward and backward against their plain
     versions (f32 inside, bf16 out) on the same bf16 inputs at phase 3c's
-    cases, for P's and dS's bf16 parts p_parts = 1 and 2: each within an
-    f32-accumulation bound (``flash_tolerances`` with u = 2^-8 or 2^-16,
-    the parts' relative rounding, plus an ulp of each output), the
-    forward also within the JAX bf16 gate, two calls bit for bit; then,
-    for ``fa.P_PARTS``, ms beside the bound at the bf16 tensor rate, the
-    plain version's and SDPA's on bf16, forward and backward. Returns the
-    kernels' rows at the training shape with the worst errors."""
+    cases: each output within an f32-accumulation bound
+    (``flash_tolerances`` with u = 2^-8, P's and dS's rounding to bf16 as
+    they enter their products, plus an ulp of the output), the forward
+    also within the JAX bf16 gate, two calls bit for bit; ms beside the
+    bound at the bf16 tensor rate, the plain versions' and SDPA's on bf16,
+    forward and backward. Returns the kernels' rows at the training shape
+    with the worst errors."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as fa
 
@@ -1314,8 +1312,7 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     bf = torch.bfloat16
-    worst = {(pp, kind): (0.0, 0.0, "") for pp in (1, 2)
-             for kind in ("fwd", "bwd")}
+    worst = {kind: (0.0, 0.0, "") for kind in ("fwd", "bwd")}
     rows, per_case = {}, {}
     for name, B, Sq, Sk, H, KV, d, causal in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf)
@@ -1323,52 +1320,36 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
                                      (B, Sk, KV, d), (B, Sq, H, d)))
         o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
         grads_p = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
-        line = []
-        for pp in (1, 2):
-            o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal, pp)
-            o2, lse2 = fa.cuda_flash_attention_fwd(q, k, v, causal, pp)
-            grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do,
-                                                causal, pp)
-            again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do,
-                                                causal, pp)
-            torch.cuda.synchronize()
-            if not (torch.equal(o, o2) and torch.equal(lse, lse2)) or not all(
-                    torch.equal(g, g2) for g, g2 in zip(grads, again)):
-                _fail(f"flash bf16 {name} p_parts {pp}: two calls differ")
-            gap = (o.float() - o_p.float()).abs()
-            if bool((gap > FLASH_GATE_BF16
-                     + FLASH_GATE_BF16 * o_p.float().abs()).any()):
-                _fail(f"flash bf16 fwd {name} p_parts {pp}: outside the JAX "
-                      f"gate {FLASH_GATE_BF16} (max abs err "
-                      f"{float(gap.max()):.3e})")
-            tol_o, tol_g, a = flash_tolerances(
-                q.float(), k.float(), v.float(), o_p.float(), lse_p,
-                do.float(), causal, u=2.0 ** (-8 * pp))
-            e_o, r_o = _gate_bf16(f"flash bf16 fwd {name} p_parts {pp} o",
-                                  o, o_p, tol_o)
-            err_lse = float((lse - lse_p).abs().max())
-            if err_lse > 16 * torch.finfo(torch.float32).eps * (
-                    float(lse_p.abs().max()) + math.sqrt(d) * (1 + a)):
-                _fail(f"flash bf16 fwd {name}: lse off by {err_lse:.3e}")
-            errs, ratios = [], []
-            for g_name, g, w, t in zip(("dq", "dk", "dv"), grads, grads_p,
-                                       tol_g):
-                e, r = _gate_bf16(f"flash bf16 bwd {name} p_parts {pp} "
-                                  f"{g_name}", g, w, t)
-                errs.append(e)
-                ratios.append(r)
-            del tol_o, tol_g, again, o2, lse2
-            worst[pp, "fwd"] = max(worst[pp, "fwd"], (r_o, e_o, name))
-            worst[pp, "bwd"] = max(worst[pp, "bwd"],
-                                   (max(ratios), max(errs), name))
-            line.append(f"p_parts {pp}: o {e_o:.3e} ({r_o:.4f}x bound) lse "
-                        f"{err_lse:.3e} dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
-                        f"{errs[2]:.3e} ({ratios[0]:.4f}/{ratios[1]:.4f}/"
-                        f"{ratios[2]:.4f}x)")
-            if pp == fa.P_PARTS:
-                err_f, err_b = e_o, max(errs)
-            del o, lse, grads
-        pp = fa.P_PARTS
+        o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal)
+        o2, lse2 = fa.cuda_flash_attention_fwd(q, k, v, causal)
+        grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+        again = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)) or not all(
+                torch.equal(g, g2) for g, g2 in zip(grads, again)):
+            _fail(f"flash bf16 {name}: two calls differ")
+        gap = (o.float() - o_p.float()).abs()
+        if bool((gap > FLASH_GATE_BF16
+                 + FLASH_GATE_BF16 * o_p.float().abs()).any()):
+            _fail(f"flash bf16 fwd {name}: outside the JAX gate "
+                  f"{FLASH_GATE_BF16} (max abs err {float(gap.max()):.3e})")
+        tol_o, tol_g, a = flash_tolerances(
+            q.float(), k.float(), v.float(), o_p.float(), lse_p, do.float(),
+            causal, u=2.0 ** -8)
+        err_f, r_o = _gate_bf16(f"flash bf16 fwd {name} o", o, o_p, tol_o)
+        err_lse = float((lse - lse_p).abs().max())
+        if err_lse > 16 * torch.finfo(torch.float32).eps * (
+                float(lse_p.abs().max()) + math.sqrt(d) * (1 + a)):
+            _fail(f"flash bf16 fwd {name}: lse off by {err_lse:.3e}")
+        errs, ratios = [], []
+        for g_name, g, w, t in zip(("dq", "dk", "dv"), grads, grads_p, tol_g):
+            e, r = _gate_bf16(f"flash bf16 bwd {name} {g_name}", g, w, t)
+            errs.append(e)
+            ratios.append(r)
+        err_b = max(errs)
+        del tol_o, tol_g, again, o2, lse2, o, lse, grads
+        worst["fwd"] = max(worst["fwd"], (r_o, err_f, name))
+        worst["bwd"] = max(worst["bwd"], (max(ratios), err_b, name))
         ms_f = time_ms(lambda: fa.cuda_flash_attention_fwd(q, k, v, causal),
                        flush=flush)
         plain_f = time_ms(lambda: ref.flash_attention_fwd_ref(q, k, v, causal),
@@ -1386,8 +1367,10 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
         bound_f, by_f = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, False)
         bound_b, by_b = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, True)
         print(f"{name} bf16 (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} "
-              f"causal {causal}): max abs err " + "; ".join(line)
-              + f"; two calls bitwise; p_parts {pp} ms kernel/plain/sdpa/"
+              f"causal {causal}): max abs err o {err_f:.3e} ({r_o:.4f}x "
+              f"bound) lse {err_lse:.3e} dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+              f"{errs[2]:.3e} ({ratios[0]:.4f}/{ratios[1]:.4f}/"
+              f"{ratios[2]:.4f}x); two calls bitwise; ms kernel/plain/sdpa/"
               f"bound: fwd {ms_f:.4f}/{plain_f:.4f}/{lib_f:.4f}/"
               f"{bound_f:.4f} ({by_f}), bwd {ms_b:.4f}/{plain_b:.4f}/"
               f"{lib_b:.4f}/{bound_b:.4f} ({by_b})", flush=True)
@@ -1414,8 +1397,7 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
                      lib_b)):
                 rows[key] = dict(name=key, route="cuda", source=src,
                                  replaces=tpu, ms=ms, plain_ms=plain,
-                                 bound_ms=bound, bound_by=by, library_ms=lib,
-                                 p_parts=pp)
+                                 bound_ms=bound, bound_by=by, library_ms=lib)
         del q, k, v, do, o_p, lse_p, grads_p, ql, kl, vl, o_l
         torch.cuda.empty_cache()
     for kind, key in (("fwd", "flash_attention_bf16"),
@@ -1423,12 +1405,9 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
         rows[key]["max_abs_err"] = max(c[kind]["max_abs_err"]
                                        for c in per_case.values())
         rows[key]["cases"] = {name: c[kind] for name, c in per_case.items()}
-        rows[key]["worst_of_bound"] = {
-            f"p_parts {pp}": dict(zip(("ratio", "max_abs_err", "case"),
-                                      worst[pp, kind])) for pp in (1, 2)}
-    for (pp, kind), (r, e, at) in sorted(worst.items()):
-        print(f"flash bf16 {kind} p_parts {pp}: worst error {r:.4f} of its "
-              f"bound at {at} (max abs err {e:.3e})", flush=True)
+        r, e, at = worst[kind]
+        print(f"flash bf16 {kind}: worst error {r:.4f} of its bound at {at} "
+              f"(max abs err {e:.3e})", flush=True)
     return rows
 
 

@@ -4,8 +4,8 @@
 // A bf16 x bf16 product is exact in f32, so a product over bf16 inputs
 // loses nothing but the f32 sum's rounding. Operands that are f32 (the
 // softmax P and dS of flash attention, held as C fragments) are rounded to
-// bf16 where they become A fragments: one part (hi = bf16(x), about 8
-// bits), or two (hi and lo = bf16(x - hi), about 16 bits, two products).
+// bf16, to nearest even, where they become A fragments (a relative error
+// of at most 2^-8).
 //
 // Fragments of m16n8k16 (g = lane / 4, t = lane % 4; (row, column); each
 // 32-bit register holds two bf16, the lower column in the low half):
@@ -31,14 +31,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the bf16 parts of two floats: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
-}
-
 // c += a b, one bf16 tensor-core product with f32 accumulation
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -48,23 +40,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The A fragment(s) of a 16-column slice of C fragments (see above):
-// PP = 1, hi only; PP = 2, hi and lo
-template <int PP>
+// The A fragment of a 16-column slice of C fragments, c0 the columns
+// 0-7 and c1 8-15 (see above), rounded to bf16
 __device__ __forceinline__ void c_as_a(const float (&c0)[4],
-                                       const float (&c1)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  if constexpr (PP == 1) {
-    hi[0] = pack_bf16(c0[0], c0[1]);
-    hi[1] = pack_bf16(c0[2], c0[3]);
-    hi[2] = pack_bf16(c1[0], c1[1]);
-    hi[3] = pack_bf16(c1[2], c1[3]);
-  } else {
-    split_bf16(c0[0], c0[1], hi[0], lo[0]);
-    split_bf16(c0[2], c0[3], hi[1], lo[1]);
-    split_bf16(c1[0], c1[1], hi[2], lo[2]);
-    split_bf16(c1[2], c1[3], hi[3], lo[3]);
-  }
+                                       const float (&c1)[4], uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // Four 8 x 8 bf16 matrices from shared memory: lane l passes the address

@@ -110,8 +110,9 @@
 // product is one bf16 mma.sync.m16n8k16 into f32 (bf16_mma.cuh). Q K^T,
 // dO V^T and their transposes multiply bf16 by bf16, exact per term as
 // JAX's f32 dot of the upcast inputs (repro/kernels/flash_attention.py:
-// 38-41); P and dS are f32 and become A fragments rounded to bf16 (p_parts
-// 1) or split into bf16 hi + lo (p_parts 2, two products). The B operands
+// 38-41); P and dS are f32 and become A fragments rounded to bf16 (one
+// product; a hi + lo split, two products, was as right within chip_smoke's
+// gates and slower). The B operands
 // of P V, dS K, P^T dO and dS^T Q are read by ldmatrix.trans. No TF32
 // split, so no presplit tiles. Bound: 4 d (10 d) flops a pair at the
 // card's bf16 tensor rate, 989 TFLOP/s.
@@ -485,11 +486,11 @@ __device__ __forceinline__ void dot_pair(const bf16* __restrict__ A1,
 }
 
 // acc[16 x 8 j] += P[16, 8 KT] M[8 KT, cols c0 + 8 j ..] for j < CT (KT,
-// CT even), P held as C fragments p[KT] and rounded to PP bf16 parts per
-// k step of 16 (c_as_a), M a bf16 tile read by ldmatrix.trans: lane l
-// addresses row (l & 7) + 8 ((l >> 3) & 1), column 8 (l >> 4) of a 16 x 16
-// block, whose four matrices are b0, b1 of n-tile j and of n-tile j + 1
-template <int D, int KT, int CT, int PP>
+// CT even), P held as C fragments p[KT] and rounded to bf16 per k step of
+// 16 (c_as_a), M a bf16 tile read by ldmatrix.trans: lane l addresses row
+// (l & 7) + 8 ((l >> 3) & 1), column 8 (l >> 4) of a 16 x 16 block, whose
+// four matrices are b0, b1 of n-tile j and of n-tile j + 1
+template <int D, int KT, int CT>
 __device__ __forceinline__ void mul_rows_bf16(const float (&p)[KT][4],
                                               const bf16* __restrict__ M,
                                               int c0, int lane,
@@ -499,29 +500,25 @@ __device__ __forceinline__ void mul_rows_bf16(const float (&p)[KT][4],
                   + 8 * (lane >> 4);
 #pragma unroll
   for (int k = 0; k < KT; k += 2) {
-    uint32_t hi[4], lo[4];
-    c_as_a<PP>(p[k], p[k + 1], hi, lo);
+    uint32_t a[4];
+    c_as_a(p[k], p[k + 1], a);
 #pragma unroll
     for (int j = 0; j < CT; j += 2) {
       uint32_t b[4];
       ldsm_x4_t(b, m + 8 * k * LD + 8 * j);
-      if constexpr (PP == 2) {          // the small terms first
-        mma_bf16(acc[j], lo, b[0], b[1]);
-        mma_bf16(acc[j + 1], lo, b[2], b[3]);
-      }
-      mma_bf16(acc[j], hi, b[0], b[1]);
-      mma_bf16(acc[j + 1], hi, b[2], b[3]);
+      mma_bf16(acc[j], a, b[0], b[1]);
+      mma_bf16(acc[j + 1], a, b[2], b[3]);
     }
   }
 }
 
 // mul_rows on the tile's own type: f32 (or its TF32 parts) by 3xTF32,
 // bf16 by mul_rows_bf16
-template <int D, int KT, int CT, int PP, typename BT>
+template <int D, int KT, int CT, typename BT>
 __device__ __forceinline__ void mul_acc(const float (&p)[KT][4], BT M, int c0,
                                         int lane, float (&acc)[CT][4]) {
   if constexpr (std::is_convertible<BT, const bf16*>::value)
-    mul_rows_bf16<D, KT, CT, PP>(p, M, c0, lane, acc);
+    mul_rows_bf16<D, KT, CT>(p, M, c0, lane, acc);
   else
     mul_rows<D, KT, CT>(p, M, c0, lane, acc);
 }
@@ -580,8 +577,8 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
 // causal ones. One range (gridDim.z == 1): o and lse. Else the range's
 // partial: its unnormalised O in ws[z] (o's layout, B Sq H D floats each),
 // then (m, l) per (z, b, h, row) after the gridDim.z accumulators.
-// T = float or bf16 (q, k, v, o); PP, bf16 only: P's parts in P V.
-template <int D, typename T, int PP>
+// T = float or bf16 (q, k, v, o).
+template <int D, typename T>
 __global__ void __launch_bounds__(N_THREADS, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -667,7 +664,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DT; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
-    mul_acc<D, NT, DT, PP>(s, (const T*)(Vs + st * BK * LD), 0, lane,
+    mul_acc<D, NT, DT>(s, (const T*)(Vs + st * BK * LD), 0, lane,
                            acc);                                 // O += P V
     __syncthreads();              // this stage's readers are done
   }
@@ -783,7 +780,7 @@ __device__ __forceinline__ void xchg_get(const float* x, float (&p)[NT][4]) {
     for (int e = 0; e < 4; ++e) p[n][e] = x[(4 * n + e) * 32];
 }
 
-template <int D, typename T, int PP>
+template <int D, typename T>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dO,
@@ -920,8 +917,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           dpT[n][e] = sT[n][e] * (dpT[n][e] - D_s[8 * n + 2 * t + (e & 1)]);
     }
-    mul_acc<D, NT, CT, PP>(sT, dOb, c0, lane, dv_acc);   // dV += P^T dO
-    mul_acc<D, NT, CT, PP>(dpT, Qb, c0, lane, dk_acc);   // dK += dS^T Q
+    mul_acc<D, NT, CT>(sT, dOb, c0, lane, dv_acc);   // dV += P^T dO
+    mul_acc<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);   // dK += dS^T Q
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves K, V in flight
@@ -1003,7 +1000,7 @@ flash_sum_parts_kernel(const float4* __restrict__ parts, T* out0, T* out1,
 // backward 3: dQ of one (q tile, b * H + h, range of its k tiles)
 // ---------------------------------------------------------------------------
 
-template <int D, typename T, int PP>
+template <int D, typename T>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
@@ -1120,7 +1117,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           s[n][e] = s[n][e] * (dp[n][e] - D_r[e >> 1]);
     }
-    mul_acc<D, NT, CT, PP>(s, Kt, c0, lane, acc);     // dQ += dS K
+    mul_acc<D, NT, CT>(s, Kt, c0, lane, acc);     // dQ += dS K
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves Q, dO in flight
@@ -1193,17 +1190,17 @@ struct Args {
 // `split` ranges of `chunk` k tiles each (kernels/_plan.py::
 // flash_fwd_plan); with split > 1, a.parts holds split B Sq H D partial
 // accumulators, then split B H Sq (m, l) pairs
-template <int D, typename T, int PP>
+template <int D, typename T>
 static int launch_fwd(const Args& a) {
   constexpr int BK = tile_rows<D>();
   if ((long long)a.split * a.chunk < (a.Sk + BK - 1) / BK)
     return (int)cudaErrorInvalidValue;       // the ranges miss k tiles
   constexpr size_t smem = fwd_smem<D, T>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, T, PP>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
             (unsigned)a.split);
-  flash_fwd_kernel<D, T, PP><<<grid, N_THREADS, smem, a.stream>>>(
+  flash_fwd_kernel<D, T><<<grid, N_THREADS, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.lse_out,
       a.parts, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq, a.sk, a.sv, a.causal,
       a.scale, a.chunk);
@@ -1219,7 +1216,7 @@ static int launch_fwd(const Args& a) {
 
 // `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
 // of `dq_chunk` k tiles per dQ block (kernels/_plan.py)
-template <int D, typename T, int PP>
+template <int D, typename T>
 static int launch_bwd(const Args& a) {
   constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>();
   constexpr int NTH = 128 * groups<D>();
@@ -1238,11 +1235,11 @@ static int launch_bwd(const Args& a) {
   if (err != cudaSuccess) return (int)err;
 
   constexpr size_t smem_kv = dkdv_smem<D, T>();
-  err = allow_smem(flash_bwd_dkdv_kernel<D, T, PP>, smem_kv);
+  err = allow_smem(flash_bwd_dkdv_kernel<D, T>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
                (unsigned)a.split);
-  flash_bwd_dkdv_kernel<D, T, PP><<<grid_kv, NTH, smem_kv, a.stream>>>(
+  flash_bwd_dkdv_kernel<D, T><<<grid_kv, NTH, smem_kv, a.stream>>>(
       q, k, v, dO, a.lse, a.Dd, (T*)a.dk, (T*)a.dv, a.parts, a.H, G, a.Sq,
       a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split, a.chunk);
   err = cudaGetLastError();
@@ -1261,11 +1258,11 @@ static int launch_bwd(const Args& a) {
   }
 
   constexpr size_t smem_q = dq_smem<D, T>();
-  err = allow_smem(flash_bwd_dq_kernel<D, T, PP>, smem_q);
+  err = allow_smem(flash_bwd_dq_kernel<D, T>, smem_q);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
               (unsigned)a.dq_split);
-  flash_bwd_dq_kernel<D, T, PP><<<grid_q, NTH, smem_q, a.stream>>>(
+  flash_bwd_dq_kernel<D, T><<<grid_q, NTH, smem_q, a.stream>>>(
       q, k, v, dO, a.lse, a.Dd, (T*)a.dq, parts_q, a.H, G, a.Sq, a.Sk, a.sq,
       a.sk, a.sv, a.causal, a.scale, a.dq_split, a.dq_chunk);
   err = cudaGetLastError();
@@ -1280,25 +1277,15 @@ static int launch_bwd(const Args& a) {
 }
 
 // head dims 32, 64, 128, 256 (the ported configs')
-template <bool FWD, typename T, int PP>
+template <bool FWD, typename T>
 static int dispatch(int d, const Args& a) {
   switch (d) {
-    case 32: return FWD ? launch_fwd<32, T, PP>(a) : launch_bwd<32, T, PP>(a);
-    case 64: return FWD ? launch_fwd<64, T, PP>(a) : launch_bwd<64, T, PP>(a);
-    case 128:
-      return FWD ? launch_fwd<128, T, PP>(a) : launch_bwd<128, T, PP>(a);
-    case 256:
-      return FWD ? launch_fwd<256, T, PP>(a) : launch_bwd<256, T, PP>(a);
+    case 32: return FWD ? launch_fwd<32, T>(a) : launch_bwd<32, T>(a);
+    case 64: return FWD ? launch_fwd<64, T>(a) : launch_bwd<64, T>(a);
+    case 128: return FWD ? launch_fwd<128, T>(a) : launch_bwd<128, T>(a);
+    case 256: return FWD ? launch_fwd<256, T>(a) : launch_bwd<256, T>(a);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// bf16, p_parts 1 or 2 (P's and dS's bf16 parts)
-template <bool FWD>
-static int dispatch_bf16(int d, int p_parts, const Args& a) {
-  if (p_parts == 1) return dispatch<FWD, bf16, 1>(d, a);
-  if (p_parts == 2) return dispatch<FWD, bf16, 2>(d, a);
-  return (int)cudaErrorInvalidValue;
 }
 
 static bool aligned16(const void* p) {
@@ -1342,8 +1329,8 @@ static int fwd_entry(const void* q, const void* k, const void* v, void* o,
                      long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh,
                      long long vsb, long long vss, long long vsh, int causal,
-                     int split, int chunk, void* ws, void* stream, int esize,
-                     int p_parts) {
+                     int split, int chunk, void* ws, void* stream,
+                     int esize) {
   Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
                      ksh, vsb, vss, vsh, causal, stream);
   if (!valid(a, esize) || split < 1 || chunk < 1 || split > 65535
@@ -1354,8 +1341,8 @@ static int fwd_entry(const void* q, const void* k, const void* v, void* o,
   a.parts = (float*)ws;
   a.split = split;
   a.chunk = chunk;
-  return esize == 4 ? dispatch<true, float, 1>(d, a)
-                    : dispatch_bf16<true>(d, p_parts, a);
+  return esize == 4 ? dispatch<true, float>(d, a)
+                    : dispatch<true, bf16>(d, a);
 }
 
 // `split` ranges of `chunk` k tiles per q tile (kernels/_plan.py::
@@ -1369,19 +1356,19 @@ extern "C" int flash_attention_fwd_f32(
     int chunk, void* ws, void* stream) {
   return fwd_entry(q, k, v, o, lse, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb,
                    kss, ksh, vsb, vss, vsh, causal, split, chunk, ws, stream,
-                   4, 1);
+                   4);
 }
 
-// the same over bf16 q, k, v and o (lse and ws f32); p_parts 1 or 2
+// the same over bf16 q, k, v and o (lse and ws f32)
 extern "C" int flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KV, int Sq, int Sk, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int split,
-    int chunk, int p_parts, void* ws, void* stream) {
+    int chunk, void* ws, void* stream) {
   return fwd_entry(q, k, v, o, lse, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb,
                    kss, ksh, vsb, vss, vsh, causal, split, chunk, ws, stream,
-                   2, p_parts);
+                   2);
 }
 
 static int bwd_entry(const void* q, const void* k, const void* v,
@@ -1392,7 +1379,7 @@ static int bwd_entry(const void* q, const void* k, const void* v,
                      long long ksh, long long vsb, long long vss,
                      long long vsh, int causal, int split, int chunk,
                      int dq_split, int dq_chunk, void* parts, void* stream,
-                     int esize, int p_parts) {
+                     int esize) {
   Args a = make_args(q, k, v, B, H, KV, Sq, Sk, d, qsb, qss, qsh, ksb, kss,
                      ksh, vsb, vss, vsh, causal, stream);
   if (!valid(a, esize) || split < 1 || dq_split < 1 || chunk < 1
@@ -1411,8 +1398,8 @@ static int bwd_entry(const void* q, const void* k, const void* v,
   a.chunk = chunk;
   a.dq_split = dq_split;
   a.dq_chunk = dq_chunk;
-  return esize == 4 ? dispatch<false, float, 1>(d, a)
-                    : dispatch_bf16<false>(d, p_parts, a);
+  return esize == 4 ? dispatch<false, float>(d, a)
+                    : dispatch<false, bf16>(d, a);
 }
 
 // `split` ranges of `chunk` q tiles per dK/dV block and `dq_split` ranges
@@ -1429,40 +1416,40 @@ extern "C" int flash_attention_bwd_f32(
     void* stream) {
   return bwd_entry(q, k, v, o, dO, lse, Dd, dq, dk, dv, B, H, KV, Sq, Sk, d,
                    qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, split,
-                   chunk, dq_split, dq_chunk, parts, stream, 4, 1);
+                   chunk, dq_split, dq_chunk, parts, stream, 4);
 }
 
 // the same over bf16 q, k, v, o, dO, dq, dk and dv (lse, D and the
-// partials f32); p_parts 1 or 2
+// partials f32)
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* Dd, void* dq, void* dk, void* dv,
     int B, int H, int KV, int Sq, int Sk, int d, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
-    int split, int chunk, int dq_split, int dq_chunk, int p_parts,
-    void* parts, void* stream) {
+    int split, int chunk, int dq_split, int dq_chunk, void* parts,
+    void* stream) {
   return bwd_entry(q, k, v, o, dO, lse, Dd, dq, dk, dv, B, H, KV, Sq, Sk, d,
                    qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, split,
-                   chunk, dq_split, dq_chunk, parts, stream, 2, p_parts);
+                   chunk, dq_split, dq_chunk, parts, stream, 2);
 }
 
-// kind 0, 1, 2: the forward, dK/dV or dQ kernel at head dim D over T
-// (PP = 1); its threads, shared memory bytes, and the blocks an SM holds at
+// kind 0, 1, 2: the forward, dK/dV or dQ kernel at head dim D over T;
+// its threads, shared memory bytes, and the blocks an SM holds at
 // once as the runtime reports them for that launch
 template <int D, typename T>
 static int occupancy(int kind, int* threads, int* smem, int* blocks) {
-  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D, T, 1>
-                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D, T, 1>
-                             : (const void*)flash_bwd_dq_kernel<D, T, 1>;
+  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D, T>
+                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D, T>
+                             : (const void*)flash_bwd_dq_kernel<D, T>;
   const size_t bytes = kind == 0 ? fwd_smem<D, T>()
                      : kind == 1 ? dkdv_smem<D, T>() : dq_smem<D, T>();
   *threads = kind == 0 ? N_THREADS : 128 * groups<D>();
   *smem = (int)bytes;
   cudaError_t err =
-      kind == 0 ? allow_smem(flash_fwd_kernel<D, T, 1>, bytes)
-      : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D, T, 1>, bytes)
-                  : allow_smem(flash_bwd_dq_kernel<D, T, 1>, bytes);
+      kind == 0 ? allow_smem(flash_fwd_kernel<D, T>, bytes)
+      : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D, T>, bytes)
+                  : allow_smem(flash_bwd_dq_kernel<D, T>, bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             *threads, bytes);

@@ -56,9 +56,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 6 + [_L] * 9
                                     + [_I] * 5 + [_P, _P], _I),
         "flash_attention_fwd_bf16": ([_P] * 5 + [_I] * 6 + [_L] * 9
-                                     + [_I] * 4 + [_P, _P], _I),
+                                     + [_I] * 3 + [_P, _P], _I),
         "flash_attention_bwd_bf16": ([_P] * 10 + [_I] * 6 + [_L] * 9
-                                     + [_I] * 6 + [_P, _P], _I),
+                                     + [_I] * 5 + [_P, _P], _I),
         "flash_attention_occupancy": ([_I, _I, _P, _P, _P], _I),
         "flash_attention_occupancy_bf16": ([_I, _I, _P, _P, _P], _I),
         **_ERR,

@@ -31,9 +31,8 @@ Sq and Sk (ragged tails are masked), and q, k, v through their strides
 bfloat16 launches the kernels' bf16 instantiations, which read bf16 from
 device memory and write o, dq, dk and dv in bf16 (lse stays f32): one
 bf16 tensor-core product per product, f32 accumulation, P and dS rounded
-to ``P_PARTS`` bf16 parts where they enter a product (1: bf16(x); 2: hi +
-lo, two products). The plain versions compute in f32 and return the
-inputs' type, as ``repro.kernels.ref`` does.
+to bf16 where they enter a product. The plain versions compute in f32 and
+return the inputs' type, as ``repro.kernels.ref`` does.
 """
 from __future__ import annotations
 
@@ -44,9 +43,6 @@ from repro_torch.kernels import _plan, ref
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernels' template instantiations
 DTYPES = (torch.float32, torch.bfloat16)
-# bf16 parts of P and dS in the bf16 kernels' products (1 or 2): 1, one
-# product, within the gates of chip_smoke.py phase 3c-bf16 (PERF.md)
-P_PARTS = 1
 
 
 def _check(q, k, v):
@@ -103,26 +99,14 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _p_parts(q, p_parts):
-    """The bf16 entry points' trailing ``p_parts`` argument (none for
-    f32)."""
-    if q.dtype == torch.float32:
-        return ()
-    p_parts = P_PARTS if p_parts is None else p_parts
-    if p_parts not in (1, 2):
-        raise ValueError(f"p_parts must be 1 or 2, got {p_parts}")
-    return (p_parts,)
-
-
 def _suffix(q):
     return "f32" if q.dtype == torch.float32 else "bf16"
 
 
-def cuda_flash_attention_fwd(q, k, v, causal: bool = True, p_parts=None):
+def cuda_flash_attention_fwd(q, k, v, causal: bool = True):
     """(o (B,Sq,H,d) in q's dtype, lse (B,H,Sq) f32) from the forward
     kernel; where its plan cuts the k tiles into ranges, their partials go
-    to a workspace and a merge kernel writes o and lse. ``p_parts``
-    (bf16 only, default ``P_PARTS``): P's bf16 parts in P V."""
+    to a workspace and a merge kernel writes o and lse."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     es = q.element_size()
@@ -134,7 +118,7 @@ def cuda_flash_attention_fwd(q, k, v, causal: bool = True, p_parts=None):
     _lib_call(f"flash_attention_fwd_{_suffix(q)}", q.data_ptr(),
               k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
               KV, Sq, Sk, d, *_strides(q, k, v), int(causal), split, chunk,
-              *_p_parts(q, p_parts), ws.data_ptr(), _stream(q))
+              ws.data_ptr(), _stream(q))
     cuda_flash_attention_fwd.launches += 1
     return o, lse
 
@@ -142,13 +126,11 @@ def cuda_flash_attention_fwd(q, k, v, causal: bool = True, p_parts=None):
 cuda_flash_attention_fwd.launches = 0
 
 
-def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
-                             p_parts=None):
+def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) in q's dtype from the backward kernels (D = rowsum(dO *
     O), then dK and dV, their partials summed where the plan splits, then
     dQ); ``o`` and ``do`` contiguous (B,Sq,H,d) in q's dtype, ``lse``
-    (B,H,Sq) f32, as the forward returns them. ``p_parts`` (bf16 only):
-    P's and dS's bf16 parts."""
+    (B,H,Sq) f32, as the forward returns them."""
     B, Sq, H, d, Sk, KV = _check(q, k, v)
     for name, t, shape, dt in (("o", o, q.shape, q.dtype),
                                ("do", do, q.shape, q.dtype),
@@ -174,8 +156,8 @@ def cuda_flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
               k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
               lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
               dv.data_ptr(), B, H, KV, Sq, Sk, d, *_strides(q, k, v),
-              int(causal), split, chunk, dq_split, dq_chunk,
-              *_p_parts(q, p_parts), ws.data_ptr(), _stream(q))
+              int(causal), split, chunk, dq_split, dq_chunk, ws.data_ptr(),
+              _stream(q))
     cuda_flash_attention_bwd.launches += 1
     return dq, dk, dv
 

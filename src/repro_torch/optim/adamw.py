@@ -33,6 +33,12 @@ def init(params) -> AdamWState:
                       m=z, v=T.tree_map(torch.clone, z))
 
 
+def scaled(g, scale):
+    """``g * scale`` (the clip) as JAX takes it: an f32 gradient scaled in
+    place, a bf16 one into an f32 copy (bf16 x the f32 scale promotes)."""
+    return g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
+
+
 def sub_rounded_once_(p, step):
     """``p <- (p - step)`` with ``step`` f32: the difference taken in f32
     and rounded once to ``p.dtype`` (JAX's ``(p.astype(f32) -
@@ -61,8 +67,7 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
             sq = s if sq is None else sq + s
         gnorm = torch.sqrt(sq + 1e-16)
         scale = torch.clamp(grad_clip / gnorm, max=1.0)
-        flat_g = [g.mul_(scale) if g.dtype == torch.float32
-                  else g.float() * scale for g in flat_g]
+        flat_g = [scaled(g, scale) for g in flat_g]
     stepf = step.float()
     b1t = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                        device=stepf.device), stepf)

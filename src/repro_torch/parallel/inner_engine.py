@@ -132,9 +132,8 @@ def apply_delta(anchor, delta, error=None):
 def _clip(grads, transport, grad_clip: float = 1.0):
     """AdamW's global-norm clip over the whole cluster tree: the
     replicated leaves' squares (every stage holds them) plus each stage's
-    part, summed in stage order on every rank. Returns the clipped tree:
-    f32 leaves scaled in place, others (bf16) as f32 copies, as JAX's ``g *
-    scale`` promotes them."""
+    part, summed in stage order on every rank. Returns the clipped tree
+    (``adamw.scaled``)."""
     rep, stage = [], []
     for k, g in T.keystr_items(grads):
         if k.startswith("['stages']"):
@@ -154,8 +153,7 @@ def _clip(grads, transport, grad_clip: float = 1.0):
             [sq([g[i] for g in stage]) for i in range(len(transport.stages))]):
         total = total + part
     scale = torch.clamp(grad_clip / torch.sqrt(total + 1e-16), max=1.0)
-    return T.tree_map(lambda g: g.mul_(scale) if g.dtype == torch.float32
-                      else g.float() * scale, grads)
+    return T.tree_map(lambda g: adamw.scaled(g, scale), grads)
 
 
 def _trainable(tree):

@@ -66,6 +66,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.models.layers import apply_gelu_mlp, apply_norm, apply_swiglu
+from repro_torch.optim import adamw
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as sh
 
@@ -90,15 +91,11 @@ def ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """``parts[0] + parts[1] + ...``, left to right; parts narrower than
     f32 (bf16 partial products, their gradients) are summed in f32 and
     rounded once, as the unsharded product accumulates in f32."""
-    if parts[0].dtype in (torch.float32, torch.float64) or len(parts) == 1:
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p
-        return acc
-    acc = parts[0].float()
+    low = parts[0].dtype == torch.bfloat16 and len(parts) > 1
+    acc = parts[0].float() if low else parts[0]
     for p in parts[1:]:
-        acc = acc + p.float()
-    return acc.to(parts[0].dtype)
+        acc = acc + (p.float() if low else p)
+    return acc.to(parts[0].dtype) if low else acc
 
 
 def _max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -674,8 +671,7 @@ def clip_(shards: ShardGroup, specs: Dict[str, Tuple],
     """AdamW's global-norm clip over the cluster's whole gradient: each
     shard's squares of the blocks it canonically holds, in leaf order,
     then those partials summed in shard order. Returns the clipped blocks
-    in ``flat_parts`` order: f32 ones scaled in place, others (bf16) as f32
-    copies, as JAX's ``g * scale`` promotes them."""
+    in ``flat_parts`` order (``adamw.scaled``)."""
     dev = next(iter(grads.values()))[0][0].device
     partials = []
     for j, m in shards.shards:
@@ -690,8 +686,7 @@ def clip_(shards: ShardGroup, specs: Dict[str, Tuple],
         partials.append(total)
     sq = shards.sum_scalars(partials)
     scale = torch.clamp(grad_clip / torch.sqrt(sq + 1e-16), max=1.0)
-    return [g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
-            for g in flat_parts(grads)]
+    return [adamw.scaled(g, scale) for g in flat_parts(grads)]
 
 
 def regroup(parts, flat: List[torch.Tensor]):

@@ -637,25 +637,23 @@ def test_cuda_flash_refuses_what_it_refused_before():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p_parts", [1, 2])
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal", [
     (2, 128, 128, 4, 2, 32, True), (1, 200, 200, 4, 1, 64, True),
     (1, 384, 384, 8, 2, 128, True), (1, 256, 256, 4, 1, 256, True),
     (2, 128, 128, 4, 4, 64, False), (1, 160, 96, 4, 2, 32, True)])
-def test_cuda_flash_bf16_matches_plain(B, Sq, Sk, H, KV, d, causal, p_parts):
+def test_cuda_flash_bf16_matches_plain(B, Sq, Sk, H, KV, d, causal):
     """The bf16 kernels (bf16 in and out, f32 lse) against the plain
     versions on the same bf16 inputs: rtol/atol 2e-2, the JAX bf16 gate
-    (P and dS enter their products as p_parts bf16 parts); two calls bit
-    for bit; one launch of each wrapper."""
+    (P and dS enter their products rounded to bf16); two calls bit for
+    bit; one launch of each wrapper a call."""
     _need_cuda()
     q, k, v, do = (t.bfloat16() for t in _flash_inputs(B, Sq, H, KV, d, Sk))
     before = (fa.cuda_flash_attention_fwd.launches,
               fa.cuda_flash_attention_bwd.launches)
-    o, lse = fa.cuda_flash_attention_fwd(q, k, v, causal, p_parts)
-    o2, _ = fa.cuda_flash_attention_fwd(q, k, v, causal, p_parts)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o2, _ = fa.flash_attention_fwd(q, k, v, causal)
     o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
-    grads = fa.cuda_flash_attention_bwd(q, k, v, o_p, lse_p, do, causal,
-                                        p_parts)
+    grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
     grads_p = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
     torch.cuda.synchronize()
     assert (fa.cuda_flash_attention_fwd.launches,
