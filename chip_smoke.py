@@ -55,11 +55,13 @@ continues:
         tensor-core rate beside the f32 SIMT one (``flash_bound``); at the
         training shape, granite-3-8b, gemma3-1b global and qwen1.5-107b,
         each kernel's time (``kernel_profile``); then (3c-bf16) the bf16
-        instantiations at the same cases and the occupancy of each:
-        within the JAX bf16 gate 2e-2 (forward) and an f32-accumulation
-        bound plus an ulp of each output, two calls bit for bit; times
-        beside the bound at the bf16 tensor rate, the plain versions and
-        SDPA on bf16 (``flash_kernels_bf16``);
+        kernels (the forward on wgmma and TMA, the backward on mma.sync)
+        at the same cases, the occupancy of each, and the bf16 forward's
+        registers and spills at each head dim from ptxas: within the JAX
+        bf16 gate 2e-2 (forward) and an f32-accumulation bound plus an
+        ulp of each output, two calls bit for bit; each case's bf16
+        forward plan; times beside the bound at the bf16 tensor rate, the
+        plain versions and SDPA on bf16 (``flash_kernels_bf16``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
@@ -191,6 +193,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1085,10 +1088,11 @@ def library_attention(q, k, v, causal):
 
 def flash_occupancy_check(dtype=torch.float32):
     """The plans' model of each kernel (``_plan``: shared memory bytes, and
-    blocks an SM as many as those fit, at most 2 of 4 warps or 1 of 8)
+    blocks an SM as many as those fit, at most the launch bound's: 2 of 4
+    warps or 1 of 8, and ``flash_fwd_blocks`` for the bf16 forward)
     against what the library launches and the CUDA runtime reports, at
-    every head dim, for the f32 or the bf16 instantiations; prints the
-    resident warps an SM."""
+    every head dim, for the f32 or the bf16 kernels; prints the resident
+    warps an SM."""
     from repro_torch.kernels import _plan
     from repro_torch.kernels import flash_attention as fa
 
@@ -1100,9 +1104,11 @@ def flash_occupancy_check(dtype=torch.float32):
         warps = []
         for kind, (threads, smem, blocks) in occ.items():
             groups = 1 if kind == "fwd" else _plan.flash_groups(d)
+            bound = _plan.flash_fwd_blocks(d, es) if kind == "fwd" else 2
             want = (128 * groups, model[kind](d, es),
-                    _plan.flash_blocks_per_sm(model[kind](d, es), groups))
-            if (threads, smem, min(blocks, 2 // groups)) != want:
+                    _plan.flash_blocks_per_sm(model[kind](d, es), groups,
+                                              bound))
+            if (threads, smem, min(blocks, bound // groups)) != want:
                 _fail(f"flash {kind} d {d} {dtype}: the library launches "
                       f"{threads} threads with {smem} B of shared memory, "
                       f"{blocks} blocks an SM; _plan models {want[0]} "
@@ -1112,6 +1118,37 @@ def flash_occupancy_check(dtype=torch.float32):
               + ", ".join(warps) + "; _plan's warps an SM fwd/dkdv/dq "
               + "/".join(map(str, _plan.flash_warps_per_sm(d, es))),
               flush=True)
+
+
+def ptxas_kernel_report(lib, kernel):
+    """{template argument: (registers, spill store bytes, spill load bytes,
+    ptxas's warnings)} of each instantiation of ``kernel`` in library
+    ``lib``, from this run's ``nvcc -Xptxas -v`` output (empty where the
+    library was built before this run)."""
+    from repro_torch.kernels import _build
+
+    out, at = {}, None
+    for line in _build.ptxas_report.get(lib, "").splitlines():
+        hit = re.search(rf"_Z\d+{kernel}ILi(\d+)E", line)
+        if "warning" in line.lower():
+            if hit:
+                out.setdefault(int(hit[1]), [None, None, None, []])[3].append(
+                    line.strip())
+            continue
+        if "Compiling entry function" in line or "Function properties" in line:
+            at = int(hit[1]) if hit else None
+            if at is not None:
+                out.setdefault(at, [None, None, None, []])
+        if at is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            out[at][1:3] = [int(spill[1]), int(spill[2])]
+        elif regs:
+            out[at][0] = int(regs[1])
+    return {k: tuple(v) for k, v in sorted(out.items())}
 
 
 def flash_kernels(dev=None, cases=FLASH_CASES):
@@ -1302,12 +1339,19 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
     bound at the bf16 tensor rate, the plain versions' and SDPA's on bf16,
     forward and backward. Returns the kernels' rows at the training shape
     with the worst errors."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _plan, ref
     from repro_torch.kernels import flash_attention as fa
 
     _phase("kernel vs plain: flash attention bf16, forward and backward")
     dev = dev or torch.device("cuda")
     flash_occupancy_check(torch.bfloat16)
+    report = ptxas_kernel_report("flash_attention", "flash_fwd_wgmma_kernel")
+    for d in fa.HEAD_DIMS:
+        regs, st, ld, warns = report.get(d, (None, None, None, []))
+        print(f"flash bf16 fwd (wgmma) d {d}: ptxas "
+              + (f"{regs} registers, spill stores/loads {st}/{ld} B"
+                 if regs is not None else "not in this run's build")
+              + "".join(f"; {w}" for w in warns), flush=True)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1366,8 +1410,12 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
             o_l, (ql, kl, vl), do, retain_graph=True), flush=flush)
         bound_f, by_f = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, False)
         bound_b, by_b = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, True)
+        f_split, f_chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d, 2)
         print(f"{name} bf16 (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} "
-              f"causal {causal}): max abs err o {err_f:.3e} ({r_o:.4f}x "
+              f"causal {causal}): fwd plan split {f_split} chunk {f_chunk}"
+              f" (k tiles of {_plan.flash_tile(d, 2)}), warps an SM fwd/"
+              f"dkdv/dq {'/'.join(map(str, _plan.flash_warps_per_sm(d, 2)))}"
+              f"; max abs err o {err_f:.3e} ({r_o:.4f}x "
               f"bound) lse {err_lse:.3e} dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
               f"{errs[2]:.3e} ({ratios[0]:.4f}/{ratios[1]:.4f}/"
               f"{ratios[2]:.4f}x); two calls bitwise; ms kernel/plain/sdpa/"

@@ -13,6 +13,8 @@ parent, change, change, parent, each in its own process. The phases, by
 - 3c: the flash attention forward and backward kernels at this tree's
   ``FLASH_CASES`` (the other tree runs the same cases, also those its own
   list lacks), with their times beside the plain versions and SDPA;
+  3c-bf16 the same over bf16 inputs (``flash_kernels_bf16``, where the
+  tree's ``chip_smoke.py`` has it);
 - 3d: lowrank_mm at every product of the mesh driver's outer step;
 - 4b: one inner step (loss and gradients) of the training configuration,
   einsum and flash attention in turns (``step_ab``);
@@ -20,7 +22,8 @@ parent, change, change, parent, each in its own process. The phases, by
   round, inner and outer seconds; where the tree's ``chip_smoke.py`` has
   it, the outer step's split (``outer_split``).
 
-    python3 scripts/compressor_ab.py --parent DIR [--phases 3a,3b,3c,3d,4b,4d]
+    python3 scripts/compressor_ab.py --parent DIR
+        [--phases 3a,3b,3c,3c-bf16,3d,4b,4d]
         [--out build/ab]
 
 DIR holds the other commit's files (``git archive <commit> | tar -x -C
@@ -59,6 +62,9 @@ PHASES = {
            "    cs.mesh_quant4()\n"),
     "3c": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels("
            "cases=[tuple(c) for c in json.loads({cases!r})]).values())))\n"),
+    "3c-bf16": ("print('AB-ROWS ' + json.dumps(list(cs.flash_kernels_bf16("
+                "cases=[tuple(c) for c in json.loads({cases!r})]).values())))"
+                "\n"),
     "3d": "print('AB-ROWS ' + json.dumps([cs.lowrank_mm_kernel()]))\n",
     "4b": "cs.step_ab()\n",
     "4d": "cs.mesh_driver()\n",
@@ -131,8 +137,9 @@ def main():
     sys.path.insert(0, HERE)
     import chip_smoke
     cases = json.dumps(chip_smoke.FLASH_CASES)
-    script = SETUP + "".join(PHASES[p].format(cases=cases) if p == "3c"
-                             else PHASES[p] for p in phases)
+    script = SETUP + "".join(PHASES[p].format(cases=cases)
+                             if p.startswith("3c") else PHASES[p]
+                             for p in phases)
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,11 +1,13 @@
-// Causal GQA flash attention for Hopper (sm_90a), float32: a forward kernel
-// and a FlashAttention-2-style backward in four kernels, with no atomics.
+// Causal GQA flash attention for Hopper (sm_90a), float32 and bf16: a
+// forward kernel and a FlashAttention-2-style backward in four kernels,
+// with no atomics.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
-//   flash_fwd_kernel       <- _flash_kernel (pallas_call at :96)
+//   flash_fwd_kernel       <- _flash_kernel (pallas_call at :96), f32:
 //                             O = softmax(Q K^T / sqrt(d), mask) V, and the
 //                             per-row log-sum-exp lse (B, H, Sq), f32, that
 //                             the backward reads
+//   flash_fwd_wgmma_kernel <- the same, bf16 (below)
 // The TPU kernel has no gradient (the JAX package defines no custom_vjp for
 // it); the backward is new, the gradient of ref.flash_attention_ref:
 //   flash_bwd_dot_kernel   D = rowsum(dO * O)                      (B, H, Sq)
@@ -101,22 +103,39 @@
 // into ranges of `chunk` tiles the same way, and their partials are
 // summed in range order.
 //
-// bf16 (the *_bf16 entry points): the same kernels, grids and plans over
-// bf16 q, k, v, o and dO, writing o, dq, dk and dv in bf16; lse, D, the
-// partials and every sum stay f32. Tiles hold bf16 at a pitch of d + 8
-// (16-byte rows; each ldmatrix's 8 rows fall on 32 distinct banks), filled
-// by the same 16-byte cp.async (8 elements), so every tile takes half the
-// f32 one's shared memory; the tile rows are the f32 kernels'. Every
-// product is one bf16 mma.sync.m16n8k16 into f32 (bf16_mma.cuh). Q K^T,
-// dO V^T and their transposes multiply bf16 by bf16, exact per term as
-// JAX's f32 dot of the upcast inputs (repro/kernels/flash_attention.py:
-// 38-41); P and dS are f32 and become A fragments rounded to bf16 (one
+// bf16 (the *_bf16 entry points) over bf16 q, k, v, o and dO, writing o,
+// dq, dk and dv in bf16; lse, D, the partials and every sum stay f32. Q
+// K^T, dO V^T and their transposes multiply bf16 by bf16, exact per term
+// as JAX's f32 dot of the upcast inputs (repro/kernels/flash_attention.py:
+// 38-41); P and dS are f32 and enter their products rounded to bf16 (one
 // product; a hi + lo split, two products, was as right within chip_smoke's
-// gates and slower). The B operands
-// of P V, dS K, P^T dO and dS^T Q are read by ldmatrix.trans. No TF32
-// split, so no presplit tiles. Bound: 4 d (10 d) flops a pair at the
-// card's bf16 tensor rate, 989 TFLOP/s.
+// gates and slower). Bound: 4 d (10 d) flops a pair at the card's bf16
+// tensor rate, 989 TFLOP/s; at the training shape (B 4, S 512, H 32, d 64)
+// the forward's 0.010 ms of HBM traffic bounds it (0.009 ms of flops), at
+// one qwen1.5-107b layer (B 1, S 4,096, H 64, KV 8, d 128) its flops
+// (0.278 ms).
+//
+// The bf16 forward, flash_fwd_wgmma_kernel, is Hopper's own: the f32
+// kernel's grid, range plan (with its own tile), workspace and merge, one
+// warpgroup of 4 warps over 64 resident query rows, but both products are
+// wgmma (wgmma.cuh): S = Q K^T (m64n{BK}k16) from Q and K in shared
+// memory, O += P V (m64n{d}k16) from P in registers (S's accumulator is
+// laid out as mma.sync's C fragments, two of which are an A fragment) and
+// V read MN-major with the transpose bit, so no transposed copy. Tiles
+// have no padded pitch: TMA (cp.async.bulk.tensor, through tensor maps of
+// q, k and v's strides built per call) writes them with the 128-byte
+// swizzle the descriptors name (64-byte at d = 32), a d = 128 or 256 row
+// as 2 or 4 slabs of 128 bytes, each a tile of its own; ragged rows read
+// as zeros. One thread keeps a ring of K and V stages in flight on
+// mbarriers while the warpgroup multiplies. Its k tiles (BK = 64, 32 at d
+// = 256), its blocks an SM (4, 3, 2, 2: the launch bound, what registers
+// allow) and its ring (the SM's shared memory split evenly among them)
+// are WgmmaFwd's. The bf16 backward keeps the f32 kernels' body over bf16
+// tiles at a pitch of d + 8 (16-byte cp.async, ldmatrix on 32 distinct
+// banks), every product one bf16 mma.sync.m16n8k16 (bf16_mma.cuh), the B
+// operands of P^T dO, dS K and dS^T Q read by ldmatrix.trans.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -127,6 +146,7 @@
 #include "cp_async.cuh"
 #include "online_merge.cuh"
 #include "tf32_mma.cuh"
+#include "wgmma.cuh"
 
 #define N_THREADS 128           // 4 warps; two blocks an SM, so up to 255
                                 // registers a thread (the SM's 65,536)
@@ -136,6 +156,10 @@
 #define MERGE_THREADS 256
 #define MERGE_BATCH 8
 #define NEG_BIG (-1e30f)
+#define LOG2E 1.4426950408889634f
+#define LN2 0.6931471805599453f
+#define SM_SMEM 233472          // shared memory of an H100 SM ...
+#define BLOCK_SMEM 1024         // ... of which each resident block reserves
 
 struct Strides {        // elements between consecutive b, s and head indices
   long long b, s, h;
@@ -155,6 +179,44 @@ __host__ __device__ constexpr int pitch() {
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
   return D <= 64 ? 64 : (D == 128 ? 32 : 16);
+}
+
+// The bf16 forward's block (flash_fwd_wgmma_kernel) at head dim D; its
+// plan twins in kernels/_plan.py are flash_tile(d, 2) (BK),
+// flash_fwd_blocks (BLOCKS) and flash_fwd_smem(d, 2) (SMEM).
+template <int D>
+struct WgmmaFwd {
+  // keys of a k tile, the N of S = Q K^T: 32 at d = 256, where the O
+  // accumulator alone takes 128 registers a thread
+  static constexpr int BK = D == 256 ? 32 : 64;
+  // blocks an SM, the launch bound: what the registers of S, P and O
+  // (BK / 2 + BK / 8 + D / 2 a thread, and the rest) leave room for
+  static constexpr int BLOCKS = D == 32 ? 4 : D == 64 ? 3 : 2;
+  // a tile row as TMA writes it: a slab of 128 bytes (64 at d = 32) with
+  // the swizzle of that width; d = 128 and 256 rows are 2 and 4 slabs,
+  // each slab a tile of its own
+  static constexpr int ROW_BYTES = D == 32 ? 64 : 128;
+  static constexpr int SLAB = ROW_BYTES / 2;              // bf16 a slab row
+  static constexpr int SLABS = D / SLAB;
+  static constexpr uint32_t LAYOUT = D == 32 ? 2 : 1;     // wgmma.cuh
+  static constexpr int Q_BYTES = 2 * ROWS * D;
+  static constexpr int TILE_BYTES = 2 * BK * D;
+  // the SM's share of one of BLOCKS blocks, so that exactly BLOCKS fit,
+  // and as many stages of K and V as it holds beside the alignment and Q
+  static constexpr int SMEM = SM_SMEM / BLOCKS - BLOCK_SMEM;
+  static constexpr int STAGES = (SMEM - 1024 - Q_BYTES) / (2 * TILE_BYTES);
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+};
+
+// rows of the k tiles the forward over T streams: the f32 kernel's
+// tile_rows, the bf16 kernel's BK
+template <int D, typename T>
+__host__ __device__ constexpr int fwd_tile() {
+  if constexpr (is_bf16<T>) {
+    return WgmmaFwd<D>::BK;
+  } else {
+    return tile_rows<D>();
+  }
 }
 
 // whether the dK/dV kernel splits each Q and dO tile into its TF32 parts
@@ -577,14 +639,15 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int bk,
 // causal ones. One range (gridDim.z == 1): o and lse. Else the range's
 // partial: its unnormalised O in ws[z] (o's layout, B Sq H D floats each),
 // then (m, l) per (z, b, h, row) after the gridDim.z accumulators.
-// T = float or bf16 (q, k, v, o).
-template <int D, typename T>
+// f32 (the bf16 forward is flash_fwd_wgmma_kernel).
+template <int D>
 __global__ void __launch_bounds__(N_THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, float* __restrict__ ws, int H,
                  int G, int Sq, int Sk, Strides sq, Strides sk, Strides sv,
                  int causal, float scale, int chunk) {
+  using T = float;
   constexpr int BK = tile_rows<D>(), LD = pitch<D, T>(), NT = BK / 8;
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -699,6 +762,184 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma: one block per (q tile, b * H + h, range of k tiles)
+// ---------------------------------------------------------------------------
+
+// Range blockIdx.z holds k tiles [z chunk, (z + 1) chunk) of the q tile's
+// causal ones, and writes what flash_fwd_kernel writes (o and lse, or the
+// range's partial), from the same online softmax: S = Q K^T and O += P V
+// are wgmma products of the block's one warpgroup, Q and K from swizzled
+// shared memory, P from registers (its S accumulator rounded to bf16), V
+// MN-major from shared memory. Thread 0 brings Q, then K and V tiles into
+// a ring of STAGES stages by TMA, each stage's copies completing on its
+// mbarrier, and refills a stage once the whole block has multiplied it.
+// Scores are kept in log2 units (scale log2(e) folded in, exp2).
+template <int D>
+__global__ void __launch_bounds__(N_THREADS, WgmmaFwd<D>::BLOCKS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, float* __restrict__ lse,
+                       float* __restrict__ ws, int H, int G, int Sq, int Sk,
+                       int causal, float scale, int chunk) {
+  using C = WgmmaFwd<D>;
+  constexpr int BK = C::BK, NT = BK / 8, DT = D / 8, NS = C::STAGES;
+  constexpr int RB = C::ROW_BYTES, KS = C::SLAB / 16;  // k steps a slab
+  extern __shared__ __align__(16) uint8_t smem_wg[];
+  // the tiles from the first 1,024-byte boundary (the swizzle's atoms);
+  // the barriers in the gap before them, or after them where it is short
+  const uint32_t gap = (1024 - (smem_u32(smem_wg) & 1023)) & 1023;
+  uint8_t* Qs = smem_wg + gap;                 // SLABS x (ROWS, RB)
+  uint8_t* Ks = Qs + C::Q_BYTES;               // NS x SLABS x (BK, RB)
+  uint8_t* Vs = Ks + NS * C::TILE_BYTES;       // NS x SLABS x (BK, RB)
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      gap >= 8 * (NS + 1) ? smem_wg : Vs + NS * C::TILE_BYTES);
+  uint64_t* q_full = full + NS;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
+  const int kt_lo = blockIdx.z * chunk;
+  if (kt_lo >= n_kt) return;      // past this q tile's tiles: no partial
+  const int n = min(n_kt, kt_lo + chunk) - kt_lo;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // tile kt_lo + i of K and V into stage i % NS, one box a slab
+  const CUtensorMap *mk = &tk, *mv = &tv;
+  auto load_kv = [&](int i) {
+    const int st = i % NS, k0 = (kt_lo + i) * BK;
+    mbar_expect_tx(full + st, 2 * C::TILE_BYTES);
+#pragma unroll
+    for (int s = 0; s < C::SLABS; ++s) {
+      const int at = st * C::TILE_BYTES + s * BK * RB;
+      tma_load_4d(Ks + at, mk, full + st, s * C::SLAB, kvh, k0, b);
+      tma_load_4d(Vs + at, mv, full + st, s * C::SLAB, kvh, k0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= NS; ++s) mbar_init(full + s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_prefetch(mk);
+    tma_prefetch(mv);
+    mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+    for (int s = 0; s < C::SLABS; ++s)
+      tma_load_4d(Qs + s * ROWS * RB, &tq, q_full, s * C::SLAB, h, q0, b);
+    for (int i = 0; i < min(NS, n); ++i) load_kv(i);
+  }
+
+  // descriptors of stage 0's K and V tiles and of Q, moved by byte offsets
+  const uint64_t dq = smem_desc(Qs, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dk = smem_desc(Ks, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dv = smem_desc(Vs, BK * RB, 8 * RB, C::LAYOUT);
+  const float sl2 = scale * LOG2E;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const int row0 = q0 + 16 * warp + g;      // this thread's rows: +0, +8
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NS, k0 = (kt_lo + i) * BK;
+    mbar_wait(full + st, (i / NS) & 1);
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    wgmma_fence();                                            // S = Q K^T
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int slab = kk / KS, at = (kk % KS) * 32;
+      wgmma_ss<BK>(s, desc_at(dq, slab * ROWS * RB + at),
+                   desc_at(dk, st * C::TILE_BYTES + slab * BK * RB + at),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    float mx[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // rows past Sq are never stored, so only columns are masked here
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * sl2;
+        if (edge && (col >= Sk || (causal && col > row))) x = NEG_BIG;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    uint32_t p[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) c_as_a(s[2 * j], s[2 * j + 1], p[j]);
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    wgmma_fence();                                            // O += P V
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      wgmma_rs<D>(acc, p[j], desc_at(dv, st * C::TILE_BYTES + j * 16 * RB));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(acc);
+    hold(p);
+    __syncthreads();              // every warp's products on `st` are done
+    if (threadIdx.x == 0 && i + NS < n) load_kv(i + NS);
+  }
+  // as flash_fwd_kernel's, with m back in natural-log units
+  const long long n_o = (long long)gridDim.y * Sq * D;     // o's size
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float sum = quad_sum(l[r]), mr = m[r] * LN2;
+    if (row >= Sq) continue;
+    const long long at = (((long long)b * Sq + row) * H + h) * D + 2 * t;
+    if (gridDim.z == 1) {
+      const float denom = fmaxf(sum, 1e-30f);
+#pragma unroll
+      for (int i = 0; i < DT; ++i)
+        store2(o + at + 8 * i, acc[i][2 * r] / denom,
+               acc[i][2 * r + 1] / denom);
+      if (t == 0) lse[((long long)b * H + h) * Sq + row] = mr + logf(sum);
+    } else {
+      float* part = ws + blockIdx.z * n_o + at;
+#pragma unroll
+      for (int i = 0; i < DT; ++i)
+        store2(part + 8 * i, acc[i][2 * r], acc[i][2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(
+            ws + gridDim.z * n_o
+            + 2 * ((((long long)blockIdx.z * gridDim.y + blockIdx.y) * Sq)
+                   + row)) = make_float2(mr, sum);
+    }
+  }
+}
+
 // o and lse from the forward's partials: block (b * Sq + row, y), one
 // thread per four elements of the row's H D, merging the row's live
 // ranges in increasing order (online_merge.cuh); the thread of column 0
@@ -711,7 +952,8 @@ flash_fwd_merge_kernel(const float* __restrict__ ws, T* __restrict__ o,
   const int e = 4 * (blockIdx.y * MERGE_THREADS + threadIdx.x);  // h D + c
   if (e >= H * D) return;
   const int h = e / D, row = blockIdx.x % Sq, b = blockIdx.x / Sq;
-  const int n_kt = k_tiles(row / ROWS * ROWS, Sq, Sk, tile_rows<D>(), causal);
+  const int n_kt = k_tiles(row / ROWS * ROWS, Sq, Sk, fwd_tile<D, T>(),
+                           causal);
   const long long n_o = (long long)B * Sq * H * D;          // o's size
   const long long i = (long long)blockIdx.x * H * D + e;    // in o
   const long long bhr = ((long long)b * H + h) * Sq + row;
@@ -1158,7 +1400,22 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // given the element size)
 template <int D, typename T>
 constexpr size_t fwd_smem() {
-  return sizeof(T) * (ROWS + 4 * tile_rows<D>()) * pitch<D, T>();
+  if constexpr (is_bf16<T>) {
+    return WgmmaFwd<D>::SMEM;
+  } else {
+    return sizeof(T) * (ROWS + 4 * tile_rows<D>()) * pitch<D, T>();
+  }
+}
+
+// the forward kernel over T: flash_fwd_kernel in f32, the wgmma kernel in
+// bf16
+template <int D, typename T>
+static const void* fwd_kernel() {
+  if constexpr (is_bf16<T>) {
+    return (const void*)flash_fwd_wgmma_kernel<D>;
+  } else {
+    return (const void*)flash_fwd_kernel<D>;
+  }
 }
 
 template <int D, typename T>
@@ -1187,24 +1444,99 @@ struct Args {
   cudaStream_t stream;
 };
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no libcuda
+// at link time), or null where the driver lacks it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (B, S, heads, D) bf16 tensor read through its strides
+// (elements; multiples of 8, as `valid` checks): dims D, heads, S, B
+// (innermost first), boxes of `rows` rows of one head by a slab of
+// WgmmaFwd<D>::SLAB columns with the slab's swizzle. Rows past S read as
+// zeros (the ragged tail).
+template <int D>
+static cudaError_t tile_map(CUtensorMap* map, const void* base, int heads,
+                            int S, int B, const Strides& st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2 * (cuuint64_t)st.h, 2 * (cuuint64_t)st.s,
+                                 2 * (cuuint64_t)st.b};
+  const cuuint32_t box[4] = {(cuuint32_t)WgmmaFwd<D>::SLAB, 1,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the bf16 forward's launch: q, k and v's tensor maps, then the kernel
+template <int D>
+static cudaError_t launch_fwd_wgmma(const Args& a, dim3 grid) {
+  using C = WgmmaFwd<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = tile_map<D>(&tq, a.q, a.H, a.Sq, a.B, a.sq, ROWS);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&tk, a.k, a.KV, a.Sk, a.B, a.sk, C::BK);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&tv, a.v, a.KV, a.Sk, a.B, a.sv, C::BK);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_fwd_wgmma_kernel<D>, C::SMEM);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D><<<grid, N_THREADS, C::SMEM, a.stream>>>(
+      tq, tk, tv, (bf16*)a.out, a.lse_out, a.parts, a.H, a.H / a.KV, a.Sq,
+      a.Sk, a.causal, a.scale, a.chunk);
+  return cudaGetLastError();
+}
+
 // `split` ranges of `chunk` k tiles each (kernels/_plan.py::
 // flash_fwd_plan); with split > 1, a.parts holds split B Sq H D partial
 // accumulators, then split B H Sq (m, l) pairs
 template <int D, typename T>
 static int launch_fwd(const Args& a) {
-  constexpr int BK = tile_rows<D>();
+  constexpr int BK = fwd_tile<D, T>();
   if ((long long)a.split * a.chunk < (a.Sk + BK - 1) / BK)
     return (int)cudaErrorInvalidValue;       // the ranges miss k tiles
-  constexpr size_t smem = fwd_smem<D, T>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
             (unsigned)a.split);
-  flash_fwd_kernel<D, T><<<grid, N_THREADS, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.lse_out,
-      a.parts, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq, a.sk, a.sv, a.causal,
-      a.scale, a.chunk);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (is_bf16<T>) {
+    err = launch_fwd_wgmma<D>(a, grid);
+  } else {
+    constexpr size_t smem = fwd_smem<D, T>();
+    err = allow_smem(flash_fwd_kernel<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_kernel<D><<<grid, N_THREADS, smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.lse_out,
+        a.parts, a.H, a.H / a.KV, a.Sq, a.Sk, a.sq, a.sk, a.sv, a.causal,
+        a.scale, a.chunk);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || a.split == 1) return (int)err;
   dim3 grid_m((unsigned)(a.B * a.Sq),
               (unsigned)((a.H * D / 4 + MERGE_THREADS - 1) / MERGE_THREADS));
@@ -1439,17 +1771,14 @@ extern "C" int flash_attention_bwd_bf16(
 // once as the runtime reports them for that launch
 template <int D, typename T>
 static int occupancy(int kind, int* threads, int* smem, int* blocks) {
-  const void* fn = kind == 0 ? (const void*)flash_fwd_kernel<D, T>
+  const void* fn = kind == 0 ? fwd_kernel<D, T>()
                  : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D, T>
                              : (const void*)flash_bwd_dq_kernel<D, T>;
   const size_t bytes = kind == 0 ? fwd_smem<D, T>()
                      : kind == 1 ? dkdv_smem<D, T>() : dq_smem<D, T>();
   *threads = kind == 0 ? N_THREADS : 128 * groups<D>();
   *smem = (int)bytes;
-  cudaError_t err =
-      kind == 0 ? allow_smem(flash_fwd_kernel<D, T>, bytes)
-      : kind == 1 ? allow_smem(flash_bwd_dkdv_kernel<D, T>, bytes)
-                  : allow_smem(flash_bwd_dq_kernel<D, T>, bytes);
+  cudaError_t err = allow_smem(fn, bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             *threads, bytes);

@@ -78,10 +78,27 @@ FLASH_MERGE_TILES = 2   # the merge or sum pass of the partials, likewise
 FLASH_CHUNK_STEPS = 32  # the range planner tries chunks at n / 32 steps
 
 
-def flash_tile(d: int) -> int:
-    """Rows of the k tiles the forward kernel streams at head dim ``d``
-    (the kernels' ``tile_rows``)."""
+FLASH_FWD_BLOCKS_BF16 = {32: 4, 64: 3, 128: 2, 256: 2}
+
+
+def flash_tile(d: int, esize: int = 4) -> int:
+    """Rows of the k tiles the forward kernel streams at head dim ``d``:
+    the f32 kernel's ``tile_rows`` (64, 64, 32, 16), or the bf16
+    ``wgmma`` kernel's ``WgmmaFwd::BK`` (the N of its S product: 64, and
+    32 at d = 256, where the O accumulator takes 128 registers a
+    thread)."""
+    if esize == 2:
+        return 32 if d == 256 else 64
     return 64 if d <= 64 else 32 if d == 128 else 16
+
+
+def flash_fwd_blocks(d: int, esize: int = 4) -> int:
+    """Forward blocks an SM holds, the kernel's launch bound: 2 in f32; in
+    bf16 (``WgmmaFwd::BLOCKS``) 4, 3, 2, 2 at d = 32, 64, 128, 256, each
+    block taking that share of the SM's shared memory
+    (``flash_fwd_smem``), its S, P and O in the registers the bound
+    leaves a thread."""
+    return FLASH_FWD_BLOCKS_BF16[d] if esize == 2 else 2
 
 
 def flash_dq_tile(d: int) -> int:
@@ -121,10 +138,16 @@ def _xchg_floats(d: int, rows: int) -> int:
 # and dq_smem; chip_smoke.py phase 3c and tests/test_torch_cuda.py hold
 # them, and flash_blocks_per_sm, to the library's flash_attention_occupancy
 # (and flash_attention_occupancy_bf16). Tiles hold elements of ``esize``
-# bytes at a pitch of d + 16 / esize; lse, D and the exchange are f32.
+# bytes at a pitch of d + 16 / esize (but the bf16 forward's, which are
+# swizzled and unpadded); lse, D and the exchange are f32.
 def flash_fwd_smem(d: int, esize: int = 4) -> int:
-    """Shared memory bytes of a forward block (``launch_fwd``): the
-    resident Q tile and two stages of K and V tiles."""
+    """Shared memory bytes of a forward block (``launch_fwd``). f32: the
+    resident Q tile and two stages of K and V tiles. bf16: the SM's
+    share of one of ``flash_fwd_blocks`` blocks, which holds the
+    ``mbarrier``s, up to 1 KB that aligns the swizzled tiles, the Q tile
+    and as many stages of K and V tiles as fit (``WgmmaFwd::STAGES``)."""
+    if esize == 2:
+        return SM_SMEM // flash_fwd_blocks(d, 2) - BLOCK_SMEM
     return esize * (FLASH_ROWS + 4 * flash_tile(d)) * flash_pitch(d, esize)
 
 
@@ -146,19 +169,22 @@ def flash_dq_smem(d: int, esize: int = 4) -> int:
             + 4 * _xchg_floats(d, bt))
 
 
-def flash_blocks_per_sm(smem: int, groups: int = 1) -> int:
+def flash_blocks_per_sm(smem: int, groups: int = 1, bound: int = 2) -> int:
     """Blocks of one flash kernel an SM holds at once: as many as its
-    shared memory fits, at most what the kernels' launch bounds promise:
-    2 of 4 warps, 1 of 8 (``groups`` = 2; more would need fewer registers
-    than they may use)."""
-    return max(1, min(2 // groups, SM_SMEM // (smem + BLOCK_SMEM)))
+    shared memory fits, at most what the kernel's launch bounds promise:
+    ``bound`` blocks of 4 warps (2 in the f32 kernels and the backward;
+    ``flash_fwd_blocks`` for the bf16 forward), half as many of 8
+    (``groups`` = 2; more would need fewer registers than they may
+    use)."""
+    return max(1, min(bound // groups, SM_SMEM // (smem + BLOCK_SMEM)))
 
 
 def flash_warps_per_sm(d: int, esize: int = 4) -> Tuple[int, int, int]:
     """Resident warps per SM of the forward, dK/dV and dQ kernels at head
     dim ``d``."""
     wg = flash_groups(d)
-    return (4 * flash_blocks_per_sm(flash_fwd_smem(d, esize)),
+    return (4 * flash_blocks_per_sm(flash_fwd_smem(d, esize),
+                                    bound=flash_fwd_blocks(d, esize)),
             4 * wg * flash_blocks_per_sm(flash_dkdv_smem(d, esize), wg),
             4 * wg * flash_blocks_per_sm(flash_dq_smem(d, esize), wg))
 
@@ -258,17 +284,19 @@ def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int, d: int,
     q tile; splitting shortens it. The causal work is uneven (q tile 0
     has 4 tiles there, q tile 7 has 32), so ranges of a fixed length, not
     a fixed count per q tile, balance it: a short q tile gets few ranges.
-    The card holds SMS x ``flash_blocks_per_sm`` blocks at once: two an SM
-    at d <= 128, one at d = 256 in f32 (133,120 B of shared memory), two
-    in bf16 (67,584 B).
+    The card holds SMS x ``flash_blocks_per_sm`` blocks at once: in f32
+    two an SM at d <= 128, one at d = 256 (133,120 B of shared memory);
+    in bf16 ``flash_fwd_blocks`` (4, 3, 2, 2), with k tiles of
+    ``flash_tile(d, 2)`` keys.
     ``_range_plan`` times each chunk on that many slots. At gemma3-1b
-    global: chunk 5, 7 ranges, 128 live blocks, the longest 5 tiles
-    instead of 32.
+    global in f32: chunk 5, 7 ranges, 128 live blocks, the longest 5
+    tiles instead of 32.
 
-    The plan is a function of (B, H, Sq, Sk, d) alone: a shape gets the
-    same ranges, and the same bits, with either mask."""
-    tile = flash_tile(d)
-    cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d, esize))
+    The plan is a function of (B, H, Sq, Sk, d, esize) alone: a shape
+    gets the same ranges, and the same bits, with either mask."""
+    tile = flash_tile(d, esize)
+    cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d, esize),
+                                    bound=flash_fwd_blocks(d, esize))
     return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
                        B * H, cap, SMS)
 

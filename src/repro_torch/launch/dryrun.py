@@ -41,8 +41,8 @@ The roofline terms divide these by one H100's peaks (below). Modes:
 Statuses: ``ok``; ``skipped`` (the JAX shape table's reason);
 ``not_ported`` (the six non-dense configs, A.16; a decode whose batch is
 smaller than "data", whose cache JAX shards by sequence, A.11h);
-``fail``. Attention runs the einsum route (flash takes f32 only until
-A.18).
+``fail``. Attention runs the einsum route until A.18b gives the flash
+kernels a meta path.
 
 ``--inner pp`` is the pipeline-parallel inner engine's shape check
 (``pp_inner_smoke``): the round state built on ``meta``, one inner step

@@ -673,19 +673,96 @@ def test_cuda_flash_bf16_matches_plain(B, Sq, Sk, H, KV, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_cuda_flash_bf16_occupancy_is_the_plans_model(d):
-    """The bf16 instantiations' threads, shared memory (half the f32
-    tiles') and blocks an SM are those ``_plan`` models at esize 2."""
+    """The bf16 kernels' threads, shared memory and blocks an SM are those
+    ``_plan`` models at esize 2: the backward's tiles half the f32 ones',
+    at most its launch bound's 2 blocks of 4 warps (1 of 8); the
+    ``wgmma`` forward exactly its launch bound's ``flash_fwd_blocks``
+    (4, 3, 2, 2), its shared memory the SM's share of one of them."""
     _need_cuda()
     from repro_torch.kernels import _plan
 
     model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
              "dq": _plan.flash_dq_smem}
-    for kind, (threads, smem, blocks) in fa.cuda_flash_occupancy(
-            d, torch.bfloat16).items():
+    occ = fa.cuda_flash_occupancy(d, torch.bfloat16)
+    for kind, (threads, smem, blocks) in occ.items():
         groups = 1 if kind == "fwd" else _plan.flash_groups(d)
-        assert (threads, smem, min(blocks, 2 // groups)) == (
+        bound = _plan.flash_fwd_blocks(d, 2) if kind == "fwd" else 2
+        assert (threads, smem, min(blocks, bound // groups)) == (
             128 * groups, model[kind](d, 2),
-            _plan.flash_blocks_per_sm(model[kind](d, 2), groups)), kind
+            _plan.flash_blocks_per_sm(model[kind](d, 2), groups,
+                                      bound)), kind
+    assert occ["fwd"] == (128, _plan.flash_fwd_smem(d, 2),
+                          _plan.flash_fwd_blocks(d, 2))
+    assert 4 * occ["fwd"][2] == _plan.flash_warps_per_sm(d, 2)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal", [
+    (2, 200, 200, 4, 1, 32, True),       # ragged, G 4
+    (1, 384, 384, 8, 1, 64, True),       # G 8
+    (1, 384, 384, 8, 8, 128, True),      # G 1
+    (1, 200, 200, 4, 2, 256, True),
+    (1, 96, 160, 8, 1, 128, True),       # Sq < Sk
+    (1, 160, 96, 4, 4, 256, True),       # Sq > Sk
+    (2, 200, 384, 4, 1, 64, False),      # non-causal, Sq < Sk
+    (1, 384, 200, 8, 8, 32, False),      # non-causal, Sq > Sk
+    (1, 512, 512, 4, 1, 256, True),      # ranges merged (gemma3-1b global)
+    (1, 384, 512, 16, 4, 64, True)])     # ranges merged, Sq < Sk
+def test_cuda_flash_bf16_wgmma_forward_matches_plain(B, Sq, Sk, H, KV, d,
+                                                     causal):
+    """The bf16 forward (``wgmma`` and TMA) against the plain version on the
+    same bf16 inputs: o within the JAX bf16 gate and phase 3c-bf16's
+    f32-accumulation bound plus a bf16 ulp, lse within its bound, two
+    calls bitwise equal, one launch a call."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    q, k, v, _ = (t.bfloat16() for t in _flash_inputs(B, Sq, H, KV, d, Sk,
+                                                       seed=6))
+    before = fa.cuda_flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.cuda_flash_attention_fwd.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_p.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+    tol_o, _, a = cs.flash_tolerances(
+        q.float(), k.float(), v.float(), o_p.float(), lse_p,
+        torch.zeros_like(o_p, dtype=torch.float32), causal, u=2.0 ** -8)
+    cs._gate_bf16(f"flash bf16 fwd d{d} o", o, o_p, tol_o)
+    eps = torch.finfo(torch.float32).eps
+    assert float((lse - lse_p).abs().max()) <= 16 * eps * (
+        float(lse_p.abs().max()) + d ** 0.5 * (1 + a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("KV", [4, 1])
+def test_cuda_flash_bf16_forward_reads_packed_views(d, KV):
+    """q, k and v as strided views of one packed (B, S, 3, H, d) bf16
+    buffer (k, v: its first KV heads), read through the tensor maps'
+    strides: bitwise the same o and lse as their contiguous copies, and
+    within phase 3c-bf16's bound of the plain version."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    B, S, H = 2, 200, 4
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, d)).astype(
+        np.float32)).cuda().bfloat16()
+    views = [qkv[:, :, 0], qkv[:, :, 1, :KV], qkv[:, :, 2, :KV]]
+    o, lse = fa.cuda_flash_attention_fwd(*views, True)
+    o_c, lse_c = fa.cuda_flash_attention_fwd(
+        *(t.contiguous() for t in views), True)
+    o_p, lse_p = ref.flash_attention_fwd_ref(*views, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    tol_o, _, _ = cs.flash_tolerances(
+        *(t.float() for t in views), o_p.float(), lse_p,
+        torch.zeros_like(o_p, dtype=torch.float32), True, u=2.0 ** -8)
+    cs._gate_bf16(f"flash bf16 fwd packed d{d} o", o, o_p, tol_o)
 
 
 @pytest.mark.cuda

@@ -196,6 +196,9 @@ def recording_fwd(monkeypatch):
             shape[0], (tuple, list)) else shape)
         return empty(*shape, **kw)
 
+    # the wrapper's launch count is the process's: put it back afterwards
+    monkeypatch.setattr(fa.cuda_flash_attention_fwd, "launches",
+                        fa.cuda_flash_attention_fwd.launches)
     monkeypatch.setattr(_build, "load", lambda name: SimpleNamespace(
         flash_attention_fwd_f32=fwd))
     monkeypatch.setattr(torch.cuda, "current_stream",

@@ -434,6 +434,9 @@ def recording_lib(monkeypatch):
         calls.append(dict(zip(names, args)))
         return 0
 
+    # the wrapper's launch count is the process's: put it back afterwards
+    monkeypatch.setattr(fa.cuda_flash_attention_bwd, "launches",
+                        fa.cuda_flash_attention_bwd.launches)
     monkeypatch.setattr(_build, "load", lambda name: SimpleNamespace(
         flash_attention_bwd_f32=bwd))
     monkeypatch.setattr(torch.cuda, "current_stream",
