@@ -55,13 +55,14 @@ continues:
         tensor-core rate beside the f32 SIMT one (``flash_bound``); at the
         training shape, granite-3-8b, gemma3-1b global and qwen1.5-107b,
         each kernel's time (``kernel_profile``); then (3c-bf16) the bf16
-        kernels (the forward on wgmma and TMA, the backward on mma.sync)
-        at the same cases, the occupancy of each, and the bf16 forward's
-        registers and spills at each head dim from ptxas: within the JAX
+        kernels (the forward, dK/dV and dQ on wgmma and TMA) at the same
+        cases, the occupancy of each, and the registers and spills of the
+        three wgmma kernels at each head dim from ptxas: within the JAX
         bf16 gate 2e-2 (forward) and an f32-accumulation bound plus an
         ulp of each output, two calls bit for bit; each case's bf16
-        forward plan; times beside the bound at the bf16 tensor rate, the
-        plain versions and SDPA on bf16 (``flash_kernels_bf16``);
+        forward, dK/dV and dQ plans; times beside the bound at the bf16
+        tensor rate, the plain versions and SDPA on bf16, and each
+        kernel's at the five profiled shapes (``flash_kernels_bf16``);
      d. lowrank_mm, the mesh runtime's matmul, at every product of phase
         4d's tree (P = M Q, Q = M^T P and P Q^T per low-rank leaf, the
         transposes as strided views, batched over a leaf's stacked units)
@@ -1088,11 +1089,11 @@ def library_attention(q, k, v, causal):
 
 def flash_occupancy_check(dtype=torch.float32):
     """The plans' model of each kernel (``_plan``: shared memory bytes, and
-    blocks an SM as many as those fit, at most the launch bound's: 2 of 4
-    warps or 1 of 8, and ``flash_fwd_blocks`` for the bf16 forward)
-    against what the library launches and the CUDA runtime reports, at
-    every head dim, for the f32 or the bf16 kernels; prints the resident
-    warps an SM."""
+    blocks an SM as many as those fit, at most the launch bound's:
+    ``flash_fwd_blocks`` for the forward, ``flash_bwd_blocks`` for dK/dV
+    and dQ; in f32 2 of 4 warps or 1 of 8) against what the library
+    launches and the CUDA runtime reports, at every head dim, for the f32
+    or the bf16 kernels; prints the resident warps an SM."""
     from repro_torch.kernels import _plan
     from repro_torch.kernels import flash_attention as fa
 
@@ -1101,14 +1102,16 @@ def flash_occupancy_check(dtype=torch.float32):
              "dq": _plan.flash_dq_smem}
     for d in fa.HEAD_DIMS:
         occ = fa.cuda_flash_occupancy(d, dtype)
+        bounds = dict(zip(("fwd", "dkdv", "dq"),
+                          (_plan.flash_fwd_blocks(d, es),)
+                          + _plan.flash_bwd_blocks(d, es)))
         warps = []
         for kind, (threads, smem, blocks) in occ.items():
             groups = 1 if kind == "fwd" else _plan.flash_groups(d)
-            bound = _plan.flash_fwd_blocks(d, es) if kind == "fwd" else 2
+            bound = bounds[kind]
             want = (128 * groups, model[kind](d, es),
-                    _plan.flash_blocks_per_sm(model[kind](d, es), groups,
-                                              bound))
-            if (threads, smem, min(blocks, bound // groups)) != want:
+                    _plan.flash_blocks_per_sm(model[kind](d, es), bound))
+            if (threads, smem, min(blocks, bound)) != want:
                 _fail(f"flash {kind} d {d} {dtype}: the library launches "
                       f"{threads} threads with {smem} B of shared memory, "
                       f"{blocks} blocks an SM; _plan models {want[0]} "
@@ -1345,13 +1348,16 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
     _phase("kernel vs plain: flash attention bf16, forward and backward")
     dev = dev or torch.device("cuda")
     flash_occupancy_check(torch.bfloat16)
-    report = ptxas_kernel_report("flash_attention", "flash_fwd_wgmma_kernel")
-    for d in fa.HEAD_DIMS:
-        regs, st, ld, warns = report.get(d, (None, None, None, []))
-        print(f"flash bf16 fwd (wgmma) d {d}: ptxas "
-              + (f"{regs} registers, spill stores/loads {st}/{ld} B"
-                 if regs is not None else "not in this run's build")
-              + "".join(f"; {w}" for w in warns), flush=True)
+    for kind, kernel in (("fwd", "flash_fwd_wgmma_kernel"),
+                         ("dkdv", "flash_bwd_dkdv_wgmma_kernel"),
+                         ("dq", "flash_bwd_dq_wgmma_kernel")):
+        report = ptxas_kernel_report("flash_attention", kernel)
+        for d in fa.HEAD_DIMS:
+            regs, st, ld, warns = report.get(d, (None, None, None, []))
+            print(f"flash bf16 {kind} (wgmma) d {d}: ptxas "
+                  + (f"{regs} registers, spill stores/loads {st}/{ld} B"
+                     if regs is not None else "not in this run's build")
+                  + "".join(f"; {w}" for w in warns), flush=True)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1411,9 +1417,15 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
         bound_f, by_f = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, False)
         bound_b, by_b = flash_bound_bf16(B, Sq, Sk, H, KV, d, causal, True)
         f_split, f_chunk = _plan.flash_fwd_plan(B, H, Sq, Sk, d, 2)
+        split, chunk, parts = _plan.flash_dkdv_plan(B, H, KV, Sq, Sk, d, 2)
+        dq_split, dq_chunk = _plan.flash_dq_plan(B, H, Sq, Sk, d, 2)
         print(f"{name} bf16 (B {B} Sq {Sq} Sk {Sk} H {H} KV {KV} d {d} "
               f"causal {causal}): fwd plan split {f_split} chunk {f_chunk}"
-              f" (k tiles of {_plan.flash_tile(d, 2)}), warps an SM fwd/"
+              f" (k tiles of {_plan.flash_tile(d, 2)}), dK/dV plan split "
+              f"{split} chunk {chunk} parts {parts} (q tiles of "
+              f"{_plan.flash_q_tile(d, 2)}), dQ plan split {dq_split} chunk "
+              f"{dq_chunk} (k tiles of {_plan.flash_dq_tile(d, 2)}), warps "
+              f"an SM fwd/"
               f"dkdv/dq {'/'.join(map(str, _plan.flash_warps_per_sm(d, 2)))}"
               f"; max abs err o {err_f:.3e} ({r_o:.4f}x "
               f"bound) lse {err_lse:.3e} dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
@@ -1456,6 +1468,13 @@ def flash_kernels_bf16(dev=None, cases=FLASH_CASES):
         r, e, at = worst[kind]
         print(f"flash bf16 {kind}: worst error {r:.4f} of its bound at {at} "
               f"(max abs err {e:.3e})", flush=True)
+    for kind in ("fwd", "bwd"):
+        print(f"flash bf16 {kind} at the profiled shapes, ms kernel/sdpa/"
+              f"bound: " + "; ".join(
+                  f"{name} {c[kind]['ms']:.4f}/{c[kind]['library_ms']:.4f}/"
+                  f"{c[kind]['bound_ms']:.4f}"
+                  for name, c in per_case.items() if name in FLASH_PROFILED),
+              flush=True)
     return rows
 
 

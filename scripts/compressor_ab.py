@@ -18,12 +18,15 @@ parent, change, change, parent, each in its own process. The phases, by
 - 3d: lowrank_mm at every product of the mesh driver's outer step;
 - 4b: one inner step (loss and gradients) of the training configuration,
   einsum and flash attention in turns (``step_ab``);
+- 4k: phase 4k's run (``train(flash=True, dtype="bfloat16")``: the
+  training configuration in bf16 with the flash kernels), each round's ms
+  per inner step and round seconds;
 - 4d: the mesh driver at full opt-1.3b (``mesh_driver``), each round's
   round, inner and outer seconds; where the tree's ``chip_smoke.py`` has
   it, the outer step's split (``outer_split``).
 
     python3 scripts/compressor_ab.py --parent DIR
-        [--phases 3a,3b,3c,3c-bf16,3d,4b,4d]
+        [--phases 3a,3b,3c,3c-bf16,3d,4b,4d,4k]
         [--out build/ab]
 
 DIR holds the other commit's files (``git archive <commit> | tar -x -C
@@ -68,6 +71,11 @@ PHASES = {
     "3d": "print('AB-ROWS ' + json.dumps([cs.lowrank_mm_kernel()]))\n",
     "4b": "cs.step_ab()\n",
     "4d": "cs.mesh_driver()\n",
+    "4k": ("_, res, _ = cs.train(flash=True, dtype='bfloat16')\n"
+           "steps = cs.TRAIN['n_clusters'] * cs.TRAIN['h_steps']\n"
+           "for r, s in enumerate(res.inner_s):\n"
+           "    print(f'AB-4K round {r}: {1e3 * s / steps} ms per inner "
+           "step, round {res.round_s[r]} s')\n"),
 }
 LEAF = re.compile(r"^m=(\d+) n=(\d+) x(\d+) ms kernel/plain/matmul: project "
                   r"([\d.]+)/([\d.]+)/([\d.]+) t_pack ([\d.]+)/([\d.]+)/"
@@ -80,6 +88,8 @@ STEP = re.compile(r"^ms per step \(loss \+ grads, median of \d+\): einsum "
 ROUND = re.compile(r"^round (\d+): mean loss [\d.]+, round ([\d.]+) s: inner "
                    r"([\d.]+) s .*outer ([\d.]+) s;")
 PART = re.compile(r"^  (.+): ([\d.]+), ([\d.]+) ms \((\d+) calls\)$")
+TRAIN_4K = re.compile(r"^AB-4K round (\d+): ([\d.]+) ms per inner step, "
+                      r"round ([\d.]+) s")
 CASE = re.compile(r"^(.+?) \(B \d+ Sq .*ms kernel/plain/sdpa/bound: fwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/[\d.]+ \(\w+\), bwd "
                   r"([\d.]+)/([\d.]+)/([\d.]+)/")
@@ -95,7 +105,7 @@ def turn(tree, log, script):
         raise SystemExit(f"FAIL {tree}: exit {out.returncode}, see {log}\n"
                          + out.stderr[-2000:])
     got = dict(rows={}, leaves=[], products={}, cases={}, paged={},
-               step=None, rounds={}, parts={})
+               step=None, rounds={}, parts={}, train_4k={})
     for line in out.stdout.splitlines():
         if line.startswith("AB-PAGED "):
             got["paged"].update({r["case"]: r for r in json.loads(line[9:])})
@@ -112,6 +122,9 @@ def turn(tree, log, script):
         elif PART.match(line):
             name, a, b, calls = PART.match(line).groups()
             got["parts"][name] = (float(a), float(b), int(calls))
+        elif TRAIN_4K.match(line):
+            r, ms, sec = TRAIN_4K.match(line).groups()
+            got["train_4k"][int(r)] = (float(ms), float(sec))
         elif STEP.match(line):
             got["step"] = tuple(float(x) for x in STEP.match(line).groups())
         elif CASE.match(line):
@@ -174,6 +187,9 @@ def main():
         for name, (a, b, calls) in got["parts"].items():
             print(f"  outer step part {name}: {a:.2f}, {b:.2f} ms ({calls} "
                   f"calls)", flush=True)
+        for r, (ms, sec) in got["train_4k"].items():
+            print(f"  4k round {r}: {ms:.1f} ms per inner step, round "
+                  f"{sec:.3f} s", flush=True)
     first = runs["change"][0]
     if first["paged"]:
         print(f"paged attention per case, ms (median of two turns each; "
@@ -220,6 +236,16 @@ def main():
         print(f"  round {r}: outer parent {med['parent'][2]:.3f} change "
               f"{med['change'][2]:.3f}; round parent {med['parent'][0]:.3f} "
               f"change {med['change'][0]:.3f}; inner parent "
+              f"{med['parent'][1]:.3f} change {med['change'][1]:.3f}",
+              flush=True)
+    if first["train_4k"]:
+        print(f"4k (bf16 training with flash), median of two turns each "
+              f"({smi}):")
+    for r in first["train_4k"]:
+        med = {tag: [statistics.median(x["train_4k"][r][i] for x in runs[tag])
+                     for i in range(2)] for tag in runs}
+        print(f"  round {r}: ms per inner step parent {med['parent'][0]:.1f} "
+              f"change {med['change'][0]:.1f}; round s parent "
               f"{med['parent'][1]:.3f} change {med['change'][1]:.3f}",
               flush=True)
     if first["rows"]:

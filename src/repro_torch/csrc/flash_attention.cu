@@ -19,6 +19,8 @@
 //                          partial
 //   flash_sum_parts_kernel dK, dV (dQ) = the partials summed in a fixed
 //                          order (query head of the group, then range)
+//   flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel: dK/dV and dQ
+//                          in bf16 (below)
 // Both passes recompute P = exp(S - lse) and dS = P * (dP - D). No atomics,
 // so two calls are bitwise equal.
 //
@@ -39,7 +41,7 @@
 // 0.020 ms of HBM traffic forward; 0.064 and 0.161 ms at the f32 SIMT
 // rate. Operations bound both.
 //
-// Design. 128 threads, 4 warps, two blocks an SM where shared memory
+// Design (f32). 128 threads, 4 warps, two blocks an SM where shared memory
 // allows; a block keeps 64 rows resident (16 per warp: queries in the
 // forward and dQ, keys in dK/dV) and streams the other side in tiles
 // through a two-stage ring filled by 16-byte cp.async, so the next tile is
@@ -111,29 +113,42 @@
 // product; a hi + lo split, two products, was as right within chip_smoke's
 // gates and slower). Bound: 4 d (10 d) flops a pair at the card's bf16
 // tensor rate, 989 TFLOP/s; at the training shape (B 4, S 512, H 32, d 64)
-// the forward's 0.010 ms of HBM traffic bounds it (0.009 ms of flops), at
-// one qwen1.5-107b layer (B 1, S 4,096, H 64, KV 8, d 128) its flops
-// (0.278 ms).
+// HBM traffic bounds both passes (forward 0.010 ms, 0.009 of flops;
+// backward 0.020, 0.011 of flops), at one qwen1.5-107b layer (B 1, S
+// 4,096, H 64, KV 8, d 128) their flops (0.278 and 0.695 ms).
 //
-// The bf16 forward, flash_fwd_wgmma_kernel, is Hopper's own: the f32
-// kernel's grid, range plan (with its own tile), workspace and merge, one
-// warpgroup of 4 warps over 64 resident query rows, but both products are
-// wgmma (wgmma.cuh): S = Q K^T (m64n{BK}k16) from Q and K in shared
-// memory, O += P V (m64n{d}k16) from P in registers (S's accumulator is
-// laid out as mma.sync's C fragments, two of which are an A fragment) and
-// V read MN-major with the transpose bit, so no transposed copy. Tiles
+// The bf16 kernels of the forward and of dK/dV and dQ are Hopper's own:
+// the f32 kernels' grids, range plans (with their own tiles), partials and
+// sums, but one warpgroup of 4 warps over 64 resident rows (two
+// warpgroups in the backward at d = 256), every product a wgmma
+// (wgmma.cuh). A score product (S = Q K^T, or S^T = K Q^T and dP^T = V
+// dO^T in dK/dV, S and dP = dO V^T in dQ; m64n{tile}k16) reads both
+// operands K-major from shared memory; a product over the scores (O += P
+// V; dV += P^T dO, dK += dS^T Q; dQ += dS K; m64n{d}k16) takes P or dS
+// from registers (the score accumulator is laid out as mma.sync's C
+// fragments, two of which are an A fragment, rounded to bf16 once) and
+// reads V, dO, Q or K MN-major with the transpose bit from the same tile
+// the score product read K-major, so no transposed copy is made. Tiles
 // have no padded pitch: TMA (cp.async.bulk.tensor, through tensor maps of
-// q, k and v's strides built per call) writes them with the 128-byte
+// q, k, v and dO's strides built per call) writes them with the 128-byte
 // swizzle the descriptors name (64-byte at d = 32), a d = 128 or 256 row
 // as 2 or 4 slabs of 128 bytes, each a tile of its own; ragged rows read
-// as zeros. One thread keeps a ring of K and V stages in flight on
-// mbarriers while the warpgroup multiplies. Its k tiles (BK = 64, 32 at d
-// = 256), its blocks an SM (4, 3, 2, 2: the launch bound, what registers
-// allow) and its ring (the SM's shared memory split evenly among them)
-// are WgmmaFwd's. The bf16 backward keeps the f32 kernels' body over bf16
-// tiles at a pitch of d + 8 (16-byte cp.async, ldmatrix on 32 distinct
-// banks), every product one bf16 mma.sync.m16n8k16 (bf16_mma.cuh), the B
-// operands of P^T dO, dS K and dS^T Q read by ldmatrix.trans.
+// as zeros. The resident tiles come once; one thread keeps a ring of
+// streamed stages in flight on mbarriers while the warpgroup multiplies,
+// and refills a stage once the block is done with it. Tiles, blocks an SM
+// (the launch bound: what registers allow) and rings (the SM's shared
+// memory split evenly among those blocks) are WgmmaFwd's and WgmmaBwd's:
+// the forward streams k tiles of 64 keys (32 at d = 256) at 4, 3, 2, 2
+// blocks an SM (d = 32, 64, 128, 256); dK/dV q tiles of 64 queries (32 at
+// d >= 128, where dK and dV hold 128 registers a thread) at 3, 3, 2, 1
+// blocks; dQ k tiles of 64 (32 at d = 256) at 4, 3, 2, 1. dK/dV's lse and
+// D slices pass through shared memory, one entry a thread staged a q tile
+// ahead; at d = 256 warpgroup 0 forms the scores and P, warpgroup 1 dP,
+// and they trade them through shared memory as the f32 two-group body
+// does. Where G > 1 or the plan splits, the f32 partials of dK/dV and dQ
+// are summed by flash_sum_parts_kernel in the f32 order; at the qwen1.5-
+// 107b layer (G = 8) they are 0.54 GB written and read, 0.16 ms at HBM
+// rate, the next lever for that shape.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -208,6 +223,52 @@ struct WgmmaFwd {
   static_assert(STAGES >= 2, "a ring of at least two stages");
 };
 
+// The bf16 backward's blocks (flash_bwd_dkdv_wgmma_kernel, KV_*, and
+// flash_bwd_dq_wgmma_kernel, Q_*) at head dim D; their plan twins in
+// kernels/_plan.py are flash_q_tile(d, 2) (BQ), flash_dq_tile(d, 2) (BK),
+// flash_bwd_blocks(d, 2) (KV_BLOCKS, Q_BLOCKS), flash_dkdv_smem(d, 2) and
+// flash_dq_smem(d, 2) (KV_SMEM, Q_SMEM).
+template <int D>
+struct WgmmaBwd {
+  // warpgroups of a block: two at d = 256, each owning half of dK/dV's
+  // (dQ's) columns, since all of them would take 256 registers a thread
+  static constexpr int WG = D == 256 ? 2 : 1;
+  static constexpr int DC = D / WG;
+  // rows of the streamed tiles, the N of the score products: dK/dV's q
+  // tiles 32 at d >= 128, where dK and dV take 128 registers a thread;
+  // dQ's k tiles 32 at d = 256, as the forward's
+  static constexpr int BQ = D >= 128 ? 32 : 64;
+  static constexpr int BK = D == 256 ? 32 : 64;
+  // blocks an SM, the launch bounds: what the registers of the
+  // accumulators (2 DC / 2 or DC / 2), both score tiles (BQ or BK) and
+  // their bf16 A fragments leave room for
+  static constexpr int KV_BLOCKS = D <= 64 ? 3 : D == 256 ? 1 : 2;
+  static constexpr int Q_BLOCKS = D == 32 ? 4 : D == 64 ? 3 : D == 128 ? 2 : 1;
+  // tile rows as TMA writes them: WgmmaFwd's slabs
+  static constexpr int ROW_BYTES = D == 32 ? 64 : 128;
+  static constexpr int SLAB = ROW_BYTES / 2;
+  static constexpr int SLABS = D / SLAB;
+  static constexpr uint32_t LAYOUT = D == 32 ? 2 : 1;
+  static constexpr int RES_BYTES = 2 * ROWS * D;      // a resident tile
+  static constexpr int KV_STAGE = 4 * BQ * D;         // a Q and a dO tile
+  static constexpr int Q_STAGE = 4 * BK * D;          // a K and a V tile
+  static constexpr int VEC_BYTES = 16 * BQ;           // two (lse, D) slices
+  // the P / dP trade of two warpgroups (xchg_put): 2 x 4 warps x N / 8
+  // C fragments of 4 floats a lane
+  static constexpr int KV_XCHG = WG == 2 ? 512 * BQ : 0;
+  static constexpr int Q_XCHG = WG == 2 ? 512 * BK : 0;
+  // the SM's share of one of BLOCKS blocks, and as many stages as it
+  // holds beside the alignment, the resident tiles and the rest
+  static constexpr int KV_SMEM = SM_SMEM / KV_BLOCKS - BLOCK_SMEM;
+  static constexpr int Q_SMEM = SM_SMEM / Q_BLOCKS - BLOCK_SMEM;
+  static constexpr int KV_STAGES =
+      (KV_SMEM - 1024 - 2 * RES_BYTES - VEC_BYTES - KV_XCHG) / KV_STAGE;
+  static constexpr int Q_STAGES =
+      (Q_SMEM - 1024 - 2 * RES_BYTES - Q_XCHG) / Q_STAGE;
+  static_assert(KV_STAGES >= 2 && Q_STAGES >= 2,
+                "rings of at least two stages");
+};
+
 // rows of the k tiles the forward over T streams: the f32 kernel's
 // tile_rows, the bf16 kernel's BK
 template <int D, typename T>
@@ -219,29 +280,50 @@ __host__ __device__ constexpr int fwd_tile() {
   }
 }
 
-// whether the dK/dV kernel splits each Q and dO tile into its TF32 parts
-// once, into tiles of their own, or each warp splits the B fragments it
-// reads. At d <= 64 the split copies of 32-row q tiles fit two blocks an
-// SM, and they spare the 4 warps 3 of every 4 splits of a B element (the
-// same in the forward and dQ, on 32-row k tiles, lost more than it saved).
-// f32 only: a bf16 tile is its own B operand.
-template <int D, typename T>
+// whether the f32 dK/dV kernel splits each Q and dO tile into its TF32
+// parts once, into tiles of their own, or each warp splits the B
+// fragments it reads. At d <= 64 the split copies of 32-row q tiles fit
+// two blocks an SM, and they spare the 4 warps 3 of every 4 splits of a B
+// element (the same in the forward and dQ, on 32-row k tiles, lost more
+// than it saved).
+template <int D>
 __host__ __device__ constexpr bool presplit() {
-  return D <= 64 && !is_bf16<T>;
+  return D <= 64;
 }
 
-// rows of a q tile the dK/dV kernel streams at head dim D: 16 at d >= 128,
-// so that two blocks share an SM at d = 128
+// rows of a q tile the f32 dK/dV kernel streams at head dim D: 16 at d >=
+// 128, so that two blocks share an SM at d = 128
 template <int D>
 __host__ __device__ constexpr int q_tile_rows() {
   return D <= 64 ? 32 : 16;
 }
 
-// rows of a k tile the dQ kernel streams at head dim D (16 at d >= 128,
-// as dK/dV's q tiles)
+// rows of a k tile the f32 dQ kernel streams at head dim D (16 at d >=
+// 128, as dK/dV's q tiles)
 template <int D>
 __host__ __device__ constexpr int dq_tile_rows() {
   return D <= 64 ? 64 : 16;
+}
+
+// rows of the q tiles the dK/dV kernel over T streams, and of the k tiles
+// the dQ kernel streams: the f32 kernels' q_tile_rows and dq_tile_rows,
+// the bf16 kernels' BQ and BK
+template <int D, typename T>
+__host__ __device__ constexpr int dkdv_tile() {
+  if constexpr (is_bf16<T>) {
+    return WgmmaBwd<D>::BQ;
+  } else {
+    return q_tile_rows<D>();
+  }
+}
+
+template <int D, typename T>
+__host__ __device__ constexpr int dq_tile() {
+  if constexpr (is_bf16<T>) {
+    return WgmmaBwd<D>::BK;
+  } else {
+    return dq_tile_rows<D>();
+  }
 }
 
 // warp groups of a backward block: two at d = 256, where the resident
@@ -507,84 +589,6 @@ __device__ __forceinline__ void mul_rows(const float (&p)[KT][4], BT M,
   }
 }
 
-// The bf16 products (bf16_mma.cuh), the same contracts as dot_rows,
-// dot_pair and mul_rows on bf16 tiles of pitch D + 8.
-// C[16 x 8 n] += A[16 rows, D] B[8 n rows, D]^T: per k step of 32, two A
-// fragments by ldmatrix (rows 0-15 x columns kk, kk + 8, then + 16) and,
-// per n-tile, one ldmatrix of its 8 rows x 32 columns, the B fragments of
-// both k steps of 16
-template <int D, int NT>
-__device__ __forceinline__ void dot_rows(const bf16* __restrict__ A16,
-                                         const bf16* __restrict__ Bt, int lane,
-                                         float (&c)[NT][4]) {
-  constexpr int LD = pitch<D, bf16>();
-  const bf16* arow = A16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD
-                     + 8 * (lane >> 4);
-  const bf16* brow = Bt + (lane & 7) * LD + 8 * (lane >> 3);
-#pragma unroll 2
-  for (int kk = 0; kk < D; kk += 32) {
-    uint32_t a0[4], a1[4];
-    ldsm_x4(a0, arow + kk);
-    ldsm_x4(a1, arow + kk + 16);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b[4];
-      ldsm_x4(b, brow + 8 * n * LD + kk);
-      mma_bf16(c[n], a0, b[0], b[1]);
-      mma_bf16(c[n], a1, b[2], b[3]);
-    }
-  }
-}
-
-template <int D, int NT>
-__device__ __forceinline__ void dot_pair(const bf16* __restrict__ A1,
-                                         const bf16* B1,
-                                         const bf16* __restrict__ A2,
-                                         const bf16* B2, int lane,
-                                         float (&c1)[NT][4],
-                                         float (&c2)[NT][4]) {
-  dot_rows<D, NT>(A1, B1, lane, c1);
-  dot_rows<D, NT>(A2, B2, lane, c2);
-}
-
-// acc[16 x 8 j] += P[16, 8 KT] M[8 KT, cols c0 + 8 j ..] for j < CT (KT,
-// CT even), P held as C fragments p[KT] and rounded to bf16 per k step of
-// 16 (c_as_a), M a bf16 tile read by ldmatrix.trans: lane l addresses row
-// (l & 7) + 8 ((l >> 3) & 1), column 8 (l >> 4) of a 16 x 16 block, whose
-// four matrices are b0, b1 of n-tile j and of n-tile j + 1
-template <int D, int KT, int CT>
-__device__ __forceinline__ void mul_rows_bf16(const float (&p)[KT][4],
-                                              const bf16* __restrict__ M,
-                                              int c0, int lane,
-                                              float (&acc)[CT][4]) {
-  constexpr int LD = pitch<D, bf16>();
-  const bf16* m = M + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + c0
-                  + 8 * (lane >> 4);
-#pragma unroll
-  for (int k = 0; k < KT; k += 2) {
-    uint32_t a[4];
-    c_as_a(p[k], p[k + 1], a);
-#pragma unroll
-    for (int j = 0; j < CT; j += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, m + 8 * k * LD + 8 * j);
-      mma_bf16(acc[j], a, b[0], b[1]);
-      mma_bf16(acc[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// mul_rows on the tile's own type: f32 (or its TF32 parts) by 3xTF32,
-// bf16 by mul_rows_bf16
-template <int D, int KT, int CT, typename BT>
-__device__ __forceinline__ void mul_acc(const float (&p)[KT][4], BT M, int c0,
-                                        int lane, float (&acc)[CT][4]) {
-  if constexpr (std::is_convertible<BT, const bf16*>::value)
-    mul_rows_bf16<D, KT, CT>(p, M, c0, lane, acc);
-  else
-    mul_rows<D, KT, CT>(p, M, c0, lane, acc);
-}
-
 // stores of two or four f32 results as T, and one element as f32
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -727,8 +731,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DT; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
-    mul_acc<D, NT, DT>(s, (const T*)(Vs + st * BK * LD), 0, lane,
-                           acc);                                 // O += P V
+    mul_rows<D, NT, DT>(s, (const T*)(Vs + st * BK * LD), 0, lane,
+                        acc);                                    // O += P V
     __syncthreads();              // this stage's readers are done
   }
   // a row whose keys in this range are all masked keeps m = -1e30 (its
@@ -1022,22 +1026,90 @@ __device__ __forceinline__ void xchg_get(const float* x, float (&p)[NT][4]) {
     for (int e = 0; e < 4; ++e) p[n][e] = x[(4 * n + e) * 32];
 }
 
-template <int D, typename T>
+// The write-out of a dK/dV block (b, query head h, k tile, range
+// blockIdx.z): its keys key0 and key0 + 8 (this lane's C rows), columns c0
+// + 8 j + 2 (lane % 4); dK (times the scale) and dV in T where G = 1 and
+// one range, else the f32 partial (h % G) split + range, in the order
+// flash_sum_parts_kernel adds them.
+template <int D, int CT, typename T>
+__device__ __forceinline__ void write_dkdv(
+    const float (&dk_acc)[CT][4], const float (&dv_acc)[CT][4],
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ parts, int H,
+    int G, int Sk, int key0, int c0, float scale, int split) {
+  const int b = blockIdx.y / H, h = blockIdx.y % H, KV = H / G, kvh = h / G;
+  const int t = threadIdx.x % 4;
+  const long long n_out = (long long)gridDim.y / H * Sk * KV * D;
+  const int n_parts = G * split;
+  const long long part = (long long)(h % G) * split + blockIdx.z;
+  float* part_k = parts + part * n_out;
+  float* part_v = parts + (n_parts + part) * n_out;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    const long long off = (((long long)b * Sk + key) * KV + kvh) * D + c0
+                          + 2 * t;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const float xk = dk_acc[j][2 * r] * scale;
+      const float yk = dk_acc[j][2 * r + 1] * scale;
+      if (n_parts == 1) {
+        store2(dk + off + 8 * j, xk, yk);
+        store2(dv + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      } else {
+        store2(part_k + off + 8 * j, xk, yk);
+        store2(part_v + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// The write-out of a dQ block (b, h, q tile, range blockIdx.z): its rows
+// row0 and row0 + 8, columns c0 + 8 i + 2 (lane % 4), times the scale;
+// dQ in T where there is one range, else f32 partial blockIdx.z.
+template <int D, int CT, typename T>
+__device__ __forceinline__ void write_dq(const float (&acc)[CT][4],
+                                         T* __restrict__ dq,
+                                         float* __restrict__ parts, int H,
+                                         int Sq, int row0, int c0,
+                                         float scale, int split) {
+  const int b = blockIdx.y / H, h = blockIdx.y % H, t = threadIdx.x % 4;
+  const long long n_out = (long long)gridDim.y * Sq * D;   // dq's size
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const long long off = (((long long)b * Sq + row) * H + h) * D + c0 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < CT; ++i) {
+      const float x = acc[i][2 * r] * scale, y = acc[i][2 * r + 1] * scale;
+      if (split == 1)
+        store2(dq + off + 8 * i, x, y);
+      else
+        store2(parts + blockIdx.z * n_out + off + 8 * i, x, y);
+    }
+  }
+}
+
+// f32 (the bf16 kernel is flash_bwd_dkdv_wgmma_kernel).
+template <int D>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dO,
                       const float* __restrict__ lse,
-                      const float* __restrict__ Dd, T* __restrict__ dk,
-                      T* __restrict__ dv, float* __restrict__ parts,
+                      const float* __restrict__ Dd, float* __restrict__ dk,
+                      float* __restrict__ dv, float* __restrict__ parts,
                       int H, int G, int Sq, int Sk, Strides sq, Strides sk,
                       Strides sv, int causal, float scale, int split,
                       int chunk) {
+  using T = float;
   constexpr int WG = groups<D>(), NTH = 128 * WG;
   constexpr int BQ = q_tile_rows<D>(), DC = D / WG;
   constexpr int LD = pitch<D, T>(), NT = BQ / 8, CT = DC / 8;
   // a ring stage: Q (BQ, LD) and dO (BQ, LD) of T, lse (BQ) and D (BQ) f32
   constexpr int STAGE = 2 * BQ * LD * (int)sizeof(T) + 2 * BQ * 4;  // bytes
-  constexpr bool PS = presplit<D, T>();
+  constexpr bool PS = presplit<D>();
   extern __shared__ __align__(16) float smem[];
   T* Ks = reinterpret_cast<T*>(smem);   // (ROWS, LD)
   T* Vs = Ks + ROWS * LD;               // (ROWS, LD)
@@ -1047,7 +1119,6 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dOp = Qp + 2 * BQ * LD;  // PS: dO's
   float* X = reinterpret_cast<float*>(ring + 2 * STAGE);  // WG = 2: P^T
                                   // (group 0), dP^T (group 1)
-  const int KV = H / G;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const int range = blockIdx.z;
   const int k0 = blockIdx.x * ROWS;
@@ -1159,39 +1230,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           dpT[n][e] = sT[n][e] * (dpT[n][e] - D_s[8 * n + 2 * t + (e & 1)]);
     }
-    mul_acc<D, NT, CT>(sT, dOb, c0, lane, dv_acc);   // dV += P^T dO
-    mul_acc<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);   // dK += dS^T Q
+    mul_rows<D, NT, CT>(sT, dOb, c0, lane, dv_acc);  // dV += P^T dO
+    mul_rows<D, NT, CT>(dpT, Qb, c0, lane, dk_acc);  // dK += dS^T Q
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves K, V in flight
-
-  // G = 1 and one range: the block owns its dK/dV (in T); else the f32
-  // partial (h % G) * split + range, in the order flash_sum_parts_kernel
-  // adds them
-  const long long n_out = (long long)gridDim.y / H * Sk * KV * D;
-  const int n_parts = G * split;
-  const long long part = (long long)(h % G) * split + range;
-  float* part_k = parts + part * n_out;
-  float* part_v = parts + (n_parts + part) * n_out;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= Sk) continue;
-    const long long off = (((long long)b * Sk + key) * KV + kvh) * D + c0
-                          + 2 * t;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const float xk = dk_acc[j][2 * r] * scale;
-      const float yk = dk_acc[j][2 * r + 1] * scale;
-      if (n_parts == 1) {
-        store2(dk + off + 8 * j, xk, yk);
-        store2(dv + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-      } else {
-        store2(part_k + off + 8 * j, xk, yk);
-        store2(part_v + off + 8 * j, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-      }
-    }
-  }
+  write_dkdv<D>(dk_acc, dv_acc, dk, dv, parts, H, G, Sk, key0, c0, scale,
+                split);
 }
 
 // Ranges with work among a row's partials: dK/dV rows are keys (their k
@@ -1242,15 +1287,17 @@ flash_sum_parts_kernel(const float4* __restrict__ parts, T* out0, T* out1,
 // backward 3: dQ of one (q tile, b * H + h, range of its k tiles)
 // ---------------------------------------------------------------------------
 
-template <int D, typename T>
+// f32 (the bf16 kernel is flash_bwd_dq_wgmma_kernel).
+template <int D>
 __global__ void __launch_bounds__(128 * groups<D>(), 3 - groups<D>())
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
-                    const float* __restrict__ Dd, T* __restrict__ dq,
+                    const float* __restrict__ Dd, float* __restrict__ dq,
                     float* __restrict__ parts, int H, int G, int Sq, int Sk,
                     Strides sq, Strides sk, Strides sv, int causal,
                     float scale, int split, int chunk) {
+  using T = float;
   constexpr int WG = groups<D>(), NTH = 128 * WG;
   constexpr int BK = dq_tile_rows<D>(), LD = pitch<D, T>(), NT = BK / 8;
   constexpr int DC = D / WG, CT = DC / 8;
@@ -1359,27 +1406,425 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           s[n][e] = s[n][e] * (dp[n][e] - D_r[e >> 1]);
     }
-    mul_acc<D, NT, CT>(s, Kt, c0, lane, acc);     // dQ += dS K
+    mul_rows<D, NT, CT>(s, Kt, c0, lane, acc);    // dQ += dS K
     __syncthreads();              // this stage's (and X's) readers are done
   }
   cp_async_wait_all();            // an empty range leaves Q, dO in flight
+  write_dq<D>(acc, dq, parts, H, Sq, row0, c0, scale, split);
+}
 
-  // one range: the block owns its dQ (in T); else f32 partial blockIdx.z
-  const long long n_out = (long long)gridDim.y * Sq * D;   // dq's size
+// ---------------------------------------------------------------------------
+// bf16 backward on wgmma: dK, dV of one (k tile, b * H + h, range); dQ of
+// one (q tile, b * H + h, range)
+// ---------------------------------------------------------------------------
+
+// Range blockIdx.z holds q tiles [z chunk, (z + 1) chunk) of those at or
+// above the k tile's diagonal, and the block writes what
+// flash_bwd_dkdv_kernel writes (dK/dV, or the f32 partial (h % G) split +
+// z), with its WG warpgroups over the k tile's 64 keys. Thread 0 brings K
+// and V once, then the Q and dO tiles of its q tiles into a ring of
+// KV_STAGES stages by TMA, each stage's copies completing on its mbarrier,
+// and refills a stage once the block has multiplied it; thread x < 2 BQ
+// stages entry x of the next q tile's lse (in log2 units) and D. Per q
+// tile: S^T = K Q^T and dP^T = V dO^T (wgmma_ss, both operands K-major),
+// then P^T = 2^(S^T scale log2 e - lse log2 e), masked, and dS^T = P^T
+// (dP^T - D) in registers, then dV += P^T dO and dK += dS^T Q (wgmma_rs:
+// P^T and dS^T rounded to bf16 from their accumulators, dO and Q read
+// MN-major from the same tiles through a second descriptor). At d = 256
+// warpgroup 0 forms S^T and P^T, warpgroup 1 dP^T; they trade them
+// through shared memory, and each accumulates half of dK's and dV's
+// columns.
+template <int D>
+__global__ void __launch_bounds__(128 * WgmmaBwd<D>::WG,
+                                  WgmmaBwd<D>::KV_BLOCKS)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ Dd,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            float* __restrict__ parts, int H, int G, int Sq,
+                            int Sk, int causal, float scale, int split,
+                            int chunk) {
+  using C = WgmmaBwd<D>;
+  constexpr int BQ = C::BQ, NT = BQ / 8, DC = C::DC, CT = DC / 8;
+  constexpr int NS = C::KV_STAGES, RB = C::ROW_BYTES, KS = C::SLAB / 16;
+  constexpr int HALF = C::KV_STAGE / 2;       // a stage: Q, then dO
+  extern __shared__ __align__(16) uint8_t smem_wg[];
+  // the tiles from the first 1,024-byte boundary; the barriers in the gap
+  // before them, or after everything where it is short
+  const uint32_t gap = (1024 - (smem_u32(smem_wg) & 1023)) & 1023;
+  uint8_t* Ks = smem_wg + gap;                // SLABS x (ROWS, RB)
+  uint8_t* Vs = Ks + C::RES_BYTES;            // SLABS x (ROWS, RB)
+  uint8_t* ring = Vs + C::RES_BYTES;          // NS x 2 x SLABS x (BQ, RB)
+  float* vec = reinterpret_cast<float*>(ring + NS * C::KV_STAGE);
+                                  // 2 slots x (lse log2 e, D) x BQ
+  float* X = vec + 4 * BQ;        // WG = 2: P^T (warpgroup 0), dP^T (1)
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      gap >= 8 * (NS + 1) ? smem_wg
+                          : reinterpret_cast<uint8_t*>(X) + C::KV_XCHG);
+  uint64_t* kv_full = full + NS;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
+  const int range = blockIdx.z;
+  const int k0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = warp % 4, grp = warp / 4, c0 = grp * DC;
+  const int g = lane / 4, t = lane % 4;
+  // this block's q tiles, as flash_bwd_dkdv_kernel's
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int first = causal ? min(k0 / BQ, nq) : 0;
+  const int qt_lo = min(nq, first + range * chunk);
+  const int n = min(nq, qt_lo + chunk) - qt_lo;
+  if (G * split > 1 && n == 0) return;        // the sum skips it
+  const float* lse_h = lse + ((long long)b * H + h) * Sq;
+  const float* D_h = Dd + ((long long)b * H + h) * Sq;
+  // this thread's entry of q tile qt_lo + i's slice: lse log2 e (x < BQ)
+  // or D (x < 2 BQ); zero past Sq and past the block's tiles
+  auto vec_entry = [&](int i) {
+    const int x = threadIdx.x, row = (qt_lo + i) * BQ + x % BQ;
+    if (x >= 2 * BQ || i >= n || row >= Sq) return 0.f;
+    return x < BQ ? lse_h[row] * LOG2E : D_h[row];
+  };
+  // q tile qt_lo + i of Q and dO into stage i % NS, one box a slab
+  const CUtensorMap *mq = &tq, *mdo = &tdo;
+  auto load_q = [&](int i) {
+    const int st = i % NS, q0 = (qt_lo + i) * BQ;
+    uint8_t* at = ring + st * C::KV_STAGE;
+    mbar_expect_tx(full + st, C::KV_STAGE);
+#pragma unroll
+    for (int s = 0; s < C::SLABS; ++s) {
+      tma_load_4d(at + s * BQ * RB, mq, full + st, s * C::SLAB, h, q0, b);
+      tma_load_4d(at + HALF + s * BQ * RB, mdo, full + st, s * C::SLAB, h,
+                  q0, b);
+    }
+  };
+  if (n > 0) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s <= NS; ++s) mbar_init(full + s, 1);
+      mbar_init_fence();
+    }
+    if (threadIdx.x < 2 * BQ) vec[threadIdx.x] = vec_entry(0);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma_prefetch(mq);
+      tma_prefetch(mdo);
+      mbar_expect_tx(kv_full, 2 * C::RES_BYTES);
+#pragma unroll
+      for (int s = 0; s < C::SLABS; ++s) {
+        tma_load_4d(Ks + s * ROWS * RB, &tk, kv_full, s * C::SLAB, kvh, k0,
+                    b);
+        tma_load_4d(Vs + s * ROWS * RB, &tv, kv_full, s * C::SLAB, kvh, k0,
+                    b);
+      }
+      for (int i = 0; i < min(NS, n); ++i) load_q(i);
+    }
+  }
+
+  // descriptors: K and V as the A operands (K-major); stage 0's Q and dO
+  // as the B operands of the scores (K-major) and, from this warpgroup's
+  // columns, of dK and dV (MN-major); moved by byte offsets
+  const uint64_t dKa = smem_desc(Ks, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dVa = smem_desc(Vs, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dQk = smem_desc(ring, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dOk = smem_desc(ring + HALF, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dQm = smem_desc(ring, BQ * RB, 8 * RB, C::LAYOUT);
+  const uint64_t dOm = smem_desc(ring + HALF, BQ * RB, 8 * RB, C::LAYOUT);
+  const uint32_t cols = grp * (DC / C::SLAB) * BQ * RB;
+  const float sl2 = scale * LOG2E;
+  float dk_acc[CT][4], dv_acc[CT][4];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const int key0 = k0 + 16 * kw + g;        // this thread's keys: +0, +8
+  float* Xw = X + (grp * 4 + kw) * NT * 4 * 32 + lane;        // mine
+  const float* Xo = X + ((1 - grp) * 4 + kw) * NT * 4 * 32 + lane;
+  if (n > 0) mbar_wait(kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NS, q0 = (qt_lo + i) * BQ;
+    const uint32_t so = st * C::KV_STAGE;
+    const float next = vec_entry(i + 1);
+    mbar_wait(full + st, (i / NS) & 1);
+    float sT[NT][4], dpT[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+    wgmma_fence();                          // S^T = K Q^T, dP^T = V dO^T
+    if (C::WG == 1 || grp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / KS, at = (kk % KS) * 32;
+        wgmma_ss<BQ>(sT, desc_at(dKa, slab * ROWS * RB + at),
+                     desc_at(dQk, so + slab * BQ * RB + at), kk > 0);
+      }
+    }
+    if (C::WG == 1 || grp == 1) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / KS, at = (kk % KS) * 32;
+        wgmma_ss<BQ>(dpT, desc_at(dVa, slab * ROWS * RB + at),
+                     desc_at(dOk, so + slab * BQ * RB + at), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(sT);
+    hold(dpT);
+
+    const float* lse_s = vec + (i & 1) * 2 * BQ;
+    const float* D_s = lse_s + BQ;
+    const bool edge = q0 + BQ > Sq || k0 + ROWS > Sk
+                      || (causal && k0 + ROWS - 1 > q0);
+    // P^T = 2^(S^T scale log2 e - lse log2 e), masked; dS^T = P^T (dP^T - D)
+    auto p_of = [&](int j, int e) {
+      const int c = 8 * j + 2 * t + (e & 1);
+      const float p = exp2f(fmaf(sT[j][e], sl2, -lse_s[c]));
+      return edge && masked(q0 + c, key0 + 8 * (e >> 1), Sq, Sk, causal)
+                 ? 0.f : p;
+    };
+    if constexpr (C::WG == 1) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = p_of(j, e);
+          sT[j][e] = p;
+          dpT[j][e] = p * (dpT[j][e] - D_s[8 * j + 2 * t + (e & 1)]);
+        }
+    } else {                     // trade P^T and dP^T between warpgroups
+      if (grp == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[j][e] = p_of(j, e);
+        xchg_put<NT>(Xw, sT);
+      } else {
+        xchg_put<NT>(Xw, dpT);
+      }
+      __syncthreads();
+      if (grp == 0) xchg_get<NT>(Xo, dpT); else xchg_get<NT>(Xo, sT);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpT[j][e] = sT[j][e] * (dpT[j][e] - D_s[8 * j + 2 * t + (e & 1)]);
+    }
+    uint32_t pa[NT / 2][4], da[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      c_as_a(sT[2 * j], sT[2 * j + 1], pa[j]);
+      c_as_a(dpT[2 * j], dpT[2 * j + 1], da[j]);
+    }
+    wgmma_fence();                          // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      wgmma_rs<DC>(dv_acc, pa[j], desc_at(dOm, so + cols + j * 16 * RB));
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      wgmma_rs<DC>(dk_acc, da[j], desc_at(dQm, so + cols + j * 16 * RB));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(pa);
+    hold(da);
+    if (threadIdx.x < 2 * BQ) vec[((i + 1) & 1) * 2 * BQ + threadIdx.x] = next;
+    __syncthreads();              // the block's products on `st` are done
+    if (threadIdx.x == 0 && i + NS < n) load_q(i + NS);
+  }
+
+  write_dkdv<D>(dk_acc, dv_acc, dk, dv, parts, H, G, Sk, key0, c0, scale,
+                split);
+}
+
+// Range blockIdx.z holds k tiles [z chunk, (z + 1) chunk) of the q tile's
+// causal ones, and the block writes what flash_bwd_dq_kernel writes (dQ,
+// or the f32 partial z), with its WG warpgroups over the q tile's 64
+// queries: Q and dO come once by TMA, the K and V tiles through a ring of
+// Q_STAGES stages. Per k tile: S = Q K^T and dP = dO V^T (wgmma_ss), P
+// and dS = P (dP - D) in registers (lse and D of the thread's two rows
+// held from the start), then dQ += dS K (wgmma_rs, K read MN-major from
+// the tile the scores read K-major). At d = 256 the warpgroups split S
+// and dP and trade them, as in dK/dV, and each owns half of dQ's columns.
+template <int D>
+__global__ void __launch_bounds__(128 * WgmmaBwd<D>::WG,
+                                  WgmmaBwd<D>::Q_BLOCKS)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ Dd, bf16* __restrict__ dq,
+                          float* __restrict__ parts, int H, int G, int Sq,
+                          int Sk, int causal, float scale, int split,
+                          int chunk) {
+  using C = WgmmaBwd<D>;
+  constexpr int BK = C::BK, NT = BK / 8, DC = C::DC, CT = DC / 8;
+  constexpr int NS = C::Q_STAGES, RB = C::ROW_BYTES, KS = C::SLAB / 16;
+  constexpr int HALF = C::Q_STAGE / 2;        // a stage: K, then V
+  extern __shared__ __align__(16) uint8_t smem_wg[];
+  const uint32_t gap = (1024 - (smem_u32(smem_wg) & 1023)) & 1023;
+  uint8_t* Qs = smem_wg + gap;                // SLABS x (ROWS, RB)
+  uint8_t* dOs = Qs + C::RES_BYTES;           // SLABS x (ROWS, RB)
+  uint8_t* ring = dOs + C::RES_BYTES;         // NS x 2 x SLABS x (BK, RB)
+  float* X = reinterpret_cast<float*>(ring + NS * C::Q_STAGE);
+                                  // WG = 2: P (warpgroup 0), dP (1)
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      gap >= 8 * (NS + 1) ? smem_wg
+                          : reinterpret_cast<uint8_t*>(X) + C::Q_XCHG);
+  uint64_t* q_full = full + NS;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qw = warp % 4, grp = warp / 4, c0 = grp * DC;
+  const int g = lane / 4, t = lane % 4;
+  // this block's k tiles, as flash_bwd_dq_kernel's
+  const int n_kt = k_tiles(q0, Sq, Sk, BK, causal);
+  const int kt_lo = min(n_kt, (int)blockIdx.z * chunk);
+  const int n = min(n_kt, kt_lo + chunk) - kt_lo;
+  if (split > 1 && n == 0) return;            // the sum skips it
+  // k tile kt_lo + i of K and V into stage i % NS, one box a slab
+  const CUtensorMap *mk = &tk, *mv = &tv;
+  auto load_kv = [&](int i) {
+    const int st = i % NS, k0 = (kt_lo + i) * BK;
+    uint8_t* at = ring + st * C::Q_STAGE;
+    mbar_expect_tx(full + st, C::Q_STAGE);
+#pragma unroll
+    for (int s = 0; s < C::SLABS; ++s) {
+      tma_load_4d(at + s * BK * RB, mk, full + st, s * C::SLAB, kvh, k0, b);
+      tma_load_4d(at + HALF + s * BK * RB, mv, full + st, s * C::SLAB, kvh,
+                  k0, b);
+    }
+  };
+  if (n > 0) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s <= NS; ++s) mbar_init(full + s, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma_prefetch(mk);
+      tma_prefetch(mv);
+      mbar_expect_tx(q_full, 2 * C::RES_BYTES);
+#pragma unroll
+      for (int s = 0; s < C::SLABS; ++s) {
+        tma_load_4d(Qs + s * ROWS * RB, &tq, q_full, s * C::SLAB, h, q0, b);
+        tma_load_4d(dOs + s * ROWS * RB, &tdo, q_full, s * C::SLAB, h, q0,
+                    b);
+      }
+      for (int i = 0; i < min(NS, n); ++i) load_kv(i);
+    }
+  }
+
+  const int row0 = q0 + 16 * qw + g;        // this thread's rows: +0, +8
+  float lse_r[2], D_r[2], acc[CT][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (row >= Sq) continue;
-    const long long off = (((long long)b * Sq + row) * H + h) * D + c0 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < CT; ++i) {
-      const float x = acc[i][2 * r] * scale, y = acc[i][2 * r + 1] * scale;
-      if (split == 1)
-        store2(dq + off + 8 * i, x, y);
-      else
-        store2(parts + blockIdx.z * n_out + off + 8 * i, x, y);
-    }
+    const long long at = ((long long)b * H + h) * Sq + row;
+    lse_r[r] = row < Sq ? lse[at] * LOG2E : 0.f;
+    D_r[r] = row < Sq ? Dd[at] : 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < CT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // descriptors: Q and dO as the A operands (K-major); stage 0's K and V
+  // as the B operands of the scores (K-major), and K, from this
+  // warpgroup's columns, of dQ (MN-major)
+  const uint64_t dQa = smem_desc(Qs, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dOa = smem_desc(dOs, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dKk = smem_desc(ring, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dVk = smem_desc(ring + HALF, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dKm = smem_desc(ring, BK * RB, 8 * RB, C::LAYOUT);
+  const uint32_t cols = grp * (DC / C::SLAB) * BK * RB;
+  const float sl2 = scale * LOG2E;
+  float* Xw = X + (grp * 4 + qw) * NT * 4 * 32 + lane;        // mine
+  const float* Xo = X + ((1 - grp) * 4 + qw) * NT * 4 * 32 + lane;
+  if (n > 0) mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NS, k0 = (kt_lo + i) * BK;
+    const uint32_t so = st * C::Q_STAGE;
+    mbar_wait(full + st, (i / NS) & 1);
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    wgmma_fence();                          // S = Q K^T, dP = dO V^T
+    if (C::WG == 1 || grp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / KS, at = (kk % KS) * 32;
+        wgmma_ss<BK>(s, desc_at(dQa, slab * ROWS * RB + at),
+                     desc_at(dKk, so + slab * BK * RB + at), kk > 0);
+      }
+    }
+    if (C::WG == 1 || grp == 1) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / KS, at = (kk % KS) * 32;
+        wgmma_ss<BK>(dp, desc_at(dOa, slab * ROWS * RB + at),
+                     desc_at(dVk, so + slab * BK * RB + at), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+    hold(dp);
+
+    const bool edge = q0 + ROWS > Sq || k0 + BK > Sk
+                      || (causal && k0 + BK - 1 > q0);
+    // P = 2^(S scale log2 e - lse log2 e), masked; dS = P (dP - D), into s
+    auto p_of = [&](int j, int e) {
+      const int r = e >> 1;
+      const float p = exp2f(fmaf(s[j][e], sl2, -lse_r[r]));
+      return edge && masked(row0 + 8 * r, k0 + 8 * j + 2 * t + (e & 1), Sq,
+                            Sk, causal)
+                 ? 0.f : p;
+    };
+    if constexpr (C::WG == 1) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = p_of(j, e) * (dp[j][e] - D_r[e >> 1]);
+    } else {                     // trade P and dP between warpgroups
+      if (grp == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = p_of(j, e);
+        xchg_put<NT>(Xw, s);
+      } else {
+        xchg_put<NT>(Xw, dp);
+      }
+      __syncthreads();
+      if (grp == 0) xchg_get<NT>(Xo, dp); else xchg_get<NT>(Xo, s);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (dp[j][e] - D_r[e >> 1]);
+    }
+    uint32_t da[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) c_as_a(s[2 * j], s[2 * j + 1], da[j]);
+    wgmma_fence();                                            // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      wgmma_rs<DC>(acc, da[j], desc_at(dKm, so + cols + j * 16 * RB));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(acc);
+    hold(da);
+    __syncthreads();              // the block's products on `st` are done
+    if (threadIdx.x == 0 && i + NS < n) load_kv(i + NS);
+  }
+
+  write_dq<D>(acc, dq, parts, H, Sq, row0, c0, scale, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -1420,17 +1865,45 @@ static const void* fwd_kernel() {
 
 template <int D, typename T>
 constexpr size_t dkdv_smem() {
-  constexpr int BQ = q_tile_rows<D>(), LD = pitch<D, T>();
-  return sizeof(T) * (2 * ROWS * LD + 2 * 2 * BQ * LD)
-         + sizeof(float) * (2 * 2 * BQ + 4 * presplit<D, T>() * BQ * LD
-                            + xchg_floats<D, BQ / 8>());
+  if constexpr (is_bf16<T>) {
+    return WgmmaBwd<D>::KV_SMEM;
+  } else {
+    constexpr int BQ = q_tile_rows<D>(), LD = pitch<D, T>();
+    return sizeof(T) * (2 * ROWS * LD + 2 * 2 * BQ * LD)
+           + sizeof(float) * (2 * 2 * BQ + 4 * presplit<D>() * BQ * LD
+                              + xchg_floats<D, BQ / 8>());
+  }
 }
 
 template <int D, typename T>
 constexpr size_t dq_smem() {
-  constexpr int BT = dq_tile_rows<D>(), LD = pitch<D, T>();
-  return sizeof(T) * (2 * ROWS * LD + 4 * BT * LD)
-         + sizeof(float) * xchg_floats<D, BT / 8>();
+  if constexpr (is_bf16<T>) {
+    return WgmmaBwd<D>::Q_SMEM;
+  } else {
+    constexpr int BT = dq_tile_rows<D>(), LD = pitch<D, T>();
+    return sizeof(T) * (2 * ROWS * LD + 4 * BT * LD)
+           + sizeof(float) * xchg_floats<D, BT / 8>();
+  }
+}
+
+// the dK/dV and dQ kernels over T: the f32 mma.sync kernels, the bf16
+// wgmma kernels
+template <int D, typename T>
+static const void* dkdv_kernel() {
+  if constexpr (is_bf16<T>) {
+    return (const void*)flash_bwd_dkdv_wgmma_kernel<D>;
+  } else {
+    return (const void*)flash_bwd_dkdv_kernel<D>;
+  }
+}
+
+template <int D, typename T>
+static const void* dq_kernel() {
+  if constexpr (is_bf16<T>) {
+    return (const void*)flash_bwd_dq_wgmma_kernel<D>;
+  } else {
+    return (const void*)flash_bwd_dq_kernel<D>;
+  }
 }
 
 struct Args {
@@ -1514,6 +1987,73 @@ static cudaError_t launch_fwd_wgmma(const Args& a, dim3 grid) {
   return cudaGetLastError();
 }
 
+// the tensor maps of q, k, v and dO (contiguous) for a bf16 backward
+// kernel, m[0 .. 3]: boxes of q_rows rows of q and dO, kv_rows of k and v
+template <int D>
+static cudaError_t bwd_maps(const Args& a, int q_rows, int kv_rows,
+                            CUtensorMap (&m)[4]) {
+  const Strides so = {(long long)a.Sq * a.H * D, (long long)a.H * D, D};
+  cudaError_t err = tile_map<D>(&m[0], a.q, a.H, a.Sq, a.B, a.sq, q_rows);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&m[1], a.k, a.KV, a.Sk, a.B, a.sk, kv_rows);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&m[2], a.v, a.KV, a.Sk, a.B, a.sv, kv_rows);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&m[3], a.dO, a.H, a.Sq, a.B, so, q_rows);
+  return err;
+}
+
+// the dK/dV kernel over T on its grid; the bf16 kernel after its tensor
+// maps (q and dO in q tiles, k and v in the resident 64 rows)
+template <int D, typename T>
+static cudaError_t launch_dkdv(const Args& a, dim3 grid) {
+  constexpr size_t smem = dkdv_smem<D, T>();
+  const int G = a.H / a.KV;
+  cudaError_t err = allow_smem(dkdv_kernel<D, T>(), smem);
+  if constexpr (is_bf16<T>) {
+    using C = WgmmaBwd<D>;
+    CUtensorMap m[4];
+    if (err == cudaSuccess) err = bwd_maps<D>(a, C::BQ, ROWS, m);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_wgmma_kernel<D><<<grid, 128 * C::WG, smem, a.stream>>>(
+        m[0], m[1], m[2], m[3], a.lse, a.Dd, (bf16*)a.dk, (bf16*)a.dv,
+        a.parts, a.H, G, a.Sq, a.Sk, a.causal, a.scale, a.split, a.chunk);
+  } else {
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_kernel<D><<<grid, 128 * groups<D>(), smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dO, a.lse,
+        a.Dd, (T*)a.dk, (T*)a.dv, a.parts, a.H, G, a.Sq, a.Sk, a.sq, a.sk,
+        a.sv, a.causal, a.scale, a.split, a.chunk);
+  }
+  return cudaGetLastError();
+}
+
+// the dQ kernel over T on its grid, its partials at `parts`; the bf16
+// kernel after its tensor maps (q and dO in the resident 64 rows, k and v
+// in k tiles)
+template <int D, typename T>
+static cudaError_t launch_dq(const Args& a, dim3 grid, float* parts) {
+  constexpr size_t smem = dq_smem<D, T>();
+  const int G = a.H / a.KV;
+  cudaError_t err = allow_smem(dq_kernel<D, T>(), smem);
+  if constexpr (is_bf16<T>) {
+    using C = WgmmaBwd<D>;
+    CUtensorMap m[4];
+    if (err == cudaSuccess) err = bwd_maps<D>(a, ROWS, C::BK, m);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wgmma_kernel<D><<<grid, 128 * C::WG, smem, a.stream>>>(
+        m[0], m[1], m[2], m[3], a.lse, a.Dd, (bf16*)a.dq, parts, a.H, G,
+        a.Sq, a.Sk, a.causal, a.scale, a.dq_split, a.dq_chunk);
+  } else {
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<D><<<grid, 128 * groups<D>(), smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dO, a.lse,
+        a.Dd, (T*)a.dq, parts, a.H, G, a.Sq, a.Sk, a.sq, a.sk, a.sv,
+        a.causal, a.scale, a.dq_split, a.dq_chunk);
+  }
+  return cudaGetLastError();
+}
+
 // `split` ranges of `chunk` k tiles each (kernels/_plan.py::
 // flash_fwd_plan); with split > 1, a.parts holds split B Sq H D partial
 // accumulators, then split B H Sq (m, l) pairs
@@ -1550,31 +2090,22 @@ static int launch_fwd(const Args& a) {
 // of `dq_chunk` k tiles per dQ block (kernels/_plan.py)
 template <int D, typename T>
 static int launch_bwd(const Args& a) {
-  constexpr int BT = dq_tile_rows<D>(), BQ = q_tile_rows<D>();
-  constexpr int NTH = 128 * groups<D>();
+  constexpr int BT = dq_tile<D, T>(), BQ = dkdv_tile<D, T>();
   if ((long long)a.split * a.chunk < (a.Sq + BQ - 1) / BQ
       || (long long)a.dq_split * a.dq_chunk < (a.Sk + BT - 1) / BT)
     return (int)cudaErrorInvalidValue;       // the ranges miss tiles
   const int G = a.H / a.KV;
   const long long rows = (long long)a.B * a.Sq * a.H;
-  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v;
-  const T* dO = (const T*)a.dO;
   flash_bwd_dot_kernel<D, T><<<(unsigned)((rows * 32 + DOT_THREADS - 1)
                                           / DOT_THREADS),
                                DOT_THREADS, 0, a.stream>>>(
-      (const T*)a.o, dO, a.Dd, a.H, a.Sq, rows);
+      (const T*)a.o, (const T*)a.dO, a.Dd, a.H, a.Sq, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr size_t smem_kv = dkdv_smem<D, T>();
-  err = allow_smem(flash_bwd_dkdv_kernel<D, T>, smem_kv);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((unsigned)((a.Sk + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
                (unsigned)a.split);
-  flash_bwd_dkdv_kernel<D, T><<<grid_kv, NTH, smem_kv, a.stream>>>(
-      q, k, v, dO, a.lse, a.Dd, (T*)a.dk, (T*)a.dv, a.parts, a.H, G, a.Sq,
-      a.Sk, a.sq, a.sk, a.sv, a.causal, a.scale, a.split, a.chunk);
-  err = cudaGetLastError();
+  err = launch_dkdv<D, T>(a, grid_kv);
   if (err != cudaSuccess) return (int)err;
   // the partials: 2 G split of dk's size, then dq_split of dq's
   const int n_parts = G * a.split;
@@ -1589,15 +2120,9 @@ static int launch_bwd(const Args& a) {
     if (err != cudaSuccess) return (int)err;
   }
 
-  constexpr size_t smem_q = dq_smem<D, T>();
-  err = allow_smem(flash_bwd_dq_kernel<D, T>, smem_q);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)((a.Sq + ROWS - 1) / ROWS), (unsigned)(a.B * a.H),
               (unsigned)a.dq_split);
-  flash_bwd_dq_kernel<D, T><<<grid_q, NTH, smem_q, a.stream>>>(
-      q, k, v, dO, a.lse, a.Dd, (T*)a.dq, parts_q, a.H, G, a.Sq, a.Sk, a.sq,
-      a.sk, a.sv, a.causal, a.scale, a.dq_split, a.dq_chunk);
-  err = cudaGetLastError();
+  err = launch_dq<D, T>(a, grid_q, parts_q);
   if (err != cudaSuccess || a.dq_split == 1) return (int)err;
   const long long n_q4 = (long long)a.B * a.Sq * a.H * D / 4;
   flash_sum_parts_kernel<T><<<(unsigned)((n_q4 + SUM_THREADS - 1)
@@ -1772,8 +2297,7 @@ extern "C" int flash_attention_bwd_bf16(
 template <int D, typename T>
 static int occupancy(int kind, int* threads, int* smem, int* blocks) {
   const void* fn = kind == 0 ? fwd_kernel<D, T>()
-                 : kind == 1 ? (const void*)flash_bwd_dkdv_kernel<D, T>
-                             : (const void*)flash_bwd_dq_kernel<D, T>;
+                 : kind == 1 ? dkdv_kernel<D, T>() : dq_kernel<D, T>();
   const size_t bytes = kind == 0 ? fwd_smem<D, T>()
                      : kind == 1 ? dkdv_smem<D, T>() : dq_smem<D, T>();
   *threads = kind == 0 ? N_THREADS : 128 * groups<D>();

@@ -1,6 +1,6 @@
 // Hopper's asynchronous pieces for a warpgroup (128 threads) on sm_90a:
 // wgmma products with shared-memory descriptors, mbarriers, and TMA tile
-// loads. Used by the bf16 flash forward (flash_attention.cu).
+// loads. Used by the bf16 flash forward and backward (flash_attention.cu).
 //
 // Tiles are written by TMA with a 128-byte swizzle (64-byte at rows of 64
 // bytes): rows of R = 128 (64) bytes, the 16-byte chunk c of row r stored
@@ -13,9 +13,10 @@
 //     A k step of 16 bf16 (32 bytes) inside a swizzled row moves the start
 //     address by 32 bytes: the hardware applies the swizzle to the address
 //     it forms, as TMA did.
-//   MN-major (M or N contiguous; V as the B operand of P V, the transpose
-//     bit): SBO = 8 R, from one 8-row atom to the next along K; LBO from
-//     one R-byte-wide column slab to the next along N.
+//   MN-major (M or N contiguous; V as the B operand of P V, and dO, Q, K
+//     in the backward, the transpose bit): SBO = 8 R, from one 8-row atom
+//     to the next along K; LBO from one R-byte-wide column slab to the
+//     next along N.
 //
 // Accumulators are float d[N / 8][4] in mma.sync's C layout: warp w of the
 // warpgroup holds rows 16 w .. 16 w + 15, and d[j] the 8 columns 8 j ..

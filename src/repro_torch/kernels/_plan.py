@@ -79,6 +79,9 @@ FLASH_CHUNK_STEPS = 32  # the range planner tries chunks at n / 32 steps
 
 
 FLASH_FWD_BLOCKS_BF16 = {32: 4, 64: 3, 128: 2, 256: 2}
+# the bf16 backward's (dK/dV, dQ) blocks an SM (WgmmaBwd's KV_BLOCKS,
+# Q_BLOCKS): one block of two warpgroups at d = 256
+FLASH_BWD_BLOCKS_BF16 = {32: (3, 4), 64: (3, 3), 128: (2, 2), 256: (1, 1)}
 
 
 def flash_tile(d: int, esize: int = 4) -> int:
@@ -101,17 +104,24 @@ def flash_fwd_blocks(d: int, esize: int = 4) -> int:
     return FLASH_FWD_BLOCKS_BF16[d] if esize == 2 else 2
 
 
-def flash_dq_tile(d: int) -> int:
-    """Rows of the k tiles the dQ kernel streams at head dim ``d`` (the
-    kernels' ``dq_tile_rows``: 16 at d >= 128, so that two blocks share an
-    SM at d = 128)."""
+def flash_dq_tile(d: int, esize: int = 4) -> int:
+    """Rows of the k tiles the dQ kernel streams at head dim ``d``: the f32
+    kernel's ``dq_tile_rows`` (16 at d >= 128, so that two blocks share an
+    SM at d = 128), or the bf16 ``wgmma`` kernel's ``WgmmaBwd::BK`` (the N
+    of its S and dP products: 64, and 32 at d = 256)."""
+    if esize == 2:
+        return 32 if d == 256 else 64
     return 64 if d <= 64 else 16
 
 
-def flash_q_tile(d: int) -> int:
-    """Rows of the q tiles the dK/dV kernel streams at head dim ``d`` (the
-    kernels' ``q_tile_rows``: 32 where it splits them to TF32 once, d <=
-    64, else 16)."""
+def flash_q_tile(d: int, esize: int = 4) -> int:
+    """Rows of the q tiles the dK/dV kernel streams at head dim ``d``: the
+    f32 kernel's ``q_tile_rows`` (32 where it splits them to TF32 once, d
+    <= 64, else 16), or the bf16 ``wgmma`` kernel's ``WgmmaBwd::BQ`` (the
+    N of its S^T and dP^T products: 64, and 32 at d >= 128, where the dK
+    and dV accumulators take 128 registers a thread)."""
+    if esize == 2:
+        return 32 if d >= 128 else 64
     return 32 if d <= 64 else 16
 
 
@@ -137,56 +147,76 @@ def _xchg_floats(d: int, rows: int) -> int:
 # The three sizes below model csrc/flash_attention.cu's fwd_smem, dkdv_smem
 # and dq_smem; chip_smoke.py phase 3c and tests/test_torch_cuda.py hold
 # them, and flash_blocks_per_sm, to the library's flash_attention_occupancy
-# (and flash_attention_occupancy_bf16). Tiles hold elements of ``esize``
-# bytes at a pitch of d + 16 / esize (but the bf16 forward's, which are
-# swizzled and unpadded); lse, D and the exchange are f32.
+# (and flash_attention_occupancy_bf16). f32 tiles are padded to a pitch of
+# d + 4 floats; lse, D and the exchange are f32. A bf16 ``wgmma`` block
+# (the forward, dK/dV and dQ) asks for the SM's share of one of its launch
+# bound's blocks, which holds its ``mbarrier``s, up to 1 KB that aligns
+# the swizzled, unpadded tiles, the resident tiles and as many ring stages
+# as fit (``WgmmaFwd::STAGES``, ``WgmmaBwd::KV_STAGES``, ``Q_STAGES``).
 def flash_fwd_smem(d: int, esize: int = 4) -> int:
     """Shared memory bytes of a forward block (``launch_fwd``). f32: the
     resident Q tile and two stages of K and V tiles. bf16: the SM's
-    share of one of ``flash_fwd_blocks`` blocks, which holds the
-    ``mbarrier``s, up to 1 KB that aligns the swizzled tiles, the Q tile
-    and as many stages of K and V tiles as fit (``WgmmaFwd::STAGES``)."""
+    share of one of ``flash_fwd_blocks`` blocks (the Q tile and the K and
+    V ring)."""
     if esize == 2:
         return SM_SMEM // flash_fwd_blocks(d, 2) - BLOCK_SMEM
     return esize * (FLASH_ROWS + 4 * flash_tile(d)) * flash_pitch(d, esize)
 
 
+def flash_bwd_blocks(d: int, esize: int = 4) -> Tuple[int, int]:
+    """(dK/dV, dQ) blocks an SM the backward kernels' launch bounds
+    promise: in f32 two blocks of 4 warps, one of 8 at d = 256; in bf16
+    ``WgmmaBwd``'s KV_BLOCKS and Q_BLOCKS (3/4, 3/3, 2/2, 1/1 at d = 32,
+    64, 128, 256), what the registers of each block's accumulators, score
+    tiles and bf16 fragments leave room for."""
+    if esize == 2:
+        return FLASH_BWD_BLOCKS_BF16[d]
+    blocks = 2 // flash_groups(d)
+    return blocks, blocks
+
+
 def flash_dkdv_smem(d: int, esize: int = 4) -> int:
-    """Shared memory bytes of a dK/dV block (``launch_bwd``): resident K
-    and V, two stages of (Q, dO, lse, D) tiles, the TF32 parts of a Q and
-    a dO tile at d <= 64 (f32 only), the P / dP exchange at d = 256."""
-    bq, ld = flash_q_tile(d), flash_pitch(d, esize)
-    presplit = d <= 64 and esize == 4
-    return (esize * (2 * FLASH_ROWS * ld + 4 * bq * ld)
+    """Shared memory bytes of a dK/dV block (``launch_bwd``). f32: resident
+    K and V, two stages of (Q, dO, lse, D) tiles, the TF32 parts of a Q
+    and a dO tile at d <= 64, the P / dP exchange at d = 256. bf16: the
+    SM's share of one of ``flash_bwd_blocks``'s dK/dV blocks (resident K
+    and V, the Q and dO ring, two lse and D slices, the exchange)."""
+    if esize == 2:
+        return SM_SMEM // flash_bwd_blocks(d, 2)[0] - BLOCK_SMEM
+    bq, ld = flash_q_tile(d), flash_pitch(d)
+    presplit = d <= 64
+    return (4 * (2 * FLASH_ROWS * ld + 4 * bq * ld)
             + 4 * (4 * bq + presplit * 4 * bq * ld + _xchg_floats(d, bq)))
 
 
 def flash_dq_smem(d: int, esize: int = 4) -> int:
-    """Shared memory bytes of a dQ block (``launch_bwd``): resident Q and
-    dO, two stages of K and V tiles, the P / dP exchange at d = 256."""
-    bt, ld = flash_dq_tile(d), flash_pitch(d, esize)
-    return (esize * (2 * FLASH_ROWS * ld + 4 * bt * ld)
-            + 4 * _xchg_floats(d, bt))
+    """Shared memory bytes of a dQ block (``launch_bwd``). f32: resident Q
+    and dO, two stages of K and V tiles, the P / dP exchange at d = 256.
+    bf16: the SM's share of one of ``flash_bwd_blocks``'s dQ blocks
+    (resident Q and dO, the K and V ring, the exchange)."""
+    if esize == 2:
+        return SM_SMEM // flash_bwd_blocks(d, 2)[1] - BLOCK_SMEM
+    bt, ld = flash_dq_tile(d), flash_pitch(d)
+    return 4 * (2 * FLASH_ROWS * ld + 4 * bt * ld) + 4 * _xchg_floats(d, bt)
 
 
-def flash_blocks_per_sm(smem: int, groups: int = 1, bound: int = 2) -> int:
+def flash_blocks_per_sm(smem: int, bound: int = 2) -> int:
     """Blocks of one flash kernel an SM holds at once: as many as its
-    shared memory fits, at most what the kernel's launch bounds promise:
-    ``bound`` blocks of 4 warps (2 in the f32 kernels and the backward;
-    ``flash_fwd_blocks`` for the bf16 forward), half as many of 8
-    (``groups`` = 2; more would need fewer registers than they may
-    use)."""
-    return max(1, min(bound // groups, SM_SMEM // (smem + BLOCK_SMEM)))
+    shared memory fits, at most ``bound``, what the kernel's launch bounds
+    promise (``flash_fwd_blocks``, ``flash_bwd_blocks``; 2 for the f32
+    kernels of 4 warps)."""
+    return max(1, min(bound, SM_SMEM // (smem + BLOCK_SMEM)))
 
 
 def flash_warps_per_sm(d: int, esize: int = 4) -> Tuple[int, int, int]:
     """Resident warps per SM of the forward, dK/dV and dQ kernels at head
     dim ``d``."""
-    wg = flash_groups(d)
+    warps = 4 * flash_groups(d)
+    kv, q = flash_bwd_blocks(d, esize)
     return (4 * flash_blocks_per_sm(flash_fwd_smem(d, esize),
-                                    bound=flash_fwd_blocks(d, esize)),
-            4 * wg * flash_blocks_per_sm(flash_dkdv_smem(d, esize), wg),
-            4 * wg * flash_blocks_per_sm(flash_dq_smem(d, esize), wg))
+                                    flash_fwd_blocks(d, esize)),
+            warps * flash_blocks_per_sm(flash_dkdv_smem(d, esize), kv),
+            warps * flash_blocks_per_sm(flash_dq_smem(d, esize), q))
 
 
 def _makespan(costs, cap: int) -> float:
@@ -296,7 +326,7 @@ def flash_fwd_plan(B: int, H: int, Sq: int, Sk: int, d: int,
     gets the same ranges, and the same bits, with either mask."""
     tile = flash_tile(d, esize)
     cap = SMS * flash_blocks_per_sm(flash_fwd_smem(d, esize),
-                                    bound=flash_fwd_blocks(d, esize))
+                                    flash_fwd_blocks(d, esize))
     return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
                        B * H, cap, SMS)
 
@@ -319,11 +349,12 @@ def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int, d: int,
                     esize: int = 4) -> Tuple[int, int, int]:
     """``(split, chunk, parts)`` of the flash backward's dK/dV kernel. A
     block owns one (b, query head, k tile of FLASH_ROWS keys), all d
-    columns, and walks the q tiles (of ``flash_q_tile(d)`` rows) at or
-    above its diagonal: k tile 0 has them all, the last one few. Where
-    those blocks come to less than two waves of the card (SMS x
-    ``flash_blocks_per_sm``: two 4-warp blocks an SM at d <= 128, one
-    8-warp block at d = 256), so that the scheduler cannot even out their
+    columns, and walks the q tiles (of ``flash_q_tile(d, esize)`` rows)
+    at or above its diagonal: k tile 0 has them all, the last one few.
+    Where those blocks come to less than two waves of the card (SMS x
+    ``flash_blocks_per_sm`` at the launch bound ``flash_bwd_blocks``: in
+    f32 two 4-warp blocks an SM at d <= 128, one 8-warp block at d = 256),
+    so that the scheduler cannot even out their
     causal lengths, each k tile's q tiles are cut into ranges of
     ``chunk`` tiles (``_range_plan``, which times the blocks on the
     card's slots), ``split`` ranges a k tile. granite-3-8b (B 1 H 32 S 512
@@ -331,11 +362,11 @@ def flash_dkdv_plan(B: int, H: int, KV: int, Sq: int, Sk: int, d: int,
     on average; chunk 23. ``parts`` = (H / KV) split partial dK/dV the sum
     pass adds in order (query head of the group, then range; a range with
     no q tile is skipped); at 1 the blocks write dK/dV themselves."""
-    bq = flash_q_tile(d)
+    bq = flash_q_tile(d, esize)
     nq = -(-Sq // bq)
     counts = [nq - min(k0 // bq, nq) for k0 in range(0, Sk, FLASH_ROWS)]
     cap = SMS * flash_blocks_per_sm(flash_dkdv_smem(d, esize),
-                                    flash_groups(d))
+                                    flash_bwd_blocks(d, esize)[0])
     split, chunk = _range_plan(counts, nq, B * H, cap, 2 * cap)
     return split, chunk, (H // KV) * split
 
@@ -345,13 +376,14 @@ def flash_dq_plan(B: int, H: int, Sq: int, Sk: int, d: int,
                   esize: int = 4) -> Tuple[int, int]:
     """``(split, chunk)`` of the dQ kernel: a block owns one (b, h, q tile
     of FLASH_ROWS queries) and walks its causal k tiles (of
-    ``flash_dq_tile(d)`` keys); where those blocks come to less than two
+    ``flash_dq_tile(d, esize)`` keys); where those blocks come to less than two
     waves of the card, each q tile's k tiles are cut into ranges of
     ``chunk`` tiles (``_range_plan``), ``split`` ranges a q tile. More
     than one range means as many partial dQ, summed in range order (a
     range with no k tile is skipped)."""
-    tile = flash_dq_tile(d)
-    cap = SMS * flash_blocks_per_sm(flash_dq_smem(d, esize), flash_groups(d))
+    tile = flash_dq_tile(d, esize)
+    cap = SMS * flash_blocks_per_sm(flash_dq_smem(d, esize),
+                                    flash_bwd_blocks(d, esize)[1])
     return _range_plan(_causal_k_tiles(Sq, Sk, tile), -(-Sk // tile),
                        B * H, cap, 2 * cap)
 

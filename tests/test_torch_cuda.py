@@ -594,12 +594,14 @@ def test_cuda_flash_occupancy_is_the_plans_model(d):
 
     model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
              "dq": _plan.flash_dq_smem}
+    bound = dict(zip(("fwd", "dkdv", "dq"),
+                     (2,) + _plan.flash_bwd_blocks(d)))
     occ = fa.cuda_flash_occupancy(d)
     for kind, (threads, smem, blocks) in occ.items():
         groups = 1 if kind == "fwd" else _plan.flash_groups(d)
-        assert (threads, smem, min(blocks, 2)) == (
+        assert (threads, smem, min(blocks, bound[kind])) == (
             128 * groups, model[kind](d),
-            _plan.flash_blocks_per_sm(model[kind](d))), kind
+            _plan.flash_blocks_per_sm(model[kind](d), bound[kind])), kind
     assert [occ[k][0] // 32 * min(occ[k][2], 2)
             for k in ("fwd", "dkdv", "dq")] == list(
         _plan.flash_warps_per_sm(d))
@@ -674,26 +676,25 @@ def test_cuda_flash_bf16_matches_plain(B, Sq, Sk, H, KV, d, causal):
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_cuda_flash_bf16_occupancy_is_the_plans_model(d):
     """The bf16 kernels' threads, shared memory and blocks an SM are those
-    ``_plan`` models at esize 2: the backward's tiles half the f32 ones',
-    at most its launch bound's 2 blocks of 4 warps (1 of 8); the
-    ``wgmma`` forward exactly its launch bound's ``flash_fwd_blocks``
-    (4, 3, 2, 2), its shared memory the SM's share of one of them."""
+    ``_plan`` models at esize 2: each ``wgmma`` kernel exactly its launch
+    bound's blocks (the forward's ``flash_fwd_blocks``, the backward's
+    ``flash_bwd_blocks``), its shared memory the SM's share of one of
+    them; 128 threads a warpgroup, two in the backward at d = 256."""
     _need_cuda()
     from repro_torch.kernels import _plan
 
     model = {"fwd": _plan.flash_fwd_smem, "dkdv": _plan.flash_dkdv_smem,
              "dq": _plan.flash_dq_smem}
+    bound = dict(zip(("fwd", "dkdv", "dq"), (_plan.flash_fwd_blocks(d, 2),)
+                     + _plan.flash_bwd_blocks(d, 2)))
     occ = fa.cuda_flash_occupancy(d, torch.bfloat16)
     for kind, (threads, smem, blocks) in occ.items():
         groups = 1 if kind == "fwd" else _plan.flash_groups(d)
-        bound = _plan.flash_fwd_blocks(d, 2) if kind == "fwd" else 2
-        assert (threads, smem, min(blocks, bound // groups)) == (
-            128 * groups, model[kind](d, 2),
-            _plan.flash_blocks_per_sm(model[kind](d, 2), groups,
-                                      bound)), kind
-    assert occ["fwd"] == (128, _plan.flash_fwd_smem(d, 2),
-                          _plan.flash_fwd_blocks(d, 2))
-    assert 4 * occ["fwd"][2] == _plan.flash_warps_per_sm(d, 2)[0]
+        assert (threads, smem, blocks) == (
+            128 * groups, model[kind](d, 2), bound[kind]), kind
+        assert _plan.flash_blocks_per_sm(smem, bound[kind]) == blocks
+    assert [occ[k][0] // 32 * occ[k][2] for k in ("fwd", "dkdv", "dq")] == (
+        list(_plan.flash_warps_per_sm(d, 2)))
 
 
 @pytest.mark.cuda
@@ -763,6 +764,78 @@ def test_cuda_flash_bf16_forward_reads_packed_views(d, KV):
         *(t.float() for t in views), o_p.float(), lse_p,
         torch.zeros_like(o_p, dtype=torch.float32), True, u=2.0 ** -8)
     cs._gate_bf16(f"flash bf16 fwd packed d{d} o", o, o_p, tol_o)
+
+
+def _bf16_backward_gate(cs, name, q, k, v, o_p, lse_p, do, grads, causal):
+    """Phase 3c-bf16's gate on (dq, dk, dv): the f32-accumulation bound
+    with P's and dS's rounding to bf16 (u = 2^-8), plus a bf16 ulp."""
+    grads_p = ref.flash_attention_bwd_ref(q, k, v, o_p, lse_p, do, causal)
+    _, tols, _ = cs.flash_tolerances(
+        q.float(), k.float(), v.float(), o_p.float(), lse_p, do.float(),
+        causal, u=2.0 ** -8)
+    for g_name, g, w, tol in zip(("dq", "dk", "dv"), grads, grads_p, tols):
+        assert g.dtype == torch.bfloat16
+        cs._gate_bf16(f"flash bf16 bwd {name} {g_name}", g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal", [
+    (2, 200, 200, 4, 1, 32, True),       # ragged, G 4
+    (1, 384, 384, 8, 1, 64, True),       # G 8
+    (1, 384, 384, 8, 8, 128, True),      # G 1
+    (1, 200, 200, 4, 2, 256, True),      # two warpgroups
+    (1, 96, 160, 8, 1, 128, True),       # Sq < Sk: k tiles past Sq
+    (1, 160, 96, 4, 4, 256, True),       # Sq > Sk
+    (2, 200, 384, 4, 1, 64, False),      # non-causal, Sq < Sk
+    (1, 384, 200, 8, 8, 32, False),      # non-causal, Sq > Sk
+    (1, 512, 512, 4, 1, 256, True),      # split plans (gemma3-1b global)
+    (1, 512, 512, 32, 8, 128, True),     # G 4, dK/dV partials (granite)
+    (3, 1, 77, 2, 1, 64, True)])         # one query
+def test_cuda_flash_bf16_wgmma_backward_matches_plain(B, Sq, Sk, H, KV, d,
+                                                      causal):
+    """The bf16 backward (``wgmma`` and TMA) against the plain version on
+    the same bf16 inputs, fed the plain forward's o and lse: dq, dk and dv
+    within phase 3c-bf16's bound; two calls bitwise equal; one launch a
+    call."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(B, Sq, H, KV, d, Sk,
+                                                        seed=8))
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal)
+    before = fa.cuda_flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    torch.cuda.synchronize()
+    assert fa.cuda_flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+    _bf16_backward_gate(cs, f"d{d}", q, k, v, o_p, lse_p, do, grads, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("KV", [4, 1])
+def test_cuda_flash_bf16_backward_reads_packed_views(d, KV):
+    """q, k and v as strided views of one packed (B, S, 3, H, d) bf16
+    buffer (k, v: its first KV heads), read through the tensor maps'
+    strides: bitwise the same dq, dk and dv as their contiguous copies,
+    and within phase 3c-bf16's bound of the plain version."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    B, S, H = 2, 200, 4
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, d)).astype(
+        np.float32)).cuda().bfloat16()
+    do = torch.from_numpy(rng.standard_normal((B, S, H, d)).astype(
+        np.float32)).cuda().bfloat16()
+    views = [qkv[:, :, 0], qkv[:, :, 1, :KV], qkv[:, :, 2, :KV]]
+    o_p, lse_p = ref.flash_attention_fwd_ref(*views, True)
+    grads = fa.cuda_flash_attention_bwd(*views, o_p, lse_p, do, True)
+    copies = fa.cuda_flash_attention_bwd(
+        *(t.contiguous() for t in views), o_p, lse_p, do, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, c) for g, c in zip(grads, copies))
+    _bf16_backward_gate(cs, f"packed d{d}", *views, o_p, lse_p, do, grads,
+                        True)
 
 
 @pytest.mark.cuda

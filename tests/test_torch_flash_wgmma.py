@@ -105,29 +105,31 @@ def test_bf16_forward_occupancy_model(d, tile, blocks, smem, warps):
     assert _plan.SM_SMEM // (smem + _plan.BLOCK_SMEM) == blocks
     assert _plan.flash_blocks_per_sm(smem, bound=blocks) == blocks
     assert smem <= 232_448
-    assert _plan.flash_warps_per_sm(d, 2) == (warps, 8, 8)
+    assert _plan.flash_warps_per_sm(d, 2)[0] == warps
     regs = tile // 2 + tile // 8 + d // 2
     assert 3 * regs <= 2 * min(255, 65_536 // (128 * blocks))
 
 
 @pytest.mark.parametrize("d,tile,smem,blocks,dkdv,dq,warps", [
-    (32, 64, 46_080, 2, (55_808, 20_992), (55_296, 30_720), (8, 8, 8)),
-    (64, 64, 87_040, 2, (104_960, 37_376), (104_448, 55_296), (8, 8, 8)),
-    (128, 32, 101_376, 2, (101_632, 52_480), (101_376, 52_224), (8, 8, 8)),
-    (256, 16, 133_120, 1, (208_128, 109_824), (207_872, 109_568),
-     (4, 8, 8))])
+    (32, 64, 46_080, 2, (55_808, 2), (55_296, 2), (8, 8, 8)),
+    (64, 64, 87_040, 2, (104_960, 2), (104_448, 2), (8, 8, 8)),
+    (128, 32, 101_376, 2, (101_632, 2), (101_376, 2), (8, 8, 8)),
+    (256, 16, 133_120, 1, (208_128, 1), (207_872, 1), (4, 8, 8))])
 def test_f32_and_backward_models_unchanged(d, tile, smem, blocks, dkdv, dq,
                                            warps):
     """The f32 forward's tile and shared memory, the blocks its launch
-    bound of 2 gives, and both element types' backward sizes are as
-    before the bf16 forward moved to ``wgmma``."""
+    bound of 2 gives, and the f32 backward's shared memory and blocks an
+    SM (dkdv, dq), are as before the bf16 kernels moved to ``wgmma``. The
+    bf16 backward's sizes: ``tests/test_torch_flash_wgmma_bwd.py``."""
     assert (_plan.flash_tile(d), _plan.flash_fwd_smem(d),
             _plan.flash_fwd_blocks(d)) == (tile, smem, 2)
     assert _plan.flash_blocks_per_sm(_plan.flash_fwd_smem(d)) == blocks
-    assert (_plan.flash_dkdv_smem(d), _plan.flash_dkdv_smem(d, 2)) == dkdv
-    assert (_plan.flash_dq_smem(d), _plan.flash_dq_smem(d, 2)) == dq
+    bound = _plan.flash_bwd_blocks(d)
+    for i, (smem_of, (size, n)) in enumerate(((_plan.flash_dkdv_smem, dkdv),
+                                              (_plan.flash_dq_smem, dq))):
+        assert smem_of(d) == size
+        assert _plan.flash_blocks_per_sm(size, bound[i]) == n
     assert _plan.flash_warps_per_sm(d) == warps
-    assert _plan.flash_warps_per_sm(d, 2)[1:] == (8, 8)
 
 
 def _k_tiles(q0, Sq, Sk, bk, causal):
