@@ -154,6 +154,26 @@ continues:
         round 0 bitwise, losses within ``TP_LOSS_RTOL`` of the unsharded
         run's, flash, ``lowrank_mm`` and the int4 kernels launched
         (``tp_replicated_kv``);
+     m. membership churn (``churn``, twin of tests/test_membership.py:48-95):
+        ``diloco_round`` with ``make_inner_fn`` (flash on) and
+        ``masked_cluster_mean`` on opt-1.3b at full width, 4 of 24 layers,
+        4 clusters, H = 4, 4 x 512, rank 64 int4, 5 rounds: cluster 2
+        dead in rounds 2 and 3, back in 4 through ``reset_rejoining``.
+        Gates: Delta of a dead round bit for bit with the dead row of
+        delta_hat replaced, the rejoined rows zero at their compress,
+        ``trimmed_cluster_mean`` (trim 1) on the card bit for bit on CPU
+        copies, finite losses, the compressor's and flash's launches; ms a
+        round split into inner, compressor and mean, peak;
+     n. gossip rounds (``gossip``, twin of tests/test_topology.py:155-196):
+        a ring of 4 clusters, stacked params, constant displacements at
+        the model's leaf shapes, 3 rounds with the delay and rank 64 int4
+        through ``mixing_op``, cluster 3 dead in round 2. Gates:
+        ``mix_row(W[c])`` bit for bit row c of ``mix_stacked``, the dead
+        row through the masked mix bit for bit, the rows distinct, the
+        compressor launched C times per leaf per round; compress off, the
+        rows' mean against the gather run's params within a derived bound;
+        ms a round split into compressor, mix and the rest, peak, modeled
+        wire bytes and seconds a round at 1 Gbps, ring and gather;
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -211,8 +231,13 @@ ATOL, RTOL = 1e-5, 1e-3          # the JAX package's gate for this kernel
 SCRATCH = 1e3                    # scratch-page garbage that must never leak
 
 
+_START = time.monotonic()
+
+
 def _phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started (what
+    each phase costs of the run's time limit)."""
+    print(f"== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
 
 
 def environment():
@@ -506,6 +531,20 @@ def _wrapper(attr):
     import importlib
     mod, fn = attr.split(".")
     return getattr(importlib.import_module("repro_torch.kernels." + mod), fn)
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every kernel a training phase counts: the
+    compressor's five, ``lowrank_mm`` and the flash forward and backward
+    (each wrapper's ``launches`` counts its launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_mm as lm
+
+    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
+    wrappers.update(lowrank_mm=lm.cuda_matmul,
+                    flash_attention=fa.cuda_flash_attention_fwd,
+                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    return wrappers
 
 
 def train_config():
@@ -1506,8 +1545,6 @@ def train(flash=False, dtype="float32"):
     """Phase 4 (einsum), 4b (``flash``) and 4k (``flash``, ``dtype``
     "bfloat16": the model's param and compute dtypes)."""
     from repro_torch.configs.base import with_dtype
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.models import model as M
     from repro_torch.train import trainer as T
 
@@ -1532,22 +1569,13 @@ def train(flash=False, dtype="float32"):
 
     low, quant = leaf_shapes(cfg)
     n_low, n_quant = sum(low.values()), sum(quant.values())
-    calls = TRAIN_ROUNDS * tcfg.n_clusters
-    want = {"quant4_pack": calls * (n_low + n_quant),
-            "quant4_unpack": calls * n_quant,
-            "fused_project": calls * n_low,
-            "fused_project_t_pack": calls * n_low,
-            "fused_reconstruct": calls * n_low,
-            # the stacked trainer's compressor is the fused kernels (recon
-            # runs the K-resident GEMM inside its own call); lowrank_mm is
-            # the mesh runtime's
-            "lowrank_mm": 0}
+    want = compressor_launches_expected(cfg, TRAIN_ROUNDS * tcfg.n_clusters)
+    # the stacked trainer's compressor is the fused kernels (recon runs the
+    # K-resident GEMM inside its own call); lowrank_mm is the mesh runtime's
+    want["lowrank_mm"] = 0
     want.update(flash_launches_expected(cfg, tcfg, TRAIN_ROUNDS) if flash
                 else {"flash_attention": 0, "flash_attention_bwd": 0})
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers["lowrank_mm"] = lm.cuda_matmul
-    wrappers["flash_attention"] = fa.cuda_flash_attention_fwd
-    wrappers["flash_attention_bwd"] = fa.cuda_flash_attention_bwd
+    wrappers = kernel_wrappers()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2118,7 +2146,6 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
     import contextlib
     import io
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import steps
@@ -2164,10 +2191,7 @@ def mesh_driver(dev=None, argv=MESH_ARGS, cfg=None):
         made.append(make_outer_step(*a, **kw))
         return made[-1]
     want = mesh_launches_expected(cfg, args.rounds)
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2272,8 +2296,6 @@ def cocktail_ddp(dev=None, cfg=None, steps=COCKTAIL_STEPS):
     this path (plain attention, a plain compressor). Prints the wire
     bytes per step beside DiLoCoX's per round."""
     from repro_torch.core import compression as C
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.models import model as M
     from repro_torch.train import trainer as T
 
@@ -2307,10 +2329,7 @@ def cocktail_ddp(dev=None, cfg=None, steps=COCKTAIL_STEPS):
         stats["outside"] += int((kept & ~mask.reshape(-1)).sum())
         return out
 
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     gc.collect()
@@ -2430,8 +2449,6 @@ def train_pp(flash_run, dev=None, cfg=None):
     """Phase 4g: phase 4b's run through ``inner_engine="pp"``: phase 4b's
     params and warm starts mapped into the pp tree, the same data."""
     from repro_torch.core.compression import LowRankQuant
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.parallel import inner_engine as IE
@@ -2466,10 +2483,7 @@ def train_pp(flash_run, dev=None, cfg=None):
     calls = TRAIN_ROUNDS * tcfg.n_clusters
     want = pp_compressor_launches(cfg, pcfg, calls)
     want.update(pp_flash_launches_expected(cfg, tcfg, pcfg, TRAIN_ROUNDS))
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2597,8 +2611,6 @@ def pp_driver(dev=None, argv=PP_DRIVER_ARGS, cfg=None):
     import contextlib
     import io
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.launch import train as train_lib
     from repro_torch.parallel import pipeline as PP
 
@@ -2623,10 +2635,7 @@ def pp_driver(dev=None, argv=PP_DRIVER_ARGS, cfg=None):
 
     want = pp_compressor_launches(cfg, pcfg, args.rounds * args.clusters)
     want.update(flash_attention=0, flash_attention_bwd=0)
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2721,7 +2730,6 @@ def tp_driver(mesh_summary, mesh_launches, dev=None, argv=TP_ARGS, cfg=None):
     import contextlib
     import io
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as M
@@ -2750,10 +2758,7 @@ def tp_driver(mesh_summary, mesh_launches, dev=None, argv=TP_ARGS, cfg=None):
                 torch.equal(anchor[k], initial[k].to(dev))
                 and torch.equal(v[0], anchor[k]) for k, v in _items(params)))
 
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3003,8 +3008,6 @@ def tp_replicated_kv(dev=None, argv=TP_KV_ARGS, cfg=None):
     import contextlib
     import io
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lowrank_mm as lm
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as M
 
@@ -3020,10 +3023,7 @@ def tp_replicated_kv(dev=None, argv=TP_KV_ARGS, cfg=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     initial = {k: v.cpu() for k, v in _items(M.init_params(cfg, gen, dev))}
-    wrappers = {name: _wrapper(attr) for name, attr, _, _ in COMPRESS_KERNELS}
-    wrappers.update(lowrank_mm=lm.cuda_matmul,
-                    flash_attention=fa.cuda_flash_attention_fwd,
-                    flash_attention_bwd=fa.cuda_flash_attention_bwd)
+    wrappers = kernel_wrappers()
     runs = {}
     for name, a in (("unsharded", unsharded), ("sharded", args)):
         round0 = []
@@ -3076,6 +3076,399 @@ def tp_replicated_kv(dev=None, argv=TP_KV_ARGS, cfg=None):
     if unused:
         _fail(f"tp driver, replicated KV head: {unused} never launched")
     return tp["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phases 4m, 4n: membership churn and gossip rounds (core/membership.py,
+# topology/), driven through diloco_round as the JAX package's tests drive it
+# ---------------------------------------------------------------------------
+
+CLUSTER_LAYERS = 4      # of opt-1.3b's 24 (1.52 GiB a copy of the model):
+                        # 4m holds ~27 copies, 4n ~32
+CLUSTERS = 4
+CHURN = dict(n_clusters=CLUSTERS, local_batch=4, seq_len=512, h_steps=4,
+             inner_lr=1e-3, outer_lr=0.7, outer_momentum=0.9,
+             flash_attention=True, seed=0)
+CHURN_ALIVE = [(1, 1, 1, 1), (1, 1, 1, 1), (1, 1, 0, 1), (1, 1, 0, 1),
+               (1, 1, 1, 1)]    # cluster 2 dead in rounds 2 and 3, back in 4
+TRIM_ROUND = 2          # the round whose delta_hat 4m's trimmed mean takes
+GOSSIP_ROUNDS = 3
+GOSSIP_DEAD_ROUND = 2   # 4n's round with cluster 3 dead
+GOSSIP_STEP = 4e-3      # scale of 4n's constant per-cluster displacements
+F32_EPS = 2.0 ** -24    # f32 unit roundoff
+
+
+def cluster_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("opt-1.3b"),
+                               n_layers=CLUSTER_LAYERS)
+
+
+def compressor_launches_expected(cfg, calls):
+    """The stacked round's compressor launches: ``calls`` roundtrips (one
+    per cluster and round, dead or alive, as the JAX package compresses
+    every row), each one pack per leaf, one unpack per quant-only leaf and
+    the three fused kernels per low-rank leaf."""
+    low, quant = leaf_shapes(cfg)
+    n_low, n_quant = sum(low.values()), sum(quant.values())
+    return {"quant4_pack": calls * (n_low + n_quant),
+            "quant4_unpack": calls * n_quant,
+            "fused_project": calls * n_low,
+            "fused_project_t_pack": calls * n_low,
+            "fused_reconstruct": calls * n_low}
+
+
+def _sync_s(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def _compressor():
+    from repro_torch.core.compression import make_compressor
+    return make_compressor("diloco_x", rank=RANK, bits=4, block=256,
+                           backend="pallas")
+
+
+def churn(dev=None, cfg=None):
+    """Phase 4m (twin of tests/test_membership.py:48-95): ``diloco_round``
+    with ``make_inner_fn`` (flash on) and ``masked_cluster_mean`` on
+    opt-1.3b at full width, ``CLUSTER_LAYERS`` layers, 4 clusters,
+    LowRankQuant rank 64 int4, 5 rounds: all alive, then cluster 2 dead in
+    rounds 2-3, then back in round 4, where ``reset_rejoining`` zeroes its
+    pending and EF rows. Gates: in a dead round Delta is bit for bit the
+    same with the dead row of delta_hat replaced by other finite values;
+    the rejoined rows reach that round's compress exactly zero;
+    ``trimmed_cluster_mean`` (trim 1) of round 2's delta_hat on the card
+    bit for bit the same function on CPU copies; finite losses; the
+    compressor and flash launches as the path requires. Prints ms per
+    round split into inner steps, compressor and mean, and the peak."""
+    from repro_torch import tree as TR
+    from repro_torch.core import diloco as D
+    from repro_torch.core import membership as MB
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import trainer as T
+
+    cfg = cfg or cluster_config()
+    dev = dev or torch.device("cuda")
+    tcfg = T.TrainConfig(**CHURN)
+    C, H, rounds = tcfg.n_clusters, tcfg.h_steps, len(CHURN_ALIVE)
+    _phase(f"churn: diloco_round, make_inner_fn and masked_cluster_mean on "
+           f"opt-1.3b d_model {cfg.d_model}, {cfg.n_layers} of 24 layers, "
+           f"vocab {cfg.vocab_size}, {CHURN}, LowRankQuant rank {RANK} int4,"
+           f" alive per round {CHURN_ALIVE}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen, dev)
+    comp = T._TimedCompressor(_compressor(), dev)
+    timed_roundtrip = comp.roundtrip
+    saw_zero = []                # per roundtrip: was the row all zero
+
+    def roundtrip(tree, state, rank=None):
+        saw_zero.append(not any(bool(x.any()) for x in TR.leaves(tree)))
+        return timed_roundtrip(tree, state, rank)
+    comp.roundtrip = roundtrip
+    state = D.init_state(params, T._init_inner_stacked(params, C), C, comp)
+    del params
+    data = SyntheticLM(cfg.vocab_size, tcfg.seq_len, tcfg.local_batch,
+                       seed=tcfg.seed)
+    inner = T._Timed(T.make_inner_fn(cfg, tcfg, data.table), dev)
+    mean = T._Timed(MB.masked_cluster_mean, dev)
+    rcfg = D.RoundConfig(outer_lr=tcfg.outer_lr,
+                         outer_momentum=tcfg.outer_momentum)
+    gates = dict(dead=[], rejoin=[], trimmed=None)
+    gate_s = [0.0]
+
+    def cluster_mean(alive, r):
+        m = torch.tensor(alive, dtype=torch.float32, device=dev)
+        dead = [c for c in range(C) if not alive[c]]
+        live = [c for c in range(C) if alive[c]]
+
+        def cm(delta_hat):
+            Delta = mean(delta_hat, m)
+            t0 = _sync_s(dev)
+            want = dict(_items(Delta))
+            for k, x in (_items(delta_hat) if dead else ()):
+                alt = x.clone()
+                for c in dead:
+                    torch.add(x[live[0]], x[c], alpha=-3.0, out=alt[c])
+                    alt[c].add_(1.0)
+                moved = not torch.equal(alt[dead[0]], x[dead[0]])
+                same = torch.equal(MB.masked_cluster_mean({"x": alt}, m)["x"],
+                                   want[k])
+                gates["dead"].append((r, k, moved and same))
+                del alt
+            if r == TRIM_ROUND:
+                worst, card_s, cpu_s = True, 0.0, 0.0
+                m_cpu = m.cpu()
+                for k, x in _items(delta_hat):
+                    t1 = _sync_s(dev)
+                    got = MB.trimmed_cluster_mean({"x": x}, m, 1)["x"]
+                    t2 = _sync_s(dev)
+                    ref = MB.trimmed_cluster_mean({"x": x.cpu()}, m_cpu, 1)
+                    cpu_s += time.perf_counter() - t2
+                    card_s += t2 - t1
+                    worst &= torch.equal(got.cpu(), ref["x"])
+                gates["trimmed"] = (worst, card_s, cpu_s)
+            gate_s[0] += _sync_s(dev) - t0
+            return Delta
+        return cm
+
+    wrappers = kernel_wrappers()
+    want = compressor_launches_expected(cfg, rounds * C)
+    steps = rounds * C * H
+    want.update(flash_attention=steps * 2 * cfg.n_layers,
+                flash_attention_bwd=steps * cfg.n_layers, lowrank_mm=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"memory in use before the rounds: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for w in wrappers.values():
+        w.launches = 0
+    losses, prev = [], CHURN_ALIVE[0]
+    for r, alive in enumerate(CHURN_ALIVE):
+        rejoined = [a and not p for a, p in zip(alive, prev)]
+        t0 = _sync_s(dev)
+        before = (inner.total, timed_roundtrip.total, mean.total, gate_s[0])
+        first_call = len(saw_zero)
+        if any(rejoined):
+            MB.reset_rejoining(state.delta_pending, rejoined)
+            MB.reset_rejoining(state.error, rejoined)
+        state, aux = D.diloco_round(state, inner, comp,
+                                    cluster_mean(alive, r), rcfg, RANK)
+        t1 = _sync_s(dev)
+        for c in range(C):
+            if rejoined[c]:
+                gates["rejoin"].append((r, c, saw_zero[first_call + c]))
+        losses.append(aux)
+        inner_s, comp_s, mean_s, g_s = (
+            a - b for a, b in zip((inner.total, timed_roundtrip.total,
+                                   mean.total, gate_s[0]), before))
+        round_s = t1 - t0 - g_s
+        print(f"round {r}: alive {alive}, loss per cluster "
+              f"{[round(float(x), 6) for x in aux.float().mean(1)]}, round "
+              f"{1e3 * round_s:.1f} ms: inner {1e3 * inner_s:.1f} ms "
+              f"({1e3 * inner_s / (C * H):.1f} a step), compressor "
+              f"{1e3 * comp_s:.1f} ms, mean {1e3 * mean_s:.2f} ms, other "
+              f"{1e3 * (round_s - inner_s - comp_s - mean_s):.1f} ms; gates "
+              f"{1e3 * g_s:.1f} ms", flush=True)
+        prev = alive
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    trim_ok, card_s, cpu_s = gates["trimmed"]
+    n_dead = sum(ok for _, _, ok in gates["dead"])
+    print(f"churn: peak {peak / 2**30:.2f} GiB at {cfg.n_layers} layers; "
+          f"dead-row gate {n_dead}/{len(gates['dead'])} leaves bit for bit "
+          f"over rounds {sorted({r for r, _, _ in gates['dead']})}; rejoined "
+          f"rows zero at their compress {gates['rejoin']}; trimmed mean "
+          f"(trim 1, round {TRIM_ROUND}) card = CPU bit for bit: {trim_ok} "
+          f"(card {1e3 * card_s:.1f} ms, CPU {cpu_s:.1f} s); launches "
+          f"{launches} (expected {want})", flush=True)
+    if not all(torch.isfinite(x).all() for x in losses):
+        _fail(f"churn: non-finite losses {losses}")
+    if not gates["dead"] or n_dead != len(gates["dead"]):
+        _fail(f"churn: Delta depends on a dead row: "
+              f"{[g for g in gates['dead'] if not g[2]]}")
+    if not gates["rejoin"] or not all(ok for _, _, ok in gates["rejoin"]):
+        _fail(f"churn: a rejoined row reached its compress non-zero "
+              f"{gates['rejoin']}")
+    if not trim_ok:
+        _fail("churn: trimmed_cluster_mean on the card differs from the CPU")
+    if launches != want:
+        _fail(f"churn: launches {launches}, expected {want}")
+    return launches
+
+
+def gossip(dev=None, cfg=None):
+    """Phase 4n (twin of tests/test_topology.py:155-196 at width): a ring
+    of 4 clusters, params stacked by ``stack_replicas``, constant
+    per-cluster displacements from a seeded generator at the model's leaf
+    shapes, 3 rounds with the delay and LowRankQuant rank 64 int4 through
+    ``mixing_op(ring)``; in round 2 cluster 3 is dead. Gates:
+    ``mix_row(W[c])`` bit for bit row c of ``mix_stacked`` on the card;
+    the dead cluster's row passes through the masked mix bit for bit; the
+    rows differ after the rounds; the compressor launched C times per leaf
+    per round; then, compress off, the rows' mean against the gather
+    run's params within a derived bound. Prints ms per round split into
+    compressor, mix and the rest (pseudo-gradient, EF, outer step), the
+    peak, and the modeled wire bytes and seconds of a round at 1 Gbps:
+    the ring's from ``gossip_round_comm``, the gather's from
+    ``round_wire_total``, at the compressor's payload."""
+    import numpy as np
+
+    from repro_torch import tree as TR
+    from repro_torch.core import comm
+    from repro_torch.core import diloco as D
+    from repro_torch.core import membership as MB
+    from repro_torch.core.compression import Identity, tree_shapes
+    from repro_torch.models import model as M
+    from repro_torch.topology import (gossip_round_comm, make_topology,
+                                      mix_row, mixing_op, round_wire_total)
+    from repro_torch.train import trainer as T
+
+    cfg = cfg or cluster_config()
+    dev = dev or torch.device("cuda")
+    C, R = CLUSTERS, GOSSIP_ROUNDS
+    ring = make_topology("ring", C)
+    _phase(f"gossip: diloco_round through mixing_op({ring.describe()}) on "
+           f"opt-1.3b d_model {cfg.d_model}, {cfg.n_layers} of 24 layers, "
+           f"stacked params, {R} rounds, delay on, LowRankQuant rank {RANK} "
+           f"int4, cluster 3 dead in round {GOSSIP_DEAD_ROUND}")
+
+    def draw():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = M.init_params(cfg, gen, dev)
+        gen.manual_seed(1)
+        steps = TR.tree_map(
+            lambda x: torch.randn((C,) + tuple(x.shape), generator=gen,
+                                  device=dev).mul_(GOSSIP_STEP), params)
+        return params, steps
+
+    params, steps = draw()
+    shapes = tree_shapes(params)
+    stacked_inner = lambda p, o, t: (TR.tree_map(torch.sub, p, steps), o,
+                                     None)
+    comp = T._TimedCompressor(_compressor(), dev)
+    state = D.init_state(D.stack_replicas(params, C), {}, C, comp,
+                         stacked_params=True)
+    del params
+    inner = T._Timed(stacked_inner, dev)
+    gates = dict(row=[], dead=[])
+    gate_s = [0.0]
+
+    def mixer(alive, r):
+        op = mixing_op(ring, np.asarray(alive, bool))
+        timed = T._Timed(op, dev)
+        W = op.matrix.W
+
+        def mix(delta_hat):
+            Delta = timed(delta_hat)
+            t0 = _sync_s(dev)
+            if r == 1:          # the first round with non-zero deltas
+                out = dict(_items(Delta))
+                for k, x in _items(delta_hat):
+                    parts = [{"x": x[j]} for j in range(C)]
+                    gates["row"].append(all(
+                        torch.equal(mix_row(W[c], parts)["x"], out[k][c])
+                        for c in range(C)))
+            for c in range(C):
+                if not alive[c]:
+                    gates["dead"].append(all(
+                        torch.equal(a, b) for (_, a), (_, b) in zip(
+                            _items(D.take_row(Delta, c)),
+                            _items(D.take_row(delta_hat, c)))))
+            gate_s[0] += _sync_s(dev) - t0
+            return Delta
+        mix.returns_stacked, mix.matrix, mix.timed = True, op.matrix, timed
+        return mix
+
+    wrappers = kernel_wrappers()
+    want = compressor_launches_expected(cfg, R * C)
+    want.update(flash_attention=0, flash_attention_bwd=0, lowrank_mm=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    payload = comp.wire_bytes(shapes, rank=RANK)
+    for r in range(R):
+        alive = tuple(0 if (r == GOSSIP_DEAD_ROUND and c == 3) else 1
+                      for c in range(C))
+        mix = mixer(alive, r)
+        before = (inner.total, comp.roundtrip.total, gate_s[0])
+        t0 = _sync_s(dev)
+        state, _ = D.diloco_round(state, inner, comp, mix, D.RoundConfig(),
+                                  RANK)
+        t1 = _sync_s(dev)
+        inner_s, comp_s, g_s = (a - b for a, b in zip(
+            (inner.total, comp.roundtrip.total, gate_s[0]), before))
+        round_s = t1 - t0 - g_s
+        mix_s = mix.timed.total
+        gc_ring = gossip_round_comm(ring, np.asarray(alive, bool), payload,
+                                    [comm.GBPS] * C, 0.0)
+        n_alive = sum(alive)
+        gather_b = round_wire_total("gather", n_alive, payload)
+        gather_s = comm.gather_time(payload, comm.CommScenario(
+            n_clusters=n_alive))
+        print(f"round {r}: alive {alive}, spectral gap "
+              f"{mix.matrix.spectral_gap(np.asarray(alive, bool)):.6f}, "
+              f"round {1e3 * round_s:.1f} ms: compressor {1e3 * comp_s:.1f} "
+              f"ms, mix {1e3 * mix_s:.1f} ms, inner {1e3 * inner_s:.1f} ms, "
+              f"rest (pseudo-gradient, EF, outer step) "
+              f"{1e3 * (round_s - comp_s - mix_s - inner_s):.1f} ms; gates "
+              f"{1e3 * g_s:.1f} ms; modeled at 1 Gbps, payload {payload} B"
+              f" a cluster: ring {gc_ring.wire_bytes_total} B "
+              f"{gc_ring.t_comm_s:.3f} s, gather {gather_b} B "
+              f"{gather_s:.3f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    spread = max(float((x - x.mean(0)).abs().max())
+                 for _, x in _items(state.params))
+    distinct = all(any(not torch.equal(x[0], x[c]) for _, x in
+                       _items(state.params)) for c in range(1, C))
+    del state, inner, comp, mix
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # compress off, EF off: the rows' mean against the gather trajectory
+    off = D.RoundConfig(compress=False, error_feedback=False)
+    ident = Identity()
+    params, steps = draw()
+    g = D.init_state(params, {}, C, ident)
+    star = mixing_op(make_topology("star", C), np.ones(C, bool))
+    g_inner = lambda p, o, t: (TR.tree_map(lambda a, s: a[None] - s, p,
+                                           steps), o, None)
+    for _ in range(R):
+        g, _ = D.diloco_round(g, g_inner, ident, star, off)
+    gathered = {k: v.cpu() for k, v in _items(g.params)}
+    del g, params
+    params, steps = draw()
+    s = D.init_state(D.stack_replicas(params, C), {}, C, ident,
+                     stacked_params=True)
+    del params
+    ring_op = mixing_op(ring, np.ones(C, bool))
+    for _ in range(R):
+        s, _ = D.diloco_round(s, stacked_inner, ident, ring_op, off)
+    rows_mean = MB.masked_cluster_mean(s.params, torch.ones(C, device=dev))
+    # each round touches an element with at most 6C roundings of the
+    # params' size (pseudo-gradient, mix, Nesterov, the rows' mean), and
+    # momentum carries a Delta's roundings for 1 / (1 - mu) rounds
+    mu, lr = off.outer_momentum, off.outer_lr
+    worst, steps_by = (0.0, 0.0, 1.0, ""), dict(_items(steps))
+    for k, x in _items(rows_mean):
+        ref = gathered[k]
+        tol = R * 6 * C * F32_EPS * (
+            float(ref.abs().max())
+            + lr * (1 + mu) / (1 - mu) * float(steps_by[k].abs().max()))
+        err = float((x.cpu() - ref).abs().max())
+        worst = max(worst, (err / tol, err, tol, k))
+    del s, rows_mean, steps, steps_by
+    print(f"gossip: peak {peak / 2**30:.2f} GiB at {cfg.n_layers} layers; "
+          f"mix_row = mix_stacked row bit for bit on {sum(gates['row'])}/"
+          f"{len(gates['row'])} leaves; dead row through the mix bit for bit:"
+          f" {gates['dead']}; rows distinct: {distinct} (largest distance "
+          f"from the rows' mean {spread:.3e}); compress off, rows' mean vs "
+          f"gather params: worst leaf {worst[3]} error {worst[1]:.3e}, bound "
+          f"{worst[2]:.3e} (R 6 C eps (max|theta| + lr (1 + mu) / (1 - mu) "
+          f"max|step|)), ratio {worst[0]:.3e}; launches "
+          f"{launches} (expected {want})", flush=True)
+    if not gates["row"] or not all(gates["row"]):
+        _fail("gossip: mix_row differs from its row of mix_stacked")
+    if not gates["dead"] or not all(gates["dead"]):
+        _fail("gossip: the dead cluster's row did not pass through the mix")
+    if not distinct:
+        _fail("gossip: the rows are identical after the rounds")
+    if worst[0] > 1.0:
+        _fail(f"gossip: the rows' mean is {worst[0]:.3e} x the bound from "
+              f"the gather trajectory")
+    if launches != want:
+        _fail(f"gossip: launches {launches}, expected {want}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3507,6 +3900,10 @@ def main():
     dryrun_vs_card(mesh_summary)
     kv_launches = tp_replicated_kv()
     torch.cuda.empty_cache()
+    churn_launches = churn()
+    torch.cuda.empty_cache()
+    gossip_launches = gossip()
+    torch.cuda.empty_cache()
     launches, serve_ref = serve()
     launches_bf16 = serve_bf16(serve_ref)[0]
     torch.cuda.empty_cache()
@@ -3552,6 +3949,8 @@ def main():
         row["launches_pp_driver"] = pp_driver_launches[row["name"]]
         row["launches_tp_driver"] = tp_launches[row["name"]]
         row["launches_tp_kv_replicated"] = kv_launches[row["name"]]
+        row["launches_churn_4m"] = churn_launches[row["name"]]
+        row["launches_gossip_4n"] = gossip_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -3566,7 +3965,8 @@ def main():
     for name, row in flash_rows.items():
         kernels.append(dict(row, launches=flash_run[0][name],
                             launches_pp_trainer=pp_train_launches[name],
-                            launches_tp_kv_replicated=kv_launches[name]))
+                            launches_tp_kv_replicated=kv_launches[name],
+                            launches_churn_4m=churn_launches[name]))
     # the bf16 instantiations: launches of phase 4k's run (the wrappers
     # count both types; 4k trains in bf16 only)
     for name, row in flash_rows_bf16.items():

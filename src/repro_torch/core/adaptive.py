@@ -5,8 +5,11 @@ per-cluster local-step planner ``plan_h``.
 
 The controller arithmetic is host-side python/numpy, copied from the JAX
 package; the spectral estimators run in PyTorch on the tensors' device.
-The simulator's ``AdaptiveController`` and ``AdaptiveSpec`` wait for the
-simulator slice (ROADMAP A.14).
+Under a gossip topology ``plan_h``'s clamp (``gap_h_floor``) takes the
+gap of the round's masked mixing matrix,
+``topology.mixing.MixingMatrix.metropolis(topo, alive).spectral_gap(alive)``.
+The simulator's ``AdaptiveController`` and ``AdaptiveSpec`` are not ported
+yet (ROADMAP A.14, item 3).
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """DiLoCoX round state machine (port of ``repro.core.diloco``, paper Alg. 2).
 
 The algorithm, independent of how clusters are realised: ``cluster_mean``
-is injected (a stacked-axis mean on one card here).
+is injected (a stacked-axis mean on one card, the membership-masked mean of
+``core.membership``, or a neighbor gossip mix from
+``repro_torch.topology.mixing``).
 
  - Dual optimizer: inner AdamW for H local steps, outer Nesterov on the
    averaged pseudo-gradients (§2.2). Inner state persists across rounds.
@@ -11,11 +13,16 @@ is injected (a stacked-axis mean on one card here).
  - Error feedback (Alg. 2): e^t = delta^{t-1} - Delta^{t-1}
    (``error_vs_own=True``: classic e = delta - C(delta)).
  - Compression: any ``core.compression.Compressor``.
+ - Gossip topologies: when the injected averaging op is tagged
+   ``returns_stacked=True`` (``topology.mixing.mixing_op``) the round runs
+   in *gossip mode*: ``state.params`` carries one row per cluster
+   (``init_state(..., stacked_params=True)``), each cluster averages
+   compressed pseudo-gradients over its graph neighborhood only, EF is
+   the classic ``delta - C(delta)``, and the outer Nesterov update applies
+   row-wise.
 
 Cluster-stacked trees carry a leading (C,) dim, as in the JAX package, so
-the state bridges 1:1 (``checkpoint.state_to_flat``). Gossip mode (a
-``returns_stacked`` mixing op) waits for the simulator slice (ROADMAP
-A.13); ``diloco_round`` refuses it.
+the state bridges 1:1 (``checkpoint.state_to_flat``).
 
 Memory: the JAX round returns new trees. At opt-1.3b width each copy of
 the model is 3.2 GB, so ``diloco_round`` reuses the state's buffers: the
@@ -28,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
@@ -36,9 +44,11 @@ from repro_torch.optim import nesterov
 
 
 class DiLoCoXState(NamedTuple):
-    params: Any               # global params theta_t (post outer updates)
+    params: Any               # global params theta_t (post outer updates);
+                              # gossip mode: one row per cluster (stacked)
     inner_opt: Any            # per-cluster inner AdamW state (stacked)
-    outer_opt: Any            # outer Nesterov state (fp32, param-shaped)
+    outer_opt: Any            # outer Nesterov state (fp32, param-shaped;
+                              # gossip mode: stacked like params)
     delta_pending: Any        # per-cluster pseudo-grads awaiting averaging
     error: Any                # per-cluster error-feedback buffers
     comp_state: Any           # compressor warm starts (per cluster)
@@ -54,20 +64,35 @@ def take_row(tree: Any, c: int) -> Any:
 
 
 def stack_replicas(tree: Any, n_clusters: int) -> Any:
-    """An unstacked tree broadcast to one identical row per cluster."""
+    """An unstacked tree broadcast to one identical row per cluster (also
+    the gossip-mode initial params: every cluster starts from the same
+    ones)."""
     return T.tree_map(
         lambda x: x.unsqueeze(0).expand((n_clusters,) + tuple(x.shape))
         .clone(), tree)
 
 
 def init_state(params, inner_opt_state, n_clusters: int,
-               compressor: Compressor) -> DiLoCoXState:
-    """Round-0 state (the gather mode of the JAX function)."""
+               compressor: Compressor, *,
+               stacked_params: bool = False) -> DiLoCoXState:
+    """Round-0 state. ``stacked_params=True`` is gossip mode: ``params``
+    already carries the (n_clusters, ...) leading axis (see
+    ``stack_replicas``) and the outer optimizer state is stacked with it;
+    the compressor's warm start comes from row 0."""
     dev = T.leaves(params)[0].device
+    if stacked_params:
+        n = T.leaves(params)[0].shape[0]
+        if n != n_clusters:
+            raise ValueError(f"stacked params lead dim {n} != "
+                             f"n_clusters {n_clusters}")
+        lead = ()
+        comp0 = compressor.init_state(take_row(params, 0))
+    else:
+        lead = (n_clusters,)
+        comp0 = compressor.init_state(params)
     buf = lambda: T.tree_map(
-        lambda x: torch.zeros((n_clusters,) + tuple(x.shape),
-                              dtype=torch.float32, device=dev), params)
-    comp0 = compressor.init_state(params)
+        lambda x: torch.zeros(lead + tuple(x.shape), dtype=torch.float32,
+                              device=dev), params)
     return DiLoCoXState(
         params=params,
         inner_opt=inner_opt_state,
@@ -131,8 +156,8 @@ def masked_local_steps(step_fn, carry, h_max: int, h):
 
 
 def _per_cluster_view(Delta, gossip: bool):
-    """Delta as one row per cluster (a broadcast view of the gather
-    mean)."""
+    """Delta as one row per cluster: gossip mixes already return stacked
+    rows; the gather mean is broadcast (a view)."""
     if gossip:
         return Delta
     return T.tree_map(lambda D: D[None], Delta)
@@ -141,8 +166,10 @@ def _per_cluster_view(Delta, gossip: bool):
 def _error_feedback(cfg: RoundConfig, delta_ref, delta_hat, Delta_rows,
                     error_buf, gossip: bool):
     """Alg. 2 EF ``e = delta - Delta`` or classic ``e = delta - C(delta)``
-    (``error_vs_own``, and always under gossip), written into
-    ``error_buf`` in place."""
+    (``error_vs_own``, and always under gossip: Alg. 2's form telescopes
+    only when Delta is the global mean, and under a partial neighborhood
+    mix it re-injects the ``(I - W) delta`` deviation every round), written
+    into ``error_buf`` in place."""
     with torch.no_grad():
         if not cfg.error_feedback:
             T.tree_map(lambda e: e.zero_(), error_buf)
@@ -171,10 +198,29 @@ def _pseudo_grad(anchor, params_inner, err, gossip: bool, out):
     JAX's, written into ``out`` (the round's f32 pending buffers, which no
     longer hold anything the round needs); returns ``out``."""
     def one(a, p, e, o):
-        a = a if gossip else a.float()[None]
+        a = a.float() if gossip else a.float()[None]
         torch.sub(a, p.float(), out=o)
         return o.add_(e)
     return T.tree_map(one, anchor, params_inner, err, out)
+
+
+def staleness_weights(base_w, staleness, max_staleness: int):
+    """Alg. 2 outer-step mixing weights under bounded staleness (host
+    numpy, copied from the JAX package).
+
+    ``base_w``: (C,) push-sum / neighborhood weights of the committing
+    cluster (a ``topology.mixing.async_mix_weights`` row); ``staleness``:
+    (C,) int rounds-stale of each peer's freshest published delta (< 0:
+    none usable). A delta ``s`` rounds old is discounted by ``1/(1+s)``;
+    beyond ``max_staleness`` (or unpublished, or outside the
+    neighborhood) its weight is exactly 0. The result feeds
+    ``membership.masked_cluster_mean`` as a float mask, whose
+    sum-normalization is the push-sum ``x/phi`` debiasing."""
+    w = np.asarray(base_w, np.float64).copy()
+    s = np.asarray(staleness, np.int64)
+    ok = (s >= 0) & (s <= int(max_staleness))
+    w = np.where(ok, w / (1.0 + np.maximum(s, 0)), 0.0)
+    return w.astype(np.float32)
 
 
 def diloco_round(state: DiLoCoXState,
@@ -182,16 +228,29 @@ def diloco_round(state: DiLoCoXState,
                                          #   -> (params_H stacked,
                                          #       inner_opt', aux)
                  compressor: Compressor,
-                 cluster_mean: Callable,  # stacked tree -> mean tree
+                 cluster_mean: Callable,  # stacked tree -> mean tree, or
+                                          # (returns_stacked=True) a
+                                          # stacked gossip mix
                  cfg: RoundConfig,
                  rank_scalar=None):
     """One outer round (H inner steps + the outer step). Returns
-    (new_state, aux), aux from ``inner_fn`` (e.g. losses)."""
-    if getattr(cluster_mean, "returns_stacked", False):
-        raise NotImplementedError("gossip mixing is not ported yet "
-                                  "(ROADMAP A.13)")
+    (new_state, aux), aux from ``inner_fn`` (e.g. losses).
+
+    A ``cluster_mean`` tagged ``returns_stacked=True`` (from
+    ``topology.mixing.mixing_op``) is a neighbor gossip mix, and the state
+    must come from ``init_state(..., stacked_params=True)``. The mix must
+    return a new stacked tree (``mix_stacked`` does): the round overwrites
+    the pending deltas it was given."""
     anchor = state.params
-    gossip = False
+    gossip = bool(getattr(cluster_mean, "returns_stacked", False))
+    stacked = (T.leaves(anchor)[0].shape
+               == T.leaves(state.delta_pending)[0].shape)
+    if gossip != stacked:
+        raise ValueError(
+            "gossip mixing needs stacked params (init_state(..., "
+            "stacked_params=True)) and a gather mean unstacked ones; got "
+            f"returns_stacked={gossip} with "
+            f"{'stacked' if stacked else 'unstacked'} params")
 
     if cfg.delay:
         # communication: average LAST round's pseudo-grads
@@ -244,4 +303,26 @@ def diloco_round(state: DiLoCoXState,
 
     return DiLoCoXState(
         params=params_new, inner_opt=inner_opt, outer_opt=outer_opt,
-        delta_pending=delta_new, error=err, comp_state=comp_state, t=state.t + 1), aux
+        delta_pending=delta_new, error=err, comp_state=comp_state,
+        t=state.t + 1), aux
+
+
+def diloco_round_h(state: DiLoCoXState,
+                   inner_fn_h: Callable,    # (params, inner_opt, round_idx,
+                                            #   h_vec) -> (params_H, opt',
+                                            #   aux)
+                   compressor: Compressor,
+                   cluster_mean: Callable,
+                   cfg: RoundConfig,
+                   h_vec,                   # (n_clusters,) local-step
+                                            # counts, one per cluster row
+                   rank_scalar=None):
+    """Per-cluster-H round: ``diloco_round`` with an inner function that
+    receives a per-cluster local-step vector (cluster c runs the first
+    ``h_vec[c]`` steps; see ``masked_local_steps``). A uniform ``h_vec``
+    through the same ``inner_fn_h`` is bit for bit the scalar-H round; the
+    schedule comes from ``core.adaptive.plan_h``."""
+    inner = lambda params, inner_opt, t: inner_fn_h(params, inner_opt, t,
+                                                    h_vec)
+    return diloco_round(state, inner, compressor, cluster_mean, cfg,
+                        rank_scalar)

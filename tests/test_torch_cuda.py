@@ -1181,3 +1181,43 @@ def test_cuda_pp_flash_stages(no_tf32):
     assert float(loss2) == float(loss)
     assert all(torch.equal(a, b) for a, b in zip(T.leaves(grads),
                                                  T.leaves(grads2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 4, 5])
+def test_cuda_membership_and_mix_match_cpu_bitwise(C):
+    """The membership and mixing operations (plain PyTorch, no kernel of
+    their own) on the card give the CPU's bits: the masked mean with a
+    0/1 and a float mask, the trimmed mean, the gossip mix and one row of
+    it, and the in-place rejoin reset (whose CPU bits
+    tests/test_torch_membership.py holds to the JAX package's)."""
+    _need_cuda()
+    from repro_torch import tree as T
+    from repro_torch.core import membership as MB
+    from repro_torch.topology import MixingMatrix, make_topology, mix_row, \
+        mix_stacked
+
+    gen = torch.Generator().manual_seed(C)
+    tree = {"w": torch.randn(C, 257, 129, generator=gen),
+            "b": torch.randn(C, 33, generator=gen)}
+    dev = lambda t: T.tree_map(lambda x: x.cuda(), t)
+    eq = lambda a, b: all(torch.equal(x.cpu(), y) for x, y in zip(
+        T.leaves(a), T.leaves(b)))
+    masks = [torch.ones(C), (torch.arange(C) % 2).float(),
+             torch.rand(C, generator=gen)]
+    for m in masks:
+        assert eq(MB.masked_cluster_mean(dev(tree), m.cuda()),
+                  MB.masked_cluster_mean(tree, m))
+        m01 = (m > 0.3).float()
+        assert eq(MB.trimmed_cluster_mean(dev(tree), m01.cuda(), 1),
+                  MB.trimmed_cluster_mean(tree, m01, 1))
+    alive = torch.arange(C) != C - 1
+    W = MixingMatrix.metropolis(make_topology("ring", C), alive.numpy()).W
+    assert eq(mix_stacked(W, dev(tree)), mix_stacked(W, tree))
+    parts = [T.tree_map(lambda x, j=j: x[j], dev(tree)) for j in range(C)]
+    assert eq(mix_row(W[0], parts), T.tree_map(lambda x: x[0],
+                                               mix_stacked(W, tree)))
+    on_card = dev(tree)
+    MB.reset_rejoining(on_card, alive.cuda())
+    assert eq(on_card, MB.reset_rejoining(T.tree_map(torch.clone, tree),
+                                          alive))

@@ -139,13 +139,16 @@ def test_masked_local_steps_runs_first_h():
 
 
 def test_gossip_mixing_refused():
+    """A gossip mix on a gather-mode state (unstacked params) is refused:
+    gossip needs ``init_state(..., stacked_params=True)``
+    (``tests/test_torch_gossip.py`` drives it)."""
     comp = C.LowRankQuant(rank=8)
     params = T.tree_map(torch.from_numpy, _params())
     state = D.init_state(params, TT._init_inner_stacked(params, NC), NC,
                          comp)
     mix = lambda t: t
     mix.returns_stacked = True
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="stacked_params=True"):
         D.diloco_round(state, _port_inner, comp, mix, D.RoundConfig())
 
 

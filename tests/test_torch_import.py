@@ -56,7 +56,10 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.parallel.pipeline",
               "repro_torch.parallel.inner_engine",
               "repro_torch.parallel.sharding",
-              "repro_torch.parallel.tensor"):
+              "repro_torch.parallel.tensor", "repro_torch.core.comm",
+              "repro_torch.core.membership", "repro_torch.topology",
+              "repro_torch.topology.graphs", "repro_torch.topology.accounting",
+              "repro_torch.topology.mixing"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
