@@ -174,6 +174,25 @@ continues:
         rows' mean against the gather run's params within a derived bound;
         ms a round split into compressor, mix and the rest, peak, modeled
         wire bytes and seconds a round at 1 Gbps, ring and gather;
+     o. the simulator in barrier mode (``sim_barrier``): ``repro_torch.sim.
+        simulate`` over a star on 4m's model, clusters and batch, 5
+        rounds, flash on, rank 64 int4 through the compressor kernels,
+        under a straggler (cluster 1 x3 in rounds 1-2), cluster 0's link
+        at a quarter in round 2, cluster 2 gone in rounds 2-3 and back in
+        4, and the balance H policy (so the straggler's rounds run
+        ``diloco_round_h``). Gates: the timeline but loss and param_hash
+        equal to a timing-only run's; each round's param_hash the
+        ``tree_hash`` of a hand-driven ``diloco_round`` loop bit for bit;
+        the rejoined cluster's inner moments zero and its warm start
+        ``comp0`` bit for bit; finite losses; the compressor's and flash's
+        launches. Prints each round's wall ms split into the numeric leg,
+        ``tree_hash`` and the rest beside the modeled seconds, and the
+        peak. Then the JAX tests' quadratic scenarios (``tests/test_sim.py
+        :42``, ``:166``, ``tests/test_topology.py:219``) on the card with
+        the ``ref`` and ``pallas`` backends against the port's CPU run:
+        timing rows equal, losses and params within the stated
+        tolerances, the int4 payload bytes charged per round identical
+        (``sim_quadratic_cases``);
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -240,12 +259,17 @@ def _phase(name):
     print(f"== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
 
 
-def environment():
-    _phase("environment")
-    smi = subprocess.run(
+def card_name_and_power_limit():
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def environment():
+    _phase("environment")
+    smi = card_name_and_power_limit()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; matmul allow_tf32 "
@@ -3472,6 +3496,438 @@ def gossip(dev=None, cfg=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: the simulator (sim/) in barrier mode at full opt-1.3b width under
+# a straggler, a degraded link and churn, with a balanced H; then the JAX
+# tests' quadratic scenarios on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SIM_ROUNDS = 5
+SIM_REJOIN = (4, 2)     # (round, cluster): 4o's rejoin
+SIM_NUMERIC_FIELDS = ("loss", "param_hash", "disagreement")
+# the quadratic scenarios on the card against the port's CPU run of the same
+# scenario (same arrays and warm start: both are drawn on the host); the
+# worst measured on an H100 80GB HBM3 at 700 W: losses 7.2e-7 relative,
+# params 1.4e-5 of the leaf's max |value| (test_sim.py:166, ref)
+SIM_QUAD_LOSS_RTOL = 1e-5
+SIM_QUAD_PARAM_RTOL = 1e-4
+
+
+def sim_scenario(shapes):
+    """4o's scenario: 4 clusters, H = 4, 5 rounds, rank 64 int4 through the
+    compressor kernels (``backend="pallas"``), the model's own leaf shapes
+    for the wire accounting, a 1 Gbps link and 1 s modeled steps (the
+    paper's §2.4.1 setting); cluster 1 three times slower in rounds 1-2,
+    cluster 0's link at a quarter in round 2, cluster 2 gone in rounds 2-3
+    and back in 4, and the balance H policy."""
+    from repro_torch import sim as S
+    from repro_torch.core.adaptive import HSpec
+
+    return S.Scenario(
+        n_clusters=CLUSTERS, rounds=SIM_ROUNDS, h_steps=CHURN["h_steps"],
+        tokens_per_step=CLUSTERS * CHURN["local_batch"] * CHURN["seq_len"],
+        faults=S.FaultSchedule((S.Straggler(1, 1, 3, 3.0),
+                                S.LinkDegradation(2, 3, 0.25, cluster=0),
+                                S.Leave(2, 2), S.Join(2, 4))),
+        compressor="diloco_x",
+        compressor_kw=dict(rank=RANK, bits=4, block=256, backend="pallas"),
+        h_spec=HSpec(policy="balance"), param_shapes=shapes, seed=0)
+
+
+def _het(e):
+    """Did the round run ``diloco_round_h`` (a planned schedule that is
+    not uniform at the budget)?"""
+    return e.h_by is not None and any(h != e.h_steps for h in e.h_by)
+
+
+def sim_flash_launches_expected(tl, n_clusters, n_layers):
+    """Flash launches of the rounds of ``tl``: every cluster row trains,
+    dead or alive (the JAX round trains every row); a uniform round runs H
+    steps a row, a heterogeneous one h_c for an alive row and the budget H
+    for a dead one (its filler). A masked step launches nothing:
+    ``diloco.masked_local_steps`` runs only the first h_c steps. Each step
+    launches the forward twice a layer (the step's forward and the
+    recompute in the backward) and the backward once."""
+    steps = 0
+    for e in tl.events:
+        if _het(e):
+            steps += sum(e.h_by) + e.h_steps * (n_clusters - len(e.alive))
+        else:
+            steps += n_clusters * e.h_steps
+    return {"flash_attention": steps * 2 * n_layers,
+            "flash_attention_bwd": steps * n_layers}
+
+
+def _timing_rows(tl):
+    return [{k: v for k, v in dataclasses.asdict(e).items()
+             if k not in SIM_NUMERIC_FIELDS} for e in tl.events]
+
+
+def sim_problem(cfg, tcfg, params, table):
+    """The trainer's inner functions as a ``NumericProblem``: 4m's
+    ``make_inner_fn`` (flash on), its per-cluster-H form through
+    ``make_inner_fn(..., h_vec)``."""
+    from repro_torch.sim import NumericProblem
+    from repro_torch.train import trainer as T
+
+    def inner_fn_h(p, o, t, h_vec):
+        return T.make_inner_fn(cfg, tcfg, table,
+                               tuple(int(h) for h in h_vec))(p, o, t)
+
+    return NumericProblem(
+        params=params,
+        inner_opt_stacked=T._init_inner_stacked(params, tcfg.n_clusters),
+        inner_fn=T.make_inner_fn(cfg, tcfg, table), inner_fn_h=inner_fn_h,
+        outer_lr=tcfg.outer_lr, outer_momentum=tcfg.outer_momentum)
+
+
+def sim_barrier(dev=None, cfg=None):
+    """Phase 4o: ``repro_torch.sim.simulate`` in barrier mode over a star
+    (gather) on opt-1.3b at full width, ``CLUSTER_LAYERS`` layers, 4
+    clusters, H = 4, 4 x 512, flash on, LowRankQuant rank 64 int4 through
+    the compressor kernels, 5 rounds of ``sim_scenario``'s faults: the
+    straggler's rounds (1, 2) are heterogeneous under the balance policy
+    and run ``diloco_round_h``, the others ``diloco_round``; cluster 2's
+    rejoin in round 4 re-initializes it. Gates: the timeline's every field
+    but the numeric ones (loss, param_hash) equal to a timing-only
+    ``simulate`` of the scenario; each round's ``param_hash`` equal to the
+    ``tree_hash`` of a hand-driven loop (``diloco_round`` /
+    ``diloco_round_h`` with ``masked_cluster_mean``, the same alive
+    vectors, H schedule and resets: 4m's machinery) bit for bit; at round
+    4 the rejoined cluster's inner moments and step zero when its inner
+    leg starts, and the warm start it compresses with ``comp0`` bit for
+    bit (not zero); finite losses; compressor launches
+    ``compressor_launches_expected(cfg, 5 x 4)`` (every row compresses,
+    dead or alive), flash launches ``sim_flash_launches_expected`` (a
+    masked step of a heterogeneous round launches nothing). Prints each
+    round's wall ms split into the numeric leg (its compressor share),
+    ``tree_hash`` and the rest beside the modeled seconds, the hash's
+    device-to-host and sha256 parts, the peak, and the card's name and
+    power limit."""
+    import numpy as np
+
+    from repro_torch import sim as S
+    from repro_torch import tree as TR
+    from repro_torch.core import diloco as D
+    from repro_torch.core import membership as MB
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.sim import simulator as SS
+    from repro_torch.train import trainer as T
+
+    cfg = cfg or cluster_config()
+    dev = dev or torch.device("cuda")
+    tcfg = T.TrainConfig(**CHURN)
+    C, H = tcfg.n_clusters, tcfg.h_steps
+    rejoin_r, rejoin_c = SIM_REJOIN
+
+    def draw():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return M.init_params(cfg, gen, dev)
+
+    params = draw()
+    sc = sim_scenario(tree_shapes(params))
+    _phase(f"simulator: repro_torch.sim.simulate, barrier mode, star, on "
+           f"opt-1.3b d_model {cfg.d_model}, {cfg.n_layers} of 24 layers, "
+           f"{C} clusters, H {H}, {tcfg.local_batch} x {tcfg.seq_len}, "
+           f"flash, LowRankQuant rank {RANK} int4 (kernels), "
+           f"{SIM_ROUNDS} rounds, faults "
+           f"{[e.describe() for e in sc.faults.events]}, h_spec balance")
+    timing = S.simulate(sc)
+    data = SyntheticLM(cfg.vocab_size, tcfg.seq_len, tcfg.local_batch,
+                       seed=tcfg.seed)
+    comp0 = _compressor().init_state(params)
+    prob = sim_problem(cfg, tcfg, params, data.table)
+    del params
+    gates = dict(moments=None, comp=None)
+    comp_s = []              # seconds of each roundtrip, in call order
+
+    def watch_moments(fn):
+        def inner(p, o, t, *h):
+            if int(t) == rejoin_r:
+                gates["moments"] = all(not x[rejoin_c].any()
+                                       for x in TR.leaves(o))
+            return fn(p, o, t, *h)
+        return inner
+
+    prob.inner_fn = watch_moments(prob.inner_fn)
+    prob.inner_fn_h = watch_moments(prob.inner_fn_h)
+
+    class Watched:
+        """The compressor ``simulate`` builds: times each roundtrip, and
+        holds the rejoined row's warm start at its compress to ``comp0``."""
+
+        def __init__(self, c):
+            self._c = c
+
+        def __getattr__(self, attr):
+            return getattr(self._c, attr)
+
+        def roundtrip(self, tree, state, rank_scalar=None):
+            if len(comp_s) == rejoin_r * C + rejoin_c:
+                got, want = TR.leaves(state), TR.leaves(comp0)
+                gates["comp"] = (len(got) == len(want) and all(
+                    torch.equal(x, y) for x, y in zip(got, want))
+                    and any(bool(x.any()) for x in got))
+            t0 = _sync_s(dev)
+            out = self._c.roundtrip(tree, state, rank_scalar)
+            comp_s.append(_sync_s(dev) - t0)
+            return out
+
+    wrappers = kernel_wrappers()
+    want = compressor_launches_expected(cfg, SIM_ROUNDS * C)
+    want.update(sim_flash_launches_expected(timing, C, cfg.n_layers),
+                lowrank_mm=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    make = SS.make_compressor
+    SS.make_compressor = lambda name, **kw: Watched(make(name, **kw))
+    try:
+        t0 = _sync_s(dev)
+        tl = S.simulate(sc, numeric=prob)
+        sim_s = _sync_s(dev) - t0
+    finally:
+        SS.make_compressor = make
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del tl.final_params, prob
+    gc.collect()
+    torch.cuda.empty_cache()
+    for e, w in zip(tl.events, tl.wall):
+        r = e.round
+        c_s = sum(comp_s[r * C:(r + 1) * C])
+        print(f"round {r}: alive {e.alive}, rejoined {e.rejoined}, h_by "
+              f"{e.h_by} ({'diloco_round_h' if _het(e) else 'diloco_round'}"
+              f"), loss {e.loss:.6f}; wall {1e3 * w['round_s']:.1f} ms: "
+              f"numeric leg {1e3 * w['numeric_s']:.1f} ms (compressor "
+              f"{1e3 * c_s:.1f} ms), tree_hash {1e3 * w['hash_s']:.1f} ms, "
+              f"rest {1e3 * (w['round_s'] - w['numeric_s'] - w['hash_s']):.1f}"
+              f" ms; modeled t_compute {e.t_compute_s:.3f} s, t_comm "
+              f"{e.t_comm_s:.3f} s, exposed {e.exposed_comm_s:.3f} s, "
+              f"t_round {e.t_round_s:.3f} s, wire {e.wire_bytes} B, all "
+              f"links {e.wire_bytes_total} B; faults {list(e.faults)}",
+              flush=True)
+
+    # the hand-driven loop: 4m's machinery on the timing run's schedule
+    t0 = _sync_s(dev)
+    params = draw()
+    comp = _compressor()
+    state = D.init_state(params, T._init_inner_stacked(params, C), C, comp)
+    del params
+    inner = T.make_inner_fn(cfg, tcfg, data.table)
+    rcfg = D.RoundConfig(outer_lr=tcfg.outer_lr,
+                         outer_momentum=tcfg.outer_momentum)
+    hand = []
+    for e in timing.events:
+        alive = np.zeros(C, bool)
+        alive[list(e.alive)] = True
+        if e.rejoined:
+            rej = np.zeros(C, bool)
+            rej[list(e.rejoined)] = True
+            for tree in (state.delta_pending, state.error, state.inner_opt):
+                MB.reset_rejoining(tree, rej)
+            for x, x0 in zip(TR.leaves(state.comp_state), TR.leaves(comp0)):
+                for c in e.rejoined:
+                    x[c].copy_(x0)
+        m = torch.tensor(alive, dtype=torch.float32, device=dev)
+        mean = lambda tree, m=m: MB.masked_cluster_mean(tree, m)
+        h_vec = [H] * C
+        for c, h in zip(e.alive, e.h_by or ()):
+            h_vec[c] = h
+        if _het(e):
+            inner_h = (lambda p, o, t, hv: T.make_inner_fn(
+                cfg, tcfg, data.table, tuple(hv))(p, o, t))
+            state, _ = D.diloco_round_h(state, inner_h, comp, mean, rcfg,
+                                        h_vec)
+        else:
+            state, _ = D.diloco_round(state, inner, comp, mean, rcfg)
+        if not alive.all():
+            MB.reset_rejoining(state.delta_pending, ~alive)
+            MB.reset_rejoining(state.error, ~alive)
+        hand.append(S.tree_hash(state.params))
+    hand_s = _sync_s(dev) - t0
+    # the hash's two parts on the last round's params
+    t0 = _sync_s(dev)
+    host = [x.cpu() for x in TR.leaves(state.params)]
+    t1 = _sync_s(dev)
+    S.tree_hash(host)
+    split = (sum(x.numel() * x.element_size() for x in host) / 2**30,
+             t1 - t0, time.perf_counter() - t1)
+    del state, inner, comp, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    same_timing = _timing_rows(tl) == _timing_rows(timing)
+    hashes = [e.param_hash for e in tl.events]
+    losses = tl.losses()
+    hash_s = [w["hash_s"] for w in tl.wall]
+    smi = (card_name_and_power_limit() if dev.type == "cuda"
+           else "no card")
+    print(f"simulator on {smi}: {sim_s:.1f} s for {SIM_ROUNDS} rounds "
+          f"(tree_hash "
+          f"{sum(hash_s):.1f} s of it), peak {peak / 2**30:.2f} GiB at "
+          f"{cfg.n_layers} layers; timeline = timing-only run but loss and "
+          f"param_hash: {same_timing} (structural fingerprint "
+          f"{timing.structural_fingerprint()[:16]}); param_hash = "
+          f"hand-driven diloco_round loop bit for bit: "
+          f"{hashes == hand} ({sum(a == b for a, b in zip(hashes, hand))}/"
+          f"{len(hand)} rounds, hand loop {hand_s:.1f} s); tree_hash of "
+          f"{split[0]:.2f} GiB: device to host {split[1]:.2f} s, sha256 on "
+          f"the host {split[2]:.2f} s; round "
+          f"{rejoin_r} cluster {rejoin_c}: inner moments zero "
+          f"{gates['moments']}, warm start = comp0 bit for bit "
+          f"{gates['comp']}; modeled {timing.total_time_s:.3f} s, "
+          f"{timing.tokens_per_s:.1f} tok/s, barrier idle "
+          f"{timing.barrier_idle_frac:.4f}; launches {launches} (expected "
+          f"{want})", flush=True)
+    if not same_timing:
+        _fail("simulator: the numeric timeline's timing and structure "
+              "differ from the timing-only run's")
+    if hashes != hand:
+        _fail(f"simulator: param_hash differs from the hand-driven loop in "
+              f"rounds {[r for r, (a, b) in enumerate(zip(hashes, hand)) if a != b]}")
+    if gates["moments"] is not True or gates["comp"] is not True:
+        _fail(f"simulator: the rejoin did not re-initialize cluster "
+              f"{rejoin_c}: {gates}")
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"simulator: non-finite losses {losses}")
+    if launches != want:
+        _fail(f"simulator: launches {launches}, expected {want}")
+    return launches, sim_quadratic_cases(dev)
+
+
+def sim_quadratic_scenario(name, backend):
+    """The numeric quadratic scenarios of the JAX package's tests
+    (``tests/test_sim.py:42``, ``:166``, ``tests/test_topology.py:219``),
+    with the compressor's ``backend``: (Scenario, QuadraticSpec)."""
+    from repro_torch import sim as S
+
+    comp = dict(compressor="diloco_x", compressor_kw={
+        "rank": 4, "min_dim_for_lowrank": 8, "backend": backend})
+    clean = dict(n_clusters=4, h_steps=10, t_step_s=1.0, n_params=1e8,
+                 seed=3, **comp)
+    if name == "test_sim.py:42":
+        sc = S.Scenario(**dict(clean, rounds=6, h_steps=4), faults=(
+            S.FaultSchedule((S.Straggler(1, 2, 4, 3.0), S.Leave(2, 3),
+                             S.Join(2, 5)))))
+        return sc, S.QuadraticSpec(n_clusters=4, h_steps=4, seed=0)
+    if name == "test_sim.py:166":
+        sc = S.Scenario(**dict(clean, rounds=14, h_steps=6),
+                        link=S.LinkProfile(jitter=0.05), faults=(
+            S.FaultSchedule((S.Straggler(1, 3, 6, slowdown=4.0),
+                             S.Leave(2, 4), S.Join(2, 9)))))
+        return sc, S.QuadraticSpec(n_clusters=4, h_steps=6, seed=0)
+    if name == "test_topology.py:219":
+        sc = S.Scenario(n_clusters=4, rounds=6, h_steps=4, t_step_s=0.05,
+                        link=S.LinkProfile(bytes_per_s=200_000), rank=4,
+                        n_params=1e5, topology="ring", seed=0, **comp)
+        return sc, S.QuadraticSpec(n_clusters=4, d=8, n_mats=2, h_steps=4,
+                                   seed=0)
+    raise KeyError(name)
+
+
+SIM_QUAD_CASES = ("test_sim.py:42", "test_sim.py:166",
+                  "test_topology.py:219")
+
+
+def sim_quadratic_run(name, backend, device):
+    from repro_torch import sim as S
+
+    sc, spec = sim_quadratic_scenario(name, backend)
+    return S.simulate(sc, numeric=spec.problem(device))
+
+
+def sim_quadratic_gap(got, want):
+    """(timing rows equal, worst loss relative error, worst param error
+    over the leaf's max |value|, int4 payload bytes per round equal) of a
+    run against the reference run of the same scenario."""
+    import numpy as np
+
+    from repro_torch import tree as TR
+
+    gl, wl = np.asarray(got.losses()), np.asarray(want.losses())
+    loss_err = float(np.max(np.abs(gl - wl) / np.abs(wl)))
+    param_err = 0.0
+    for (_, x), (_, y) in zip(TR.keystr_items(got.final_params),
+                              TR.keystr_items(want.final_params)):
+        x, y = x.cpu().double(), y.cpu().double()
+        param_err = max(param_err,
+                        float((x - y).abs().max() / y.abs().max()))
+    wire = lambda tl: [(e.wire_bytes, e.wire_bytes_total) for e in tl.events]
+    return (_timing_rows(got) == _timing_rows(want), loss_err, param_err,
+            wire(got) == wire(want))
+
+
+def _quadratic_launches(spec, rounds_x_clusters):
+    """A quadratic run's compressor launches: every leaf low-rank (d >=
+    min_dim_for_lowrank 8), one pack of P, one projection, one projection
+    with the pack of Q and one reconstruction each."""
+    n = rounds_x_clusters * spec.n_mats
+    return {"quant4_pack": n, "quant4_unpack": 0, "fused_project": n,
+            "fused_project_t_pack": n, "fused_reconstruct": n}
+
+
+def sim_quadratic_cases(dev):
+    """4o's second leg: each of ``SIM_QUAD_CASES`` on the card with the
+    ``ref`` backend and with ``pallas`` (the compressor kernels at 16 x 16
+    or 8 x 8, rank 4), each against the port's CPU run of the same
+    scenario and backend (the same arrays and warm start, drawn on the
+    host): timing rows equal, losses within ``SIM_QUAD_LOSS_RTOL``,
+    params within ``SIM_QUAD_PARAM_RTOL`` of the leaf's max |value|, the
+    int4 payload bytes charged per round identical across the backends and
+    the CPU, and the pallas runs' kernel launches as the path requires."""
+    import numpy as np
+
+    cpu = torch.device("cpu")
+    wrappers = kernel_wrappers()
+    rows, failures = [], []
+    for name in SIM_QUAD_CASES:
+        wires = []
+        for backend in ("ref", "pallas"):
+            ref = sim_quadratic_run(name, backend, cpu)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = _sync_s(dev)
+            tl = sim_quadratic_run(name, backend, dev)
+            run_s = _sync_s(dev) - t0
+            launches = {k: wrappers[k].launches for k in
+                        ("quant4_pack", "quant4_unpack", "fused_project",
+                         "fused_project_t_pack", "fused_reconstruct")}
+            sc, spec = sim_quadratic_scenario(name, backend)
+            want = (_quadratic_launches(spec, sc.rounds * sc.n_clusters)
+                    if backend == "pallas" else
+                    {k: 0 for k in launches})
+            timing_ok, loss_err, param_err, _ = sim_quadratic_gap(tl, ref)
+            wires.append([(e.wire_bytes, e.wire_bytes_total)
+                          for e in tl.events])
+            wires.append([(e.wire_bytes, e.wire_bytes_total)
+                          for e in ref.events])
+            ok = (timing_ok and loss_err <= SIM_QUAD_LOSS_RTOL
+                  and param_err <= SIM_QUAD_PARAM_RTOL and launches == want
+                  and all(np.isfinite(tl.losses())))
+            print(f"{name} backend {backend}: card {1e3 * run_s:.1f} ms, "
+                  f"{len(tl.events)} rounds, last loss {tl.losses()[-1]:.6f}"
+                  f" (CPU {ref.losses()[-1]:.6f}); timing rows = CPU run's "
+                  f"{timing_ok}; worst loss rel err {loss_err:.3e} (tol "
+                  f"{SIM_QUAD_LOSS_RTOL}), worst param err {param_err:.3e} "
+                  f"(tol {SIM_QUAD_PARAM_RTOL}); launches {launches}",
+                  flush=True)
+            rows.append(dict(case=name, backend=backend, loss_err=loss_err,
+                             param_err=param_err, ok=ok))
+            if not ok:
+                failures.append((name, backend))
+        if any(w != wires[0] for w in wires):
+            failures.append((name, "payload bytes differ across backends"))
+    if failures:
+        _fail(f"simulator, quadratic scenarios on the card: {failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -3904,6 +4360,8 @@ def main():
     torch.cuda.empty_cache()
     gossip_launches = gossip()
     torch.cuda.empty_cache()
+    sim_launches = sim_barrier()[0]
+    torch.cuda.empty_cache()
     launches, serve_ref = serve()
     launches_bf16 = serve_bf16(serve_ref)[0]
     torch.cuda.empty_cache()
@@ -3951,6 +4409,7 @@ def main():
         row["launches_tp_kv_replicated"] = kv_launches[row["name"]]
         row["launches_churn_4m"] = churn_launches[row["name"]]
         row["launches_gossip_4n"] = gossip_launches[row["name"]]
+        row["launches_sim_4o"] = sim_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -3966,7 +4425,8 @@ def main():
         kernels.append(dict(row, launches=flash_run[0][name],
                             launches_pp_trainer=pp_train_launches[name],
                             launches_tp_kv_replicated=kv_launches[name],
-                            launches_churn_4m=churn_launches[name]))
+                            launches_churn_4m=churn_launches[name],
+                            launches_sim_4o=sim_launches[name]))
     # the bf16 instantiations: launches of phase 4k's run (the wrappers
     # count both types; 4k trains in bf16 only)
     for name, row in flash_rows_bf16.items():

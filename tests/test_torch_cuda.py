@@ -1221,3 +1221,40 @@ def test_cuda_membership_and_mix_match_cpu_bitwise(C):
     MB.reset_rejoining(on_card, alive.cuda())
     assert eq(on_card, MB.reset_rejoining(T.tree_map(torch.clone, tree),
                                           alive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+@pytest.mark.parametrize("name", ["test_sim.py:42", "test_sim.py:166",
+                                  "test_topology.py:219"])
+def test_cuda_simulator_quadratic_matches_cpu(no_tf32, name, backend):
+    """The simulator's quadratic scenarios (chip_smoke.py 4o's second leg)
+    on the card against the port's CPU run of the same scenario and
+    compressor backend: the same timeline but its numeric fields, losses
+    and params within 4o's stated tolerances, the same int4 payload bytes
+    charged per round."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    got = cs.sim_quadratic_run(name, backend, torch.device("cuda"))
+    want = cs.sim_quadratic_run(name, backend, torch.device("cpu"))
+    timing_ok, loss_err, param_err, wire_ok = cs.sim_quadratic_gap(got, want)
+    assert timing_ok and wire_ok
+    assert loss_err <= cs.SIM_QUAD_LOSS_RTOL, loss_err
+    assert param_err <= cs.SIM_QUAD_PARAM_RTOL, param_err
+
+
+@pytest.mark.cuda
+def test_cuda_tree_hash_is_the_host_copys():
+    """``sim.tree_hash`` of a tree on the card is that of its host copy,
+    bf16 and int32 leaves included."""
+    _need_cuda()
+    from repro_torch.sim import tree_hash
+
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(33, 17, generator=gen),
+            "b": [torch.randn(5, generator=gen).to(torch.bfloat16),
+                  torch.arange(7, dtype=torch.int32)],
+            "s": torch.tensor(3.0)}
+    on_card = {"w": tree["w"].cuda(), "b": [x.cuda() for x in tree["b"]],
+               "s": tree["s"].cuda()}
+    assert tree_hash(on_card) == tree_hash(tree)

@@ -59,7 +59,11 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.parallel.tensor", "repro_torch.core.comm",
               "repro_torch.core.membership", "repro_torch.topology",
               "repro_torch.topology.graphs", "repro_torch.topology.accounting",
-              "repro_torch.topology.mixing"):
+              "repro_torch.topology.mixing", "repro_torch.sim",
+              "repro_torch.sim.faults", "repro_torch.sim.timeline",
+              "repro_torch.sim.engine", "repro_torch.sim.scenario",
+              "repro_torch.sim.quadratic", "repro_torch.sim.problems",
+              "repro_torch.sim.simulator"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
