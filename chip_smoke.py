@@ -193,6 +193,24 @@ continues:
         timing rows equal, losses and params within the stated
         tolerances, the int4 payload bytes charged per round identical
         (``sim_quadratic_cases``);
+     p. the simulator's bounded-stale engine (``sim_bounded_stale``):
+        ``simulate`` under ``sync="bounded_stale"`` (max staleness 1, a
+        star) on opt-1.3b at full width, 2 of 24 layers, 4 clusters, H 4,
+        4 x 512, flash on, rank 64 int4 through the compressor kernels, 5
+        legs a cluster (20 commits), cluster 1 x3 in its legs 1-3 and
+        cluster 3 publishing -8 x its delta in its legs 2-3 against the
+        trimmed mean (trim 1). Gates: the timeline but its numeric fields
+        equal to a timing-only run's, the staleness bound, versions mixed
+        ahead of their publisher's commit; each cluster's final params bit
+        for bit a hand-driven replay of the engine's sequence through the
+        port's parts; the Byzantine copy -8 x the clean hat and its EF
+        error raw - hat bit for bit; finite losses; the compressor's and
+        flash's launches. Prints each commit's wall ms (publish leg,
+        commit, ``tree_hash``, disagreement), the modeled makespan,
+        tokens/s and barrier idle, and the peak. Then the JAX tests'
+        async quadratic scenarios (``tests/test_engine.py:221-313``) on the
+        card with both backends against the port's CPU run
+        (``sim_async_quadratic_cases``);
   5. serve: ``repro_torch.launch.serve`` with the paged engine on
      full-width opt-1.3b (24 layers), then (5b) on stablelm-12b at full
      width and depth (40 layers); the kernel's launch count must equal
@@ -3928,6 +3946,477 @@ def sim_quadratic_cases(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4p: the simulator's bounded-stale engine (sim/engine.py's
+# BoundedStaleEngine, sim/simulator.py's async executor) at full opt-1.3b
+# width with a straggler and a Byzantine member under the trimmed mean; then
+# the JAX tests' async quadratic scenarios on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SIM_ASYNC_LAYERS = 2    # of opt-1.3b's 24 (1.14 GiB a copy): the executor
+                        # holds 5 copies a cluster, up to 11 published
+                        # versions and 4 in-flight EF buffers
+SIM_ASYNC_BYZANTINE = (3, 2, 4, -8.0)   # (cluster, start, end, scale)
+SIM_ASYNC_BYZ_LEG = 2   # the Byzantine leg whose published copy 4p checks
+
+
+def sim_async_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("opt-1.3b"),
+                               n_layers=SIM_ASYNC_LAYERS)
+
+
+def sim_async_scenario(shapes):
+    """4p's scenario: 4 clusters, H = 4, 5 legs each, rank 64 int4
+    through the compressor kernels, the model's own leaf shapes for the
+    wire accounting, 1 Gbps and 1 s modeled steps (§2.4.1), a star,
+    ``sync="bounded_stale"`` at ``max_staleness=1``; cluster 1 three times
+    slower in its legs 1-3, cluster 3 publishing ``-8 x`` its delta in its
+    legs 2-3, and the trimmed mean (trim 1) against it."""
+    from repro_torch import sim as S
+
+    c, start, end, scale = SIM_ASYNC_BYZANTINE
+    return S.Scenario(
+        n_clusters=CLUSTERS, rounds=SIM_ROUNDS, h_steps=CHURN["h_steps"],
+        tokens_per_step=CLUSTERS * CHURN["local_batch"] * CHURN["seq_len"],
+        faults=S.FaultSchedule((S.Straggler(1, 1, 4, 3.0),
+                                S.Byzantine(cluster=c, start_round=start,
+                                            end_round=end, scale=scale))),
+        compressor="diloco_x",
+        compressor_kw=dict(rank=RANK, bits=4, block=256, backend="pallas"),
+        sync="bounded_stale", max_staleness=1, topology="star",
+        aggregation="trimmed_mean", trim_k=1, param_shapes=shapes, seed=0)
+
+
+def sim_row_fn(cfg, tcfg, table):
+    """The bounded-stale executor's row program built from the trainer's
+    pieces (``make_inner_fn``'s step): ``(params_row, opt_row, cluster) ->
+    (params_H, opt', losses)``, H AdamW steps from a copy of
+    ``params_row`` with ``opt_row``'s moments updated in place. The
+    signature carries no leg, so the leg's batches come from the trainer's
+    stream at (cluster, step // H, h): each leg trains on fresh tokens."""
+    from repro_torch import tree as TR
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    batch_fn = T.default_batch_fn(tcfg, table)
+    H = tcfg.h_steps
+
+    def row(params, opt, c):
+        dev = TR.leaves(params)[0].device
+        leg = int(opt.step) // H
+        p = TR.tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                        params)
+        losses = []
+        for h in range(H):
+            toks = T._as_tensor(batch_fn(c, leg, h), dev)
+            with torch.enable_grad():
+                loss, _ = M.loss_fn(p, cfg, {"tokens": toks},
+                                    flash=tcfg.flash_attention)
+                grads = torch.autograd.grad(loss, TR.leaves(p))
+            grads = TR.unflatten_like(p, list(grads))
+            p, opt = adamw.update(grads, opt, p, lr=tcfg.inner_lr)
+            losses.append(loss.detach())
+        return (TR.tree_map(lambda x: x.detach(), p), opt,
+                torch.stack(losses))
+
+    return row
+
+
+def sim_async_schedule(sc):
+    """The engine's callback sequence for ``sc`` without numerics:
+    ``("publish", c, k)`` and ``("commit", AsyncCommit)`` in the order the
+    executor sees them."""
+    from repro_torch import sim as S
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.topology import async_mix_weights
+
+    comp = make_compressor(sc.compressor, **sc.compressor_kw)
+    wire = int(comp.wire_bytes(sc.shapes(), rank=sc.rank))
+    topo = sc.topo()
+    W = async_mix_weights(topo)
+    C = sc.n_clusters
+    peers = [tuple(p for p in range(C) if p != c and W[c, p] > 0.0)
+             for c in range(C)]
+    leg_s, send_s, _ = S.async_modeled_times(sc, wire, topo)
+    log = []
+    S.BoundedStaleEngine(
+        n_clusters=C, rounds=sc.rounds, max_staleness=sc.max_staleness,
+        peers=peers, leg_seconds=leg_s, send_seconds=send_s,
+        commit=lambda ev: log.append(("commit", ev)),
+        on_publish=lambda c, k, t: log.append(("publish", c, k)),
+        leaves=sc.faults.leave_events(),
+        joins=sc.faults.join_events()).run()
+    return log
+
+
+def sim_async_replay(sc, log, draw, row, comp0, lr, momentum):
+    """Phase 4p's hand-driven replay: ``log``'s publishes and commits
+    through the port's parts directly (the row program, ``roundtrip``,
+    the corrupt step, ``trimmed_cluster_mean`` over the whole stacked tree,
+    ``nesterov.update``), from ``draw()``'s params. Returns each cluster's
+    params."""
+    from repro_torch import tree as TR
+    from repro_torch.core import diloco as D
+    from repro_torch.core import membership as MB
+    from repro_torch.optim import adamw, nesterov
+
+    C = sc.n_clusters
+    comp = _compressor()
+    p0 = draw()
+    params = [p0] + [TR.tree_map(torch.clone, p0) for _ in range(1, C)]
+    inner = [adamw.init(p0) for _ in range(C)]
+    outer = [nesterov.init(p0) for _ in range(C)]
+    error = [TR.tree_map(torch.zeros_like, p0) for _ in range(C)]
+    warm = [TR.tree_map(torch.clone, comp0) for _ in range(C)]
+    store, inflight = {}, {}
+    with torch.no_grad():
+        for entry in log:
+            if entry[0] == "publish":
+                _, c, k = entry
+                p_in, opt, _ = row(params[c], inner[c], c)
+                raw = D.pseudo_grad(params[c], p_in, error[c])
+                del p_in
+                hat, q = comp.roundtrip(raw, warm[c], sc.rank)
+                err = TR.tree_map(lambda r, h: r - h, raw, hat)
+                del raw
+                scale = sc.faults.byzantine_scale(c, k)
+                if scale is not None:
+                    hat = TR.tree_map(lambda x: x * scale, hat)
+                store[(c, k)] = hat
+                inflight[c] = (err, opt, q)
+                continue
+            ev = entry[1]
+            c, used = ev.cluster, dict(ev.used)
+            zeros = TR.tree_map(torch.zeros_like, params[c])
+            rows = [store[(p, used[p])] if p in used else zeros
+                    for p in range(C)]
+            stacked = TR.tree_map(lambda *xs: torch.stack(xs), *rows)
+            del rows, zeros
+            mask = [1.0 if p in used else 0.0 for p in range(C)]
+            Delta = MB.trimmed_cluster_mean(stacked, mask, sc.trim_k)
+            del stacked
+            params[c], outer[c] = nesterov.update(
+                Delta, outer[c], params[c], lr=lr, momentum=momentum)
+            del Delta
+            error[c], inner[c], warm[c] = inflight.pop(c)
+            for key in [key for key in store if key[1] < ev.avail[key[0]]]:
+                del store[key]
+    return params
+
+
+def _host_copy(tree):
+    """The leaves of ``tree`` copied to the host (a copy also of a CPU
+    tensor: the executor writes its buffers in place)."""
+    from repro_torch import tree as TR
+    return [x.detach().to("cpu", copy=True) for x in TR.leaves(tree)]
+
+
+def sim_bounded_stale(dev=None, cfg=None):
+    """Phase 4p: ``repro_torch.sim.simulate`` under ``sync="bounded_stale"``
+    (``sim_async_scenario``) on opt-1.3b at full width,
+    ``SIM_ASYNC_LAYERS`` layers, 4 clusters, H = 4, 4 x 512, flash on,
+    LowRankQuant rank 64 int4 through the compressor kernels, the row
+    program of ``sim_row_fn``: 20 commits, one per cluster and leg.
+    Gates: the timeline but loss, param_hash and disagreement equal to a
+    timing-only ``simulate`` of the scenario, every staleness <= 1 and each
+    commit's own entry 0, some commit mixing a version ahead of its
+    publisher's commit; each cluster's final params bit for bit those of a
+    hand-driven replay of the engine's sequence (``sim_async_replay``, run
+    after the first run's state is freed) and the last commit's param_hash
+    the replay's ``tree_hash``; at Byzantine leg ``SIM_ASYNC_BYZ_LEG`` the
+    stored version ``-8 x`` the clean hat and the EF error ``raw - hat``,
+    bit for bit; finite losses; compressor launches
+    ``compressor_launches_expected(cfg, 20)`` and flash launches 80 steps x
+    layers x (2 forward, 1 backward). Prints each commit's wall ms (publish
+    leg, commit, ``tree_hash``, disagreement) beside its modeled seconds,
+    the modeled makespan, tokens/s and barrier idle, the peak and the
+    card's name and power limit. Then ``sim_async_quadratic_cases``."""
+    import numpy as np
+
+    from repro_torch import sim as S
+    from repro_torch import tree as TR
+    from repro_torch.core.compression import tree_shapes
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.sim import NumericProblem
+    from repro_torch.sim import simulator as SS
+    from repro_torch.train import trainer as T
+
+    cfg = cfg or sim_async_config()
+    dev = dev or torch.device("cuda")
+    tcfg = T.TrainConfig(**CHURN)
+    C, H = tcfg.n_clusters, tcfg.h_steps
+    byz_c, _, _, byz_scale = SIM_ASYNC_BYZANTINE
+
+    def draw():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return M.init_params(cfg, gen, dev)
+
+    params = draw()
+    sc = sim_async_scenario(tree_shapes(params))
+    _phase(f"simulator, bounded-stale: repro_torch.sim.simulate, "
+           f"sync={sc.sync}, max_staleness {sc.max_staleness}, star, "
+           f"{sc.aggregation} (trim {sc.trim_k}), on opt-1.3b d_model "
+           f"{cfg.d_model}, {cfg.n_layers} of 24 layers, {C} clusters, H "
+           f"{H}, {tcfg.local_batch} x {tcfg.seq_len}, flash, LowRankQuant "
+           f"rank {RANK} int4 (kernels), {sc.rounds} legs a cluster, faults "
+           f"{[e.describe() for e in sc.faults.events]}")
+    timing = S.simulate(sc)
+    log = sim_async_schedule(sc)
+    commits = [e[1] for e in log if e[0] == "commit"]
+    ahead = sum(1 for ev in commits for p, idx in ev.used
+                if idx > ev.round_clock[p])
+    data = SyntheticLM(cfg.vocab_size, tcfg.seq_len, tcfg.local_batch,
+                       seed=tcfg.seed)
+    row = sim_row_fn(cfg, tcfg, data.table)
+    comp0 = _compressor().init_state(params)
+    prob = NumericProblem(
+        params=params,
+        inner_opt_stacked=T._init_inner_stacked(params, C),
+        inner_fn=None, inner_fn_row=row, outer_lr=tcfg.outer_lr,
+        outer_momentum=tcfg.outer_momentum)
+    del params
+    byz = dict(armed=False, raw=None, hat=None, stored=None, error=None)
+
+    class Watched:
+        """The compressor ``simulate`` builds: keeps host copies of the
+        Byzantine leg's input and clean output."""
+
+        def __init__(self, c):
+            self._c = c
+
+        def __getattr__(self, attr):
+            return getattr(self._c, attr)
+
+        def roundtrip(self, tree, state, rank_scalar=None):
+            out = self._c.roundtrip(tree, state, rank_scalar)
+            if byz["armed"]:
+                byz["raw"], byz["hat"] = _host_copy(tree), _host_copy(out[0])
+            return out
+
+    publish = SS._AsyncNumeric.publish
+
+    def watched_publish(self, c, k, t):
+        byz["armed"] = (c, k) == (byz_c, SIM_ASYNC_BYZ_LEG)
+        publish(self, c, k, t)
+        if byz["armed"]:
+            byz["stored"] = _host_copy(self.store[c][k])
+            byz["error"] = _host_copy(self._inflight[c][0])
+            byz["armed"] = False
+
+    wrappers = kernel_wrappers()
+    steps = len(commits) * H
+    want = compressor_launches_expected(cfg, len(commits))
+    want.update(flash_attention=steps * 2 * cfg.n_layers,
+                flash_attention_bwd=steps * cfg.n_layers, lowrank_mm=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    make = SS.make_compressor
+    SS.make_compressor = lambda name, **kw: Watched(make(name, **kw))
+    SS._AsyncNumeric.publish = watched_publish
+    try:
+        t0 = _sync_s(dev)
+        tl = S.simulate(sc, numeric=prob)
+        sim_s = _sync_s(dev) - t0
+    finally:
+        SS.make_compressor = make
+        SS._AsyncNumeric.publish = publish
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    final = [_host_copy(TR.tree_map(lambda y: y[c], tl.final_params))
+             for c in range(C)]
+    del tl.final_params, prob
+    gc.collect()
+    torch.cuda.empty_cache()
+    for e, w in zip(tl.events, tl.wall):
+        print(f"commit c{e.cluster} leg {e.round}: staleness "
+              f"{list(e.staleness)}, round_clock {e.round_clock}, loss "
+              f"{e.loss:.6f}, disagreement {e.disagreement:.6e}; wall: "
+              f"publish leg {1e3 * w['publish_s']:.1f} ms, commit "
+              f"{1e3 * w['commit_s']:.1f} ms, tree_hash "
+              f"{1e3 * w['hash_s']:.1f} ms, disagreement "
+              f"{1e3 * w['disagreement_s']:.1f} ms; modeled t_start "
+              f"{e.t_start_s:.3f} s, leg {e.t_compute_s:.3f} s, send "
+              f"{e.t_comm_s:.3f} s, stale wait {e.exposed_comm_s:.3f} s",
+              flush=True)
+
+    # the Byzantine leg: the published copy and the EF error
+    byz_ok = (byz["stored"] is not None and all(
+        torch.equal(s, h * byz_scale) for s, h in zip(byz["stored"],
+                                                      byz["hat"]))
+        and all(torch.equal(e, r - h) for e, r, h in zip(
+            byz["error"], byz["raw"], byz["hat"]))
+        and any(bool(h.any()) for h in byz["hat"]))
+    byz.clear()
+
+    # the hand-driven replay, after the run's state is freed
+    t0 = _sync_s(dev)
+    replay = sim_async_replay(sc, log, draw, row, comp0, tcfg.outer_lr,
+                              tcfg.outer_momentum)
+    replay_s = _sync_s(dev) - t0
+    last = tl.events[-1]
+    replay_hash = S.tree_hash(replay[last.cluster])
+    same_rows = [all(torch.equal(x.cpu(), y) for x, y in
+                     zip(TR.leaves(replay[c]), final[c])) for c in range(C)]
+    del replay, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    same_timing = _timing_rows(tl) == _timing_rows(timing)
+    stale_ok = all(0 <= s <= sc.max_staleness and
+                   (p != e.cluster or s == 0)
+                   for e in tl.events for p, s in e.staleness)
+    losses = tl.losses()
+    w = tl.wall
+    smi = (card_name_and_power_limit() if dev.type == "cuda"
+           else "no card")
+    total = lambda key: sum(x[key] for x in w)
+    print(f"simulator, bounded-stale, on {smi}: {sim_s:.1f} s for "
+          f"{len(tl.events)} commits: publish legs {total('publish_s'):.1f} "
+          f"s, commits {total('commit_s'):.1f} s, tree_hash "
+          f"{total('hash_s'):.1f} s, disagreement "
+          f"{total('disagreement_s'):.1f} s; peak {peak / 2**30:.2f} GiB at "
+          f"{cfg.n_layers} layers; timeline = timing-only run but loss, "
+          f"param_hash and disagreement: {same_timing} (structural "
+          f"fingerprint {timing.structural_fingerprint()[:16]}); staleness "
+          f"<= {sc.max_staleness}, own 0: {stale_ok}; versions used ahead "
+          f"of their publisher's commit: {ahead}; final params = replay bit "
+          f"for bit per cluster: {same_rows} (replay {replay_s:.1f} s), last "
+          f"param_hash = replay's tree_hash: "
+          f"{replay_hash == last.param_hash}; cluster {byz_c} leg "
+          f"{SIM_ASYNC_BYZ_LEG}: stored = {byz_scale} x clean hat and error "
+          f"= raw - hat bit for bit: {byz_ok}; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; modeled makespan {timing.total_time_s:.3f} s, "
+          f"{timing.tokens_per_s:.1f} tok/s, barrier idle "
+          f"{timing.barrier_idle_frac:.4f}; launches {launches} (expected "
+          f"{want})", flush=True)
+    if not same_timing:
+        _fail("bounded-stale simulator: the numeric timeline's timing and "
+              "structure differ from the timing-only run's")
+    if not stale_ok or ahead == 0:
+        _fail(f"bounded-stale simulator: staleness bound or regime: "
+              f"bound held {stale_ok}, versions ahead {ahead}")
+    if not all(same_rows) or replay_hash != last.param_hash:
+        _fail(f"bounded-stale simulator: final params differ from the "
+              f"hand-driven replay: {same_rows}, last hash "
+              f"{replay_hash == last.param_hash}")
+    if not byz_ok:
+        _fail("bounded-stale simulator: the Byzantine member's published "
+              "copy or EF error is not scale x hat / raw - hat")
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"bounded-stale simulator: non-finite losses {losses}")
+    if launches != want:
+        _fail(f"bounded-stale simulator: launches {launches}, expected "
+              f"{want}")
+    return launches, sim_async_quadratic_cases(dev)
+
+
+def sim_async_quadratic_scenario(name, backend):
+    """The numeric quadratic scenarios of ``tests/test_engine.py:221-313``
+    (bounded-stale: the mean over a star and a ring, the straggler regime,
+    churn with a rejoin, a Byzantine member under the mean and under the
+    trimmed mean), with the compressor's ``backend``: (Scenario,
+    QuadraticSpec)."""
+    from repro_torch import sim as S
+
+    comp = dict(compressor="diloco_x",
+                compressor_kw={"rank": 4, "backend": backend}, rank=4)
+    link = S.LinkProfile(bytes_per_s=2e8, latency_s=0.01, jitter=0.1)
+    base = dict(n_clusters=4, rounds=6, h_steps=4, seed=3, t_step_s=0.02,
+                sync="bounded_stale", max_staleness=2, link=link, **comp)
+    spec4 = S.QuadraticSpec(n_clusters=4, d=8, h_steps=4, seed=1)
+    if name in ("test_engine.py:221 star", "test_engine.py:221 ring"):
+        return S.Scenario(**base, topology=name.split()[-1]), spec4
+    if name == "test_engine.py:237":
+        return S.Scenario(**dict(base, n_clusters=3, rounds=8),
+                          topology="star", faults=S.FaultSchedule((
+                              S.Straggler(1, 1, 5, 3.0),))), \
+            S.QuadraticSpec(n_clusters=3, d=8, h_steps=4, seed=1)
+    if name == "test_engine.py:280":
+        return S.Scenario(**base, faults=S.FaultSchedule((
+            S.Leave(0, 2), S.Join(0, 4)))), spec4
+    if name.startswith("test_engine.py:294"):
+        kw = (dict(aggregation="trimmed_mean", trim_k=1)
+              if name.endswith("trimmed") else {})
+        return S.Scenario(
+            n_clusters=5, rounds=10, h_steps=4, seed=11, t_step_s=0.02,
+            sync="bounded_stale", max_staleness=1,
+            link=S.LinkProfile(bytes_per_s=2e8, latency_s=0.01,
+                               jitter=0.05),
+            faults=S.FaultSchedule((S.Byzantine(cluster=2, start_round=2,
+                                                end_round=8, scale=-8.0),)),
+            **comp, **kw), S.QuadraticSpec(n_clusters=5, d=8, h_steps=4,
+                                           seed=3)
+    raise KeyError(name)
+
+
+SIM_ASYNC_QUAD_CASES = ("test_engine.py:221 star", "test_engine.py:221 ring",
+                        "test_engine.py:237", "test_engine.py:280",
+                        "test_engine.py:294 mean",
+                        "test_engine.py:294 trimmed")
+
+
+def sim_async_quadratic_run(name, backend, device):
+    from repro_torch import sim as S
+
+    sc, spec = sim_async_quadratic_scenario(name, backend)
+    return S.simulate(sc, numeric=spec.problem(device))
+
+
+def sim_async_quadratic_cases(dev):
+    """4p's second leg: each of ``SIM_ASYNC_QUAD_CASES`` on the card with
+    the ``ref`` backend and with ``pallas`` (d 8 < min_dim_for_lowrank:
+    every leaf quantize-only, one int4 pack and one unpack a leaf and
+    commit), each against the port's CPU run of the same scenario and
+    backend: timing rows equal, losses within ``SIM_QUAD_LOSS_RTOL``,
+    params within ``SIM_QUAD_PARAM_RTOL`` of the leaf's max |value|, the
+    launches as the path requires."""
+    import numpy as np
+
+    cpu = torch.device("cpu")
+    wrappers = kernel_wrappers()
+    names = ("quant4_pack", "quant4_unpack", "fused_project",
+             "fused_project_t_pack", "fused_reconstruct")
+    rows, failures = [], []
+    for name in SIM_ASYNC_QUAD_CASES:
+        for backend in ("ref", "pallas"):
+            ref = sim_async_quadratic_run(name, backend, cpu)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = _sync_s(dev)
+            tl = sim_async_quadratic_run(name, backend, dev)
+            run_s = _sync_s(dev) - t0
+            launches = {k: wrappers[k].launches for k in names}
+            sc, spec = sim_async_quadratic_scenario(name, backend)
+            n = len(tl.events) * spec.n_mats if backend == "pallas" else 0
+            want = {k: (n if k.startswith("quant4") else 0) for k in names}
+            timing_ok, loss_err, param_err, _ = sim_quadratic_gap(tl, ref)
+            ok = (timing_ok and loss_err <= SIM_QUAD_LOSS_RTOL
+                  and param_err <= SIM_QUAD_PARAM_RTOL and launches == want
+                  and all(np.isfinite(tl.losses())))
+            print(f"{name} backend {backend}: card {1e3 * run_s:.1f} ms, "
+                  f"{len(tl.events)} commits, last loss "
+                  f"{tl.losses()[-1]:.6f} (CPU {ref.losses()[-1]:.6f}); "
+                  f"timing rows = CPU run's {timing_ok}; worst loss rel err "
+                  f"{loss_err:.3e} (tol {SIM_QUAD_LOSS_RTOL}), worst param "
+                  f"err {param_err:.3e} (tol {SIM_QUAD_PARAM_RTOL}); "
+                  f"launches {launches}", flush=True)
+            rows.append(dict(case=name, backend=backend, loss_err=loss_err,
+                             param_err=param_err, ok=ok))
+            if not ok:
+                failures.append((name, backend))
+    if failures:
+        _fail(f"bounded-stale simulator, quadratic scenarios on the card: "
+              f"{failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path, through the user's entry point
 # ---------------------------------------------------------------------------
 
@@ -4362,6 +4851,8 @@ def main():
     torch.cuda.empty_cache()
     sim_launches = sim_barrier()[0]
     torch.cuda.empty_cache()
+    sim_async_launches = sim_bounded_stale()[0]
+    torch.cuda.empty_cache()
     launches, serve_ref = serve()
     launches_bf16 = serve_bf16(serve_ref)[0]
     torch.cuda.empty_cache()
@@ -4410,6 +4901,7 @@ def main():
         row["launches_churn_4m"] = churn_launches[row["name"]]
         row["launches_gossip_4n"] = gossip_launches[row["name"]]
         row["launches_sim_4o"] = sim_launches[row["name"]]
+        row["launches_sim_async_4p"] = sim_async_launches[row["name"]]
         if row["name"].startswith("quant4_"):
             # the mesh round's batched launches (phase 3b) and phase 4d's,
             # and the same at stablelm-12b's leaves (phase 4e's)
@@ -4426,7 +4918,8 @@ def main():
                             launches_pp_trainer=pp_train_launches[name],
                             launches_tp_kv_replicated=kv_launches[name],
                             launches_churn_4m=churn_launches[name],
-                            launches_sim_4o=sim_launches[name]))
+                            launches_sim_4o=sim_launches[name],
+                            launches_sim_async_4p=sim_async_launches[name]))
     # the bf16 instantiations: launches of phase 4k's run (the wrappers
     # count both types; 4k trains in bf16 only)
     for name, row in flash_rows_bf16.items():

@@ -21,14 +21,12 @@ OpenDiLoCo/NoLoCo's WAN setting:
    trimmed-mean robust aggregation in ``core.membership`` defends
    against.  Only meaningful under ``sync="bounded_stale"``, where the
    publish step is an explicit engine event (the barrier round averages
-   inside one round program with no injection point; the bounded-stale
-   engine is ROADMAP A.14 item 2).
+   inside one round program with no injection point).
 
 Under ``sync="bounded_stale"`` there is no global round: ``Straggler`` /
 ``LinkDegradation`` / ``Leave`` windows are indexed by each cluster's OWN
 round clock, while ``Join`` fires when the fleet frontier (highest
-committed leg anywhere) reaches the join round (the JAX package's
-``sim/engine.py``; not ported yet, ROADMAP A.14 item 2).
+committed leg anywhere) reaches the join round (``sim/engine.py``).
 """
 from __future__ import annotations
 

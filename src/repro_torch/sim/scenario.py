@@ -88,11 +88,9 @@ class Scenario:
 
     # outer-sync policy (sim/engine.py): "barrier" is the lockstep round
     # loop (staleness bound 0 on a global clock); "bounded_stale" runs
-    # SSP-style async rounds in the JAX package — each cluster commits an
-    # outer step the moment its local leg finishes, gated so no
-    # incorporated delta is more than max_staleness rounds older than its
-    # own clock.  The port's ``simulate`` refuses it until ROADMAP A.14
-    # item 2 ports the engine.
+    # SSP-style async rounds — each cluster commits an outer step the
+    # moment its local leg finishes, gated so no incorporated delta is
+    # more than max_staleness rounds older than its own clock.
     sync: str = "barrier"
     max_staleness: int = 1
 

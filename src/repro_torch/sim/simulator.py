@@ -1,5 +1,5 @@
-"""Deterministic virtual decentralized-cluster simulator, barrier mode (port
-of ``repro.sim.simulator``).
+"""Deterministic virtual decentralized-cluster simulator (port of
+``repro.sim.simulator``).
 
 ``simulate(scenario)`` replays ``scenario.rounds`` outer rounds of the
 DiLoCoX loop over N virtual clusters and returns an event ``Timeline``:
@@ -17,6 +17,13 @@ DiLoCoX loop over N virtual clusters and returns an event ``Timeline``:
    ``core.diloco.diloco_round`` — compression, error feedback, one-step
    delay, masked cluster mean — recording the realized loss per round.
 
+``sync="bounded_stale"`` runs SSP-style asynchronous rounds instead
+(``sim.engine.BoundedStaleEngine``): one event per committed outer step
+of one cluster, each cluster on its own round clock, with the numeric
+executor ``_AsyncNumeric`` (published deltas in a versioned store,
+Byzantine corruption of what a cluster publishes, the staleness-weighted
+mean or the trimmed mean).
+
 All randomness (link/step jitter) is drawn from ``numpy`` generators
 seeded by ``(scenario.seed, round)``, and the timing arithmetic is the JAX
 package's host code, so a timing-only run gives the JAX package's
@@ -28,18 +35,19 @@ contracts in other orders.
 
 The round writes its state in place (``core.diloco``): ``simulate`` takes
 ownership of the ``NumericProblem``'s tensors, so build a fresh problem for
-each run.  ``timeline.wall`` holds each round's host seconds (synchronized
-with the device): the whole round, the numeric leg and the ``tree_hash``.
+each run.  ``timeline.wall`` holds host seconds (synchronized with the
+device): for each barrier round the whole round, the numeric leg and the
+``tree_hash``; for each bounded-stale commit its publish leg, the commit,
+the ``tree_hash`` and the disagreement.
 
-Not ported yet, and refused with their ROADMAP items: ``sync=
-"bounded_stale"`` (A.14 item 2), the adaptive controller (``Scenario.
-adaptive`` / ``adaptive_cfg``, A.14 item 3).
+Not ported yet, and refused with its ROADMAP item: the adaptive controller
+(``Scenario.adaptive`` / ``adaptive_cfg``, A.14 item 3).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +56,15 @@ from repro_torch import tree as T
 from repro_torch.core import comm, diloco, membership
 from repro_torch.core.adaptive import plan_h
 from repro_torch.core.compression import make_compressor
-from repro_torch.sim.engine import run_barrier
+from repro_torch.optim import nesterov
+from repro_torch.sim.engine import BoundedStaleEngine, run_barrier
 from repro_torch.sim.faults import Byzantine
 from repro_torch.sim.scenario import Scenario
 from repro_torch.sim.timeline import (RoundEvent, Timeline, combine_row_hashes,
                                       tree_hash)
-from repro_torch.topology import (MixingMatrix, compute_leg,
-                                  gossip_round_comm, round_wire_total)
+from repro_torch.topology import (MixingMatrix, async_mix_weights,
+                                  compute_leg, gossip_round_comm,
+                                  round_wire_total)
 from repro_torch.topology import mixing as topo_mixing
 
 
@@ -91,8 +101,7 @@ class NumericProblem:
                                      # ONE cluster's H-step inner program
                                      # (params_row, opt_row, cluster) ->
                                      # (params_H, opt', losses); read by
-                                     # the bounded-stale engine (ROADMAP
-                                     # A.14 item 2)
+                                     # the bounded-stale executor
 
 
 def make_quadratic_problem(n_clusters: int, **kw) -> NumericProblem:
@@ -203,7 +212,7 @@ def simulate(sc: Scenario, numeric: Optional[NumericProblem] = None,
     the recording run's fault schedule, so the alive sets line up).
 
     The adaptive controller (``sc.adaptive`` / ``adaptive_cfg``) is
-    ROADMAP A.14 item 3 and ``sync="bounded_stale"`` item 2: both raise.
+    ROADMAP A.14 item 3 and raises.
     """
     if sc.sync == "bounded_stale":
         if adaptive_cfg is not None or rank_schedule is not None:
@@ -211,11 +220,7 @@ def simulate(sc: Scenario, numeric: Optional[NumericProblem] = None,
                 "sync='bounded_stale' has no global round clock for the "
                 "adaptive controller / a recorded rank schedule to index; "
                 "run them under sync='barrier'")
-        raise NotImplementedError(
-            "sync='bounded_stale' (the bounded-stale engine, "
-            "BoundedStaleEngine and its numeric executor) is not ported "
-            "yet: ROADMAP A.14 item 2; run the scenario under "
-            "sync='barrier'")
+        return _simulate_bounded_stale(sc, numeric)
     if any(isinstance(e, Byzantine) for e in sc.faults.events):
         raise ValueError(
             "Byzantine faults model corrupt *published* deltas, which only "
@@ -518,10 +523,8 @@ def simulate(sc: Scenario, numeric: Optional[NumericProblem] = None,
                 rows = [(c, tree_hash(diloco.take_row(st.params, c)))
                         for c in alive_ids]
                 param_hash = combine_row_hashes(rows)
-                flat = np.concatenate(
-                    [_host_numpy(x).reshape(C, -1)
-                     for x in T.leaves(st.params)], axis=1)
-                disagreement = topo_mixing.consensus_distance(flat, alive)
+                disagreement = topo_mixing.consensus_distance_trees(
+                    [diloco.take_row(st.params, c) for c in range(C)], alive)
             else:
                 param_hash = tree_hash(st.params)
             t2 = time.perf_counter()
@@ -571,6 +574,343 @@ def simulate(sc: Scenario, numeric: Optional[NumericProblem] = None,
     tl.wall = wall
     if num is not None:
         tl.final_params = num["state"].params      # handy for callers/tests
+    return tl
+
+
+# ---------------------------------------------------------------------------
+# bounded-staleness async rounds (sync="bounded_stale")
+# ---------------------------------------------------------------------------
+
+def async_modeled_times(sc: Scenario, wire: int, topo):
+    """The bounded-stale engine's modeled timing callbacks, built from the
+    same host arithmetic (``_jitter_factors`` salts 1/2, fault multipliers)
+    the barrier path uses, so the engine's commit sequence (and every
+    structural Timeline field) is the JAX package's.
+
+    Returns ``(leg_seconds, send_seconds, sends)`` where ``sends[c]`` is
+    the number of uplink transfers charged per publish: gossip pushes to
+    each graph neighbor; gather models the relay hub (one up + one down
+    transfer).
+    """
+    C = sc.n_clusters
+    sends = [topo.degree(c) if topo.is_gossip else (2 if C > 1 else 0)
+             for c in range(C)]
+
+    def leg_seconds(c: int, k: int) -> float:
+        step_j = _jitter_factors(sc.seed, k, C, sc.link.jitter, salt=1)
+        return float(sc.h_steps * sc.t_step_s
+                     * sc.faults.step_multiplier(c, k) * step_j[c])
+
+    def send_seconds(c: int, k: int) -> float:
+        if sends[c] == 0:
+            return 0.0
+        bw_j = _jitter_factors(sc.seed, k, C, sc.link.jitter, salt=2)
+        bw = float(sc.link.bytes_per_s * sc.faults.bandwidth_factor(c, k)
+                   * bw_j[c])
+        return float(sends[c] * wire / bw + sends[c] * sc.link.latency_s)
+
+    return leg_seconds, send_seconds, sends
+
+
+def _own(tree):
+    """A copy of ``tree`` that no other cluster's state shares."""
+    return T.tree_map(
+        lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+        tree)
+
+
+def _rows_mean(rows, like, mean_fn):
+    """``mean_fn`` of the cluster rows stacked leaf by leaf (a ``None`` row
+    is f32 zeros), so at most one leaf's C rows are stacked at a time; the
+    result has ``like``'s structure."""
+    flat = [None if r is None else T.leaves(r) for r in rows]
+    out = []
+    for i, ref in enumerate(T.leaves(like)):
+        xs = [torch.zeros_like(ref, dtype=torch.float32) if f is None
+              else f[i] for f in flat]
+        out.append(mean_fn(torch.stack(xs)))
+        del xs
+    return T.unflatten_like(like, out)
+
+
+class _AsyncNumeric:
+    """Per-cluster numeric executor for bounded-stale commits.
+
+    Holds one (params, inner opt, outer opt, EF error, compressor state)
+    replica per cluster plus a versioned store of *published* compressed
+    deltas.  The engine's publish/commit split maps onto two entry points:
+    :meth:`publish` (the ``on_publish`` callback) runs the inner leg and
+    materializes the compressed — possibly Byzantine-corrupted — delta
+    into the store the moment the leg finishes, so the version exists even
+    while its publisher is still gate-blocked; :meth:`commit` then mixes
+    the exact delta versions the engine recorded in ``AsyncCommit.used``
+    and applies the outer step.  A ``used`` version missing from the store
+    is an engine/executor contract violation and raises instead of
+    silently substituting zeros (which would deflate the outer step while
+    ``staleness_weights``/the trimmed mean still credited the row).
+
+    Error feedback is the classic compressor-local form ``e = δ − C(δ)``
+    (vs the cluster's own uncorrupted hat), never Alg. 2's ``δ − Δ``:
+    under partial/stale mixing the latter's ``I − W`` error iteration has
+    spectral radius > 1 and diverges (see ``core.diloco._error_feedback``).
+
+    The JAX executor shares one immutable array across clusters (the
+    initial params, zero errors, the warm start); here the row program,
+    the outer step and the EF update write in place, so every cluster owns
+    each tensor it writes.  ``_inner0`` (the problem's inner-state rows)
+    and ``_comp0`` (the compressor's initial warm start) are never
+    written: a rejoiner gets clones of them.  The means stack one leaf's
+    rows at a time.
+    """
+
+    def __init__(self, sc: Scenario, numeric: NumericProblem, compressor,
+                 W_base: np.ndarray):
+        if numeric.inner_fn_row is None:
+            raise ValueError(
+                "sync='bounded_stale' needs NumericProblem.inner_fn_row — "
+                "the per-cluster H-step program a proc worker jits "
+                "(QuadraticSpec.problem() provides it)")
+        if not (numeric.compress and numeric.error_feedback):
+            raise ValueError("bounded_stale models the compressed published "
+                             "delta; compress/error_feedback must stay on")
+        self.C = sc.n_clusters
+        self.W = np.asarray(W_base, np.float64)
+        self.max_staleness = int(sc.max_staleness)
+        self.trimmed = sc.aggregation == "trimmed_mean"
+        self.trim_k = sc.trim_k
+        self.faults = sc.faults
+        self.compressor = compressor
+        self.rank = None if sc.rank is None else int(sc.rank)
+        self.inner_fn_row = numeric.inner_fn_row
+        self.outer_lr = numeric.outer_lr
+        self.outer_momentum = numeric.outer_momentum
+        params = numeric.params
+        self.device = T.leaves(params)[0].device
+
+        self._inner0 = [diloco.take_row(numeric.inner_opt_stacked, c)
+                        for c in range(self.C)]
+        self._comp0 = _own(compressor.init_state(params))
+        # cluster 0 takes the problem's params (simulate owns them)
+        self.params = [params] + [_own(params) for _ in range(1, self.C)]
+        self.inner_opt = [_own(o) for o in self._inner0]
+        self.outer_opt = [nesterov.init(params) for _ in range(self.C)]
+        self.error = [self._zeros(params) for _ in range(self.C)]
+        self.comp = [_own(self._comp0) for _ in range(self.C)]
+        self.store = [dict() for _ in range(self.C)]   # leg -> published hat
+        # c -> (err, inner_new, comp_new, losses) between publish and commit
+        self._inflight: Dict[int, Tuple] = {}
+        self.publish_s: Dict[int, float] = {}   # c -> its last publish's s
+        self.alive = (np.ones(self.C, bool) if sc.initial_alive is None
+                      else np.asarray(sc.initial_alive, bool).copy())
+
+    @staticmethod
+    def _zeros(params):
+        return T.tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                          params)
+
+    @torch.no_grad()
+    def publish(self, c: int, k: int, t: float) -> None:
+        """Engine ``on_publish``: run leg ``k`` from the post-commit anchor
+        (the engine schedules leg ``k`` only after leg ``k-1``'s commit, so
+        nothing writes cluster ``c``'s params between here and its commit)
+        and materialize the published version the instant it exists."""
+        t0 = _sync(self.device)
+        anchor = self.params[c]
+        p_inner, inner_new, losses = self.inner_fn_row(
+            anchor, self.inner_opt[c], c)
+        raw = diloco.pseudo_grad(anchor, p_inner, self.error[c])
+        del p_inner
+        hat, comp_new = self.compressor.roundtrip(raw, self.comp[c],
+                                                  self.rank)
+        # err = raw - hat, into raw's buffers (a compressor that hands its
+        # input back gets a fresh zero error instead)
+        err = T.tree_map(lambda r, h: torch.sub(r, h) if h is r
+                         else r.sub_(h), raw, hat)
+        del raw
+        # a Byzantine cluster corrupts what it PUBLISHES (everyone's mix
+        # row, including its own) but keeps honest EF vs its clean hat —
+        # the attack is on the wire, not on its local buffers. The hat is
+        # f32 (raw is), so JAX's f32 product needs no cast; err already
+        # holds what it needs of the clean hat, so scale it in place
+        scale = self.faults.byzantine_scale(c, k)
+        pub = (hat if scale is None
+               else T.tree_map(lambda x: x.mul_(float(scale)), hat))
+        self.store[c][k] = pub
+        self._inflight[c] = (err, inner_new, comp_new, losses)
+        self.publish_s[c] = _sync(self.device) - t0
+
+    @torch.no_grad()
+    def commit(self, ev):
+        """One bounded-stale outer step; returns (loss, hash, disagreement,
+        host seconds of the step, of the hash, of the disagreement)."""
+        t0 = _sync(self.device)
+        c, k = ev.cluster, ev.round
+        anchor = self.params[c]
+        err_new, inner_new, comp_new, losses = self._inflight.pop(c)
+
+        used = dict(ev.used)
+        rows = []
+        for p in range(self.C):
+            if p not in used:
+                rows.append(None)              # weight/mask 0 anyway
+            elif used[p] in self.store[p]:
+                rows.append(self.store[p][used[p]])
+            else:
+                raise RuntimeError(
+                    f"bounded-stale store miss: commit (c{c}, k{k}) uses "
+                    f"version (c{p}, k{used[p]}) which was never "
+                    f"materialized — engine publish/commit contract broken")
+        if self.trimmed:
+            mask = np.array([1.0 if p in used else 0.0
+                             for p in range(self.C)], np.float32)
+            Delta = _rows_mean(rows, anchor, lambda x: membership.
+                               trimmed_cluster_mean(x, mask, self.trim_k))
+        else:
+            stal = np.full((self.C,), -1, np.int64)
+            for p, s_p in ev.staleness:
+                stal[p] = s_p
+            w = diloco.staleness_weights(self.W[c], stal, self.max_staleness)
+            Delta = _rows_mean(rows, anchor, lambda x: membership.
+                               masked_cluster_mean(x, w))
+        del rows
+        params_new, outer_new = nesterov.update(
+            Delta, self.outer_opt[c], anchor, lr=self.outer_lr,
+            momentum=self.outer_momentum)
+        del Delta
+        self.params[c] = params_new
+        self.inner_opt[c] = inner_new
+        self.outer_opt[c] = outer_new
+        self.error[c] = err_new
+        self.comp[c] = comp_new
+        # GC: the engine's arrived-publish watermarks are monotone (per
+        # epoch), so versions below avail[p] can never be referenced again
+        for p in range(self.C):
+            for old in [v for v in self.store[p] if v < ev.avail[p]]:
+                del self.store[p][old]
+        loss = float(torch.mean(losses.float()))
+        t1 = _sync(self.device)
+        param_hash = tree_hash(params_new)
+        t2 = time.perf_counter()
+        disagreement = topo_mixing.consensus_distance_trees(self.params,
+                                                            self.alive)
+        t3 = time.perf_counter()
+        return loss, param_hash, disagreement, t1 - t0, t2 - t1, t3 - t2
+
+    def on_leave(self, c: int, k: int, t: float) -> None:
+        self.alive[c] = False     # state freezes; nobody mixes it anymore
+
+    @torch.no_grad()
+    def on_join(self, c: int, k: int, t: float) -> None:
+        """Consensus bootstrap: a rejoiner is a fresh worker restarting
+        from the masked mean of the SURVIVORS' (params, outer momentum),
+        the zero-masked rows through ``masked_cluster_mean``; its inner
+        state and warm start are clones of the initial ones, its error
+        zero."""
+        m = self.alive.astype(np.float32)
+        mean = lambda x: membership.masked_cluster_mean(x, m)
+        params = _rows_mean(self.params, self.params[c], mean)
+        mom = _rows_mean([o.momentum for o in self.outer_opt],
+                         self.outer_opt[c].momentum, mean)
+        self.params[c] = params
+        self.outer_opt[c] = nesterov.NesterovState(
+            step=torch.zeros((), dtype=torch.int32, device=self.device),
+            momentum=mom)
+        self.inner_opt[c] = _own(self._inner0[c])
+        self.error[c] = self._zeros(params)
+        self.comp[c] = _own(self._comp0)   # re-INIT, never zeroed (PowerSGD)
+        self.store[c].clear()              # engine retires the old epoch too
+        self._inflight.pop(c, None)
+        self.alive[c] = True
+
+    def final_params(self):
+        """The clusters' params stacked; the run is over, so the store and
+        in-flight buffers are dropped first."""
+        self.store = [dict() for _ in range(self.C)]
+        self._inflight.clear()
+        return T.tree_map(lambda *xs: torch.stack(xs), *self.params)
+
+
+def _simulate_bounded_stale(sc: Scenario,
+                            numeric: Optional[NumericProblem]) -> Timeline:
+    """Drive ``BoundedStaleEngine`` over the scenario: modeled per-cluster
+    leg/publish times from the SAME host arithmetic the barrier path uses
+    (``_jitter_factors`` salts 1/2, fault multipliers), push-sum-supported
+    mixing weights, and one :class:`RoundEvent` per committed outer step.
+
+    ``sc.delay`` is ignored here on purpose: publish-at-finish means the
+    send *always* overlaps the staleness wait and the next leg, which
+    subsumes the §2.3 one-step-delay rule — ``exposed_comm_s`` records the
+    gate wait instead.
+    """
+    if sc.topology_seed_schedule is not None:
+        raise ValueError(
+            "sync='bounded_stale' gates on a FIXED peer set per cluster; "
+            "a per-round topology re-draw would change the staleness-gate "
+            "semantics mid-flight (run dynamic topologies under barrier)")
+
+    C = sc.n_clusters
+    compressor = make_compressor(sc.compressor, **sc.compressor_kw)
+    wire = int(compressor.wire_bytes(sc.shapes(), rank=sc.rank))
+    topo = sc.topo()
+    W_base = async_mix_weights(topo)
+    peers = [tuple(p for p in range(C) if p != c and W_base[c, p] > 0.0)
+             for c in range(C)]
+    leg_seconds, send_seconds, sends = async_modeled_times(sc, wire, topo)
+
+    execr = (None if numeric is None
+             else _AsyncNumeric(sc, numeric, compressor, W_base))
+
+    events = []
+    wall = []
+
+    def on_commit(ev) -> None:
+        loss = param_hash = disagreement = None
+        c, k = ev.cluster, ev.round
+        times = dict(cluster=c, round=k, publish_s=0.0, commit_s=0.0,
+                     hash_s=0.0, disagreement_s=0.0)
+        if execr is not None:
+            (loss, param_hash, disagreement, times["commit_s"],
+             times["hash_s"], times["disagreement_s"]) = execr.commit(ev)
+            times["publish_s"] = execr.publish_s.pop(c)
+        t_comp, wait, t_send = (float(ev.t_compute), float(ev.wait),
+                                float(ev.t_send))
+        spans = [("inner", c, 0.0, t_comp),
+                 ("stale_wait", c, t_comp, wait)]
+        if t_send > 0:
+            spans.append(("wire", c, t_comp, t_send))
+        spans.append(("leg", c, 0.0, t_comp + wait))
+        events.append(RoundEvent(
+            round=k, alive=ev.alive, rejoined=ev.rejoined,
+            h_steps=sc.h_steps, rank=sc.rank,
+            t_compute_s=t_comp, t_comm_s=t_send, exposed_comm_s=wait,
+            t_round_s=t_comp + wait, wire_bytes=wire,
+            slowest_cluster=c, bottleneck_cluster=c,
+            tokens=sc.tokens_per_step * sc.h_steps / max(C, 1),
+            faults=sc.faults.active(k), loss=loss, param_hash=param_hash,
+            wire_bytes_total=wire * sends[c], disagreement=disagreement,
+            t_compute_by=(t_comp,), idle_by=(wait,),
+            spans=tuple(spans), cluster=c, staleness=ev.staleness,
+            round_clock=ev.round_clock, t_start_s=float(ev.t_start)))
+        wall.append(times)
+
+    alive0 = (None if sc.initial_alive is None
+              else tuple(int(i) for i in
+                         np.flatnonzero(np.asarray(sc.initial_alive, bool))))
+    engine = BoundedStaleEngine(
+        n_clusters=C, rounds=sc.rounds, max_staleness=sc.max_staleness,
+        peers=peers, leg_seconds=leg_seconds, send_seconds=send_seconds,
+        commit=on_commit,
+        on_publish=(execr.publish if execr is not None else None),
+        leaves=sc.faults.leave_events(),
+        joins=sc.faults.join_events(), initial_alive=alive0,
+        on_leave=(execr.on_leave if execr is not None else None),
+        on_join=(execr.on_join if execr is not None else None))
+    engine.run()
+
+    tl = Timeline(scenario=sc.meta(), events=events)
+    tl.wall = wall
+    if execr is not None:
+        tl.final_params = execr.final_params()
     return tl
 
 

@@ -19,7 +19,8 @@ from repro_torch.topology.graphs import (GATHER_KINDS, GOSSIP_KINDS, KINDS,
                                          directed_ring, full, make_topology,
                                          ring, random_regular, star, torus)
 from repro_torch.topology.mixing import (MixingMatrix, async_mix_weights,
-                                         consensus_distance, mix_row,
+                                         consensus_distance,
+                                         consensus_distance_trees, mix_row,
                                          mix_stacked, mixing_op,
                                          push_sum_average, push_sum_round,
                                          push_sum_weights)
@@ -29,7 +30,7 @@ __all__ = [
     "full", "KINDS", "GATHER_KINDS", "GOSSIP_KINDS",
     "Digraph", "as_digraph", "directed_ring",
     "MixingMatrix", "mixing_op", "mix_row", "mix_stacked",
-    "consensus_distance",
+    "consensus_distance", "consensus_distance_trees",
     "push_sum_weights", "push_sum_round", "push_sum_average",
     "async_mix_weights",
     "GossipComm", "gossip_round_comm", "round_wire_total",

@@ -13,6 +13,7 @@
 The matrices, push-sum weights and ``consensus_distance`` are numpy,
 copied from the JAX package (float32 matrices, the same bytes); the
 membership mask goes through ``core.membership.masked_mixing_matrix``.
+``consensus_distance_trees`` is the same distance taken on the device.
 
 ``mixing_op(topology, alive)`` produces the ``cluster_mean``-shaped
 callable ``core.diloco.diloco_round`` consumes: the masked global mean for
@@ -192,6 +193,40 @@ def consensus_distance(stacked: np.ndarray, alive: np.ndarray) -> float:
         return 0.0
     centred = rows - rows.mean(axis=0, keepdims=True)
     return float(np.sqrt(np.mean(centred ** 2)))
+
+
+# consensus_distance_trees takes a leaf this many elements at a time, so
+# its float64 temporaries stay small beside a model's embedding
+_DIST_CHUNK = 1 << 24
+
+
+@torch.no_grad()
+def consensus_distance_trees(trees: Sequence[Any], alive) -> float:
+    """``consensus_distance`` of one tree per cluster (the rows flattened
+    leaf after leaf), computed on the trees' device: leaf by leaf and
+    ``_DIST_CHUNK`` elements at a time, in float64, the alive rows' mean
+    and then the RMS of the centred alive rows over every element.  No
+    row is copied to the host; the value agrees with the numpy form to
+    float64 rounding (the sums run in another order)."""
+    rows = [T.leaves(t) for t, a in zip(trees, np.asarray(alive, bool))
+            if a]
+    if not rows:
+        return 0.0
+    n = len(rows)
+    total = torch.zeros((), dtype=torch.float64, device=rows[0][0].device)
+    count = 0
+    for leaf in zip(*rows):
+        flat = [x.reshape(-1) for x in leaf]
+        for s in range(0, flat[0].numel(), _DIST_CHUNK):
+            xs = [x[s:s + _DIST_CHUNK].double() for x in flat]
+            mean = xs[0]
+            for x in xs[1:]:
+                mean = mean + x
+            mean = mean / n
+            for x in xs:
+                total += torch.sum(torch.square(x - mean))
+        count += flat[0].numel()
+    return float(torch.sqrt(total / (n * count)))
 
 
 # ---------------------------------------------------------------------------

@@ -1258,3 +1258,46 @@ def test_cuda_tree_hash_is_the_host_copys():
     on_card = {"w": tree["w"].cuda(), "b": [x.cuda() for x in tree["b"]],
                "s": tree["s"].cuda()}
     assert tree_hash(on_card) == tree_hash(tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+@pytest.mark.parametrize("name", ["test_engine.py:237",
+                                  "test_engine.py:280",
+                                  "test_engine.py:294 trimmed"])
+def test_cuda_async_simulator_quadratic_matches_cpu(no_tf32, name, backend):
+    """The bounded-stale executor (chip_smoke.py 4p's second leg) on the
+    card against the port's CPU run of the same scenario and backend: the
+    same timeline but its numeric fields, losses and params within 4p's
+    stated tolerances."""
+    _need_cuda()
+    cs = load_chip_smoke()
+    got = cs.sim_async_quadratic_run(name, backend, torch.device("cuda"))
+    want = cs.sim_async_quadratic_run(name, backend, torch.device("cpu"))
+    timing_ok, loss_err, param_err, wire_ok = cs.sim_quadratic_gap(got, want)
+    assert timing_ok and wire_ok
+    assert loss_err <= cs.SIM_QUAD_LOSS_RTOL, loss_err
+    assert param_err <= cs.SIM_QUAD_PARAM_RTOL, param_err
+
+
+@pytest.mark.cuda
+def test_cuda_disagreement_on_the_card_equals_numpy():
+    """``consensus_distance_trees`` on trees on the card against the numpy
+    ``consensus_distance`` of their host copies, within 1e-10 relative
+    (float64 on both sides, other summation orders)."""
+    _need_cuda()
+    from repro_torch.topology import mixing as PM
+
+    gen = torch.Generator().manual_seed(0)
+    C = 4
+    trees = [{"w": torch.randn(301, 77, generator=gen),
+              "b": torch.randn(4099, generator=gen) * 5}
+             for _ in range(C)]
+    flat = np.stack([np.concatenate([t["w"].numpy().ravel(),
+                                     t["b"].numpy().ravel()])
+                     for t in trees])
+    for alive in (np.ones(C, bool), np.array([1, 0, 1, 1], bool)):
+        want = PM.consensus_distance(flat, alive)
+        on_card = [{k: v.cuda() for k, v in t.items()} for t in trees]
+        got = PM.consensus_distance_trees(on_card, alive)
+        assert abs(got - want) <= 1e-10 * want, (got, want)

@@ -71,6 +71,9 @@ def test_every_module_imports_with_jax_blocked():
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from repro_torch.sim import (AsyncCommit, BoundedStaleEngine,\n"
+            "                             async_modeled_times)\n"
+            "from repro_torch.sim.simulator import _AsyncNumeric\n"
             "print('imported', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

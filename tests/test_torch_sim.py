@@ -13,8 +13,9 @@ barrier mode) against the JAX package's ``repro.sim``.
   (f32, bf16, int32, 0-d and empty leaves, nested dicts, lists and
   NamedTuples); ``combine_row_hashes`` is a copy.
 - Refusals: what the port does not have raises naming its ROADMAP item
-  (A.14 items 2, 3, 4); the JAX package's own refusals keep their type and
-  message.
+  (A.14 items 3, 4); the JAX package's own refusals keep their type and
+  message. ``sync="bounded_stale"`` (item 2) runs: its refusal test now
+  holds the scenario's timeline to JAX's.
 """
 import dataclasses
 from typing import NamedTuple
@@ -271,9 +272,17 @@ def test_adaptive_refused_naming_item_3(case):
 
 
 def test_bounded_stale_refused_naming_item_2():
-    sc = _hsched(P, sync="bounded_stale")
-    with pytest.raises(NotImplementedError, match="A.14 item 2"):
-        P.simulate(sc)
+    """``sync="bounded_stale"`` was refused here until the bounded-stale
+    engine was ported (A.14 item 2); the scenario the refusal was pinned
+    on now runs, timing-only, into JAX's timeline (``tests/
+    test_torch_engine.py`` holds the rest of the engine's twins)."""
+    got = P.simulate(_hsched(P, sync="bounded_stale"))
+    want = J.simulate(_hsched(J, sync="bounded_stale"))
+    assert got.fingerprint() == want.fingerprint()
+    assert got.structural_fingerprint() == want.structural_fingerprint()
+    assert got.to_dict() == want.to_dict()
+    assert len(got.events) == 3 * 4
+    assert all(e.cluster is not None for e in got.events)
 
 
 def test_pp_lm_problem_refused_naming_item_4():
